@@ -10,20 +10,31 @@ Phases (each prints a line; any failure exits non-zero without a result):
      limit as nvidia-smi prints them;
   2. build every kernel from heimdall_tpu_torch/csrc (one nvcc per source,
      in parallel) and time the build;
-  3. hold every kernel against its plain PyTorch version on the card:
-     bench frames in each input form, adversarial frames (also with K = 4,
-     fewer slots than blobs) and an odd frame size; equality is exact
-     (tolerance 0);
-  4. drive the detector's main path: ContaminationDetector.run_device at
-     640x480x3 channel-major, batch 256, K = 64, then verdict_device, then
-     detect_batch with contours on 4 frames, with every kernel's launch
-     count set to 0 just before and read just after;
-  5. times with CUDA events after warm-up: the kernel, its plain version,
-     and the main path end to end (frames already on the card);
-  6. one JSON line listing every kernel with its check and times;
-then the last line {"ok": true, "device": {...}}.  With --profile DIR, a
-per-kernel breakdown from torch.profiler goes to
-DIR/fused_detect_profile.txt.
+  3. hold every kernel against its plain PyTorch version on the card,
+     exactly (tolerance 0):
+     a. the fused 640x480 kernel: bench frames in each input form,
+        adversarial frames (also with K = 4, fewer slots than blobs) and an
+        odd frame size;
+     b. the band-tiled 2 MP kernels (preprocess, flood fill, band labels,
+        band merge, banded stats, bbox sums) at 1920x1080: bench Mono8 and
+        BGR frames, adversarial frames and masks with K = 64 and K = 4, and
+        a frame whose height is not a multiple of the band;
+  4. drive the detector's main paths, each with every kernel's launch count
+     set to 0 just before and read just after:
+     a. ContaminationDetector.run_device at 640x480x3 channel-major, batch
+        256, K = 64, then verdict_device, then detect_batch with contours
+        on 4 frames;
+     b. the same three at 1920x1080 Mono8, batch 128 (the band-tiled
+        route); one run_device call runs with CUDA sync debugging set to
+        "error", so a host sync inside the route fails it; the first 2
+        frames' table, confidence and gates must equal the CPU path;
+  5. times with CUDA events after warm-up: each kernel, its plain version
+     and its bound; the main paths end to end (frames already on the card):
+     640x480x3, and 1920x1080 Mono8 and BGR;
+  6. JSON lines listing every kernel with its check and times;
+then the last line {"ok": true, "device": {...}}.  With --profile DIR,
+per-kernel breakdowns from torch.profiler go to
+DIR/fused_detect_profile.txt and DIR/tiled_2mp_profile.txt.
 """
 
 import json
@@ -36,6 +47,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 256
 K = 64
 CONTRAST = 15
+# The 2 MP design point (4 Basler acA1920 cameras): main-path batch, the
+# batch at which each tiled kernel and its plain version are timed, and
+# the band of the detector's tiled route.
+BATCH_2MP = 128
+TIME_BATCH_2MP = 32
+H2, W2 = 1080, 1920
+ODD_2MP = (1037, 1531)        # a height that is not a multiple of the band
 # Published peaks of one H100 SXM (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -64,6 +82,263 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def max_abs_err(got, want):
+    """Largest |a - b| over paired tensors (shapes must match)."""
+    import torch
+    err = 0
+    for a, b in zip(got, want):
+        if a.shape != b.shape:
+            fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if a.numel():
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                               .abs().max()))
+    return err
+
+
+def cuda_ms_only(setup, fn, iters):
+    """Mean milliseconds of fn() alone over iters runs, each after setup()
+    (not timed), with CUDA events."""
+    import torch
+    total = 0.0
+    for _ in range(iters):
+        setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def tiled_stages(x, channel_major, k, band, mask=None, plain=False):
+    """The tiled route's stages on frames x, by kernel or by plain version:
+    {stage: outputs}.  With mask, the fill starts from it instead of the
+    preprocess's binary plane."""
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    from heimdall_tpu_torch.ops import stats_tiled as st
+    out = {}
+    pre = fk.preprocess_reference if plain else fk.preprocess
+    out["preprocess"] = gray, binary = pre(x, CONTRAST, channel_major)
+    fill = ct.flood_reference if plain else ct.flood_fill
+    filled = fill(binary if mask is None else mask)
+    out["flood_fill"] = (filled,)
+    bccl = ct.band_ccl_reference if plain else ct.band_ccl
+    out["band_ccl"] = lab, roots, counts = bccl(filled, band, 8, max(k, 128))
+    merge = ct.merge_reference if plain else ct.merge_bands
+    out["merge_bands"] = labels, rl, n, sl, sc = merge(
+        lab.clone(), roots, counts, band, 8, k)
+    color = x if x.dim() == 4 and x.shape[1 if channel_major else -1] == 3 \
+        else None
+    stats = st.banded_stats_reference if plain else st.banded_stats
+    out["banded_stats"] = sums, bbox = stats(labels, filled, gray, color, rl,
+                                             n, k, channel_major)
+    box = st.bbox_sums_reference if plain else st.bbox_sums
+    out["bbox_sums"] = (box(bbox, sl, sc, band, gray, color, channel_major),)
+    return out
+
+
+def check_tiled(name, x, channel_major, k, band, mask=None):
+    """Hold every tiled kernel against its plain version on one case; the
+    largest error over all of them (0 or the run fails)."""
+    import torch
+    got = tiled_stages(x, channel_major, k, band, mask)
+    torch.cuda.synchronize()
+    want = tiled_stages(x, channel_major, k, band, mask, plain=True)
+    torch.cuda.synchronize()
+    errs = {s: max_abs_err(got[s], want[s]) for s in got}
+    n = got["merge_bands"][2].tolist()
+    phase(f"check 2MP {name}: n_blobs {n[:8]} max_abs_err {errs}")
+    if any(errs.values()):
+        fail(f"a tiled kernel differs from its plain version on {name}")
+    return max(errs.values())
+
+
+def tiled_phases(dev, smi, argv):
+    """Phases 3b, 4b and 5 of the band-tiled 2 MP route; returns
+    (largest check error, {kernel: launches}, {kernel: timings})."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import ContaminationDetector, scene
+    from heimdall_tpu_torch.detectors.contamination_detector import TILED_BAND
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    from heimdall_tpu_torch.ops import stats_tiled as st
+
+    band = TILED_BAND
+    wrappers = {"preprocess": fk.preprocess, "flood_fill": ct.flood_fill,
+                "band_ccl": ct.band_ccl, "merge_bands": ct.merge_bands,
+                "banded_stats": st.banded_stats, "bbox_sums": st.bbox_sums}
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    # -- 3b. tiled kernels against their plain versions --------------------
+    bench = scene.make_frames(4, H2, W2, seed=2)
+    masks = scene.adversarial_masks(H2, W2, seed=1)
+    adv = scene.mask_frames(list(masks.values()))
+    adv_masks = on(np.stack(list(masks.values())))
+    odd = scene.make_frames(2, *ODD_2MP, seed=5)
+    err = 0
+    for name, x, cm, k, mask in (
+            ("bench4_mono8", on(bench[..., 1]), False, K, None),
+            ("bench4_bgr_nhwc", on(bench), False, K, None),
+            ("bench4_bgr_channel_major", on(bench.transpose(0, 3, 1, 2)),
+             True, K, None),
+            ("adversarial_frames", on(adv.transpose(0, 3, 1, 2)), True, K,
+             None),
+            ("adversarial_masks", on(adv[..., 0]), False, K, adv_masks),
+            ("adversarial_masks_k4", on(adv[..., 0]), False, 4, adv_masks),
+            ("bench2_odd_mono8", on(odd[..., 2]), False, K, None)):
+        err = max(err, check_tiled(name, x, cm, k, band, mask))
+
+    # -- 4b. the 2 MP main path --------------------------------------------
+    frames = scene.make_frames(BATCH_2MP, H2, W2, seed=2)
+    mono_np = np.ascontiguousarray(frames[..., 1])
+    x = on(mono_np)
+    det = ContaminationDetector(config={"include_contours": False})
+    det_c = ContaminationDetector(config={"include_contours": True})
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    table, conf, accepted = det.run_device(x)
+    torch.cuda.set_sync_debug_mode("default")
+    reject, max_conf = det.verdict_device(x)
+    defects = det_c.detect_batch(mono_np[:2])
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    phase(f"main path 2MP: run_device + verdict_device + detect_batch "
+          f"(1920x1080 Mono8, batch {BATCH_2MP}) launched {launches}; "
+          f"run_device made no host sync")
+    if not all(launches.values()):
+        fail("the 2 MP main path did not go through every tiled kernel")
+    if (table.area.shape != (BATCH_2MP, K)
+            or not bool(torch.isfinite(conf).all())
+            or not bool(torch.isfinite(table.area).all())):
+        fail("2 MP outputs have the wrong shape or are not finite")
+    cpu = ContaminationDetector(config={"include_contours": False},
+                                device="cpu")
+    t_cpu, c_cpu, a_cpu = cpu.run_device(mono_np[:2])
+    for f in table._fields:
+        if not torch.equal(getattr(table, f)[:2].cpu(), getattr(t_cpu, f)):
+            fail(f"2 MP table field {f} differs from the CPU path")
+    if not (torch.equal(conf[:2].cpu(), c_cpu)
+            and torch.equal(accepted[:2].cpu(), a_cpu)):
+        fail("2 MP confidence/gates differ from the CPU path")
+    if not all(d and all("contour" in e.metadata for e in d) for d in defects):
+        fail("2 MP detect_batch with contours returned no contoured defects")
+    phase(f"main path 2MP: n_blobs[:8] {table.n_blobs[:8].tolist()} "
+          f"rejects {int(reject.sum())}/{BATCH_2MP} "
+          f"max conf {float(max_conf.max()):.6f} "
+          f"defects/frame (contours) {[len(d) for d in defects]}; "
+          f"first 2 frames equal to the CPU path")
+
+    # -- 5. times: each tiled kernel, its plain version, its bound ----------
+    xt = x[:TIME_BATCH_2MP]
+    kern = tiled_stages(xt, False, K, band)
+    gray, binary = kern["preprocess"]
+    (filled,) = kern["flood_fill"]
+    lab, roots, counts = kern["band_ccl"]
+    labels, rl, n, sl, sc = kern["merge_bands"]
+    sums, bbox = kern["banded_stats"]
+    px = TIME_BATCH_2MP * H2 * W2
+    buf = torch.empty_like(lab)
+    calls = {
+        "preprocess": (lambda: fk.preprocess(xt, CONTRAST),
+                       lambda: fk.preprocess_reference(xt, CONTRAST)),
+        "flood_fill": (lambda: ct.flood_fill(binary),
+                       lambda: ct.flood_reference(binary)),
+        "band_ccl": (lambda: ct.band_ccl(filled, band, 8, 128),
+                     lambda: ct.band_ccl_reference(filled, band, 8, 128)),
+        "merge_bands": (lambda: ct.merge_bands(buf, roots, counts, band, 8,
+                                               K),
+                        lambda: ct.merge_reference(lab, roots, counts, band,
+                                                   8, K)),
+        "banded_stats": (lambda: st.banded_stats(labels, filled, gray, None,
+                                                 rl, n, K),
+                         lambda: st.banded_stats_reference(
+                             labels, filled, gray, None, rl, n, K)),
+        "bbox_sums": (lambda: st.bbox_sums(bbox, sl, sc, band, gray),
+                      lambda: st.bbox_sums_reference(bbox, sl, sc, band,
+                                                     gray)),
+    }
+    # bytes each function must move: inputs read once, outputs written once
+    R = -(-H2 // band)
+    small = TIME_BATCH_2MP * (R * 128 + R + K + 1 + R * K + R) * 4
+    listed = torch.arange(K, device=dev) < sc[..., None].long()
+    k_ids = torch.where(listed, sl.long(), 0)
+    bb = bbox.long().gather(2, k_ids.reshape(TIME_BATCH_2MP, 1, -1).expand(
+        -1, 4, -1)).reshape(TIME_BATCH_2MP, 4, R, K)
+    top = torch.arange(R, device=dev)[None, :, None] * band
+    rows = (torch.minimum(bb[:, 3], (top + band).clamp(max=H2) - 1)
+            - torch.maximum(bb[:, 1], top) + 1).clamp(min=0)
+    cols = (bb[:, 2] - bb[:, 0] + 1).clamp(min=0)
+    window_px = int((rows * cols * listed).sum())
+    moved = {
+        "preprocess": px * 3,                       # frame in, gray + binary
+        "flood_fill": px * 2,                       # mask in, filled out
+        "band_ccl": px * 5 + small,                 # mask in, labels out
+        "merge_bands": px * 8 + small,              # labels in and out
+        "banded_stats": px * 6 + TIME_BATCH_2MP * 12 * K * 4,
+        "bbox_sums": window_px + TIME_BATCH_2MP * (R * K + R + 8 * K) * 4,
+    }
+    timings = {}
+    for name, (kfn, pfn) in calls.items():
+        if name == "merge_bands":      # merges in place: restore its input
+            ms = cuda_ms_only(lambda: buf.copy_(lab), kfn, 10)
+        else:
+            kfn()
+            ms = cuda_ms(kfn, 10)
+        pfn()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(pfn, 1)
+        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = (px * MEAN_FLOPS_PER_PX / F32_FLOPS_PER_S * 1e3
+                  if name == "preprocess" else 0.0)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms,
+                             bound_ms=max(bytes_ms, ops_ms),
+                             bound_by="bytes" if bytes_ms >= ops_ms
+                             else "operations", bytes=moved[name])
+        phase(f"{smi}: {name} {ms:.4f} ms per {TIME_BATCH_2MP} frames of "
+              f"1920x1080 Mono8 ({ms / TIME_BATCH_2MP * 1e3:.3f} us/frame); "
+              f"plain version {plain_ms:.2f} ms; bound "
+              f"{timings[name]['bound_ms']:.4f} ms ({moved[name]} bytes)")
+
+    for form, xe, cm in (("mono8", x, False),
+                         ("bgr_channel_major",
+                          on(frames.transpose(0, 3, 1, 2)), True)):
+        det.run_device(xe, channel_major=cm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            det.run_device(xe, channel_major=cm)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+        phase(f"{smi}: main path 2MP {form} end to end {dt * 1e3:.3f} ms "
+              f"per batch of {BATCH_2MP} = {BATCH_2MP / dt:.1f} frames/s")
+        del xe
+
+    if "--profile" in argv:
+        out_dir = argv[argv.index("--profile") + 1]
+        os.makedirs(out_dir, exist_ok=True)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                det.run_device(x)
+            torch.cuda.synchronize()
+        text = prof.key_averages().table(sort_by="cuda_time_total",
+                                         row_limit=40)
+        with open(os.path.join(out_dir, "tiled_2mp_profile.txt"), "w") as fh:
+            fh.write(f"{smi}\n3 x run_device, 1920x1080 Mono8, batch "
+                     f"{BATCH_2MP}\n{text}\n")
+        phase(f"profile: {out_dir}/tiled_2mp_profile.txt")
+    return err, launches, timings
 
 
 def main(argv):
@@ -230,7 +505,36 @@ def main(argv):
             fh.write(f"{smi}\n5 x run_device, batch {BATCH}\n{text}\n")
         phase(f"profile: {out_dir}/fused_detect_profile.txt")
 
-    # -- 6. kernels line ------------------------------------------------------
+    # -- 3b-5 for the band-tiled 2 MP route --------------------------------
+    err2, launches2, times2 = tiled_phases(dev, smi, argv)
+
+    # -- 6. kernels lines -----------------------------------------------------
+    csrc = "heimdall_tpu_torch/csrc/"
+    tiled = {    # name: (source, the TPU kernel or XLA code it replaces)
+        "band_ccl": ("ccl_tiled.cu", "heimdall_tpu/ops/ccl_tiled.py:68"),
+        "flood_fill": ("ccl_tiled.cu", "heimdall_tpu/ops/ccl_tiled.py:837"),
+        "banded_stats": ("stats_tiled.cu",
+                         "heimdall_tpu/ops/stats_tiled.py:89"),
+        "bbox_sums": ("stats_tiled.cu",
+                      "heimdall_tpu/ops/stats_tiled.py:200"),
+        # XLA work of the JAX package (no Pallas kernel), on the same path
+        "merge_bands": ("ccl_tiled.cu", "heimdall_tpu/ops/ccl_tiled.py:653"),
+        "preprocess": ("fused_detect.cu",
+                       "heimdall_tpu/detectors/contamination_detector.py:151"),
+    }
+
+    def entry(name):
+        src, replaces = tiled[name]
+        t = times2[name]
+        return {"name": name, "route": "cuda", "source": csrc + src,
+                "replaces": replaces, "equal": err2 == 0,
+                "launches": launches2[name], "max_abs_err": err2,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None,
+                "library_note": "no single PyTorch call computes it",
+                "batch": TIME_BATCH_2MP, "frame": "1920x1080 Mono8"}
+
     kernels = [{
         "name": "fused_detect",
         "route": "cuda",
@@ -244,7 +548,12 @@ def main(argv):
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-    }]
+        "library_note": "no single PyTorch call computes it",
+        "batch": BATCH, "frame": "640x480x3",
+    }] + [entry(n) for n in ("band_ccl", "flood_fill", "banded_stats",
+                             "bbox_sums")]
+    print(json.dumps({"path_kernels": [entry("merge_bands"),
+                                       entry("preprocess")]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,32 +34,21 @@
 // sequence, columns first, then rows over the un-rounded intermediate, with
 // __fmul_rn/__fadd_rn (never contracted to FMA; the file is also built with
 // -fmad=false), and rounded half to even with __float2int_rn.
+//
+// hd_preprocess (at the end of the file) runs the preprocess stages alone
+// for frames of any size, for the band-tiled route.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTileW = 32;        // one warp = 32 consecutive pixels of a row
-constexpr int kTileH = 8;         // 8 warps per block
 constexpr int kStatsRows = 64;    // rows per block in the stats kernel
 
 struct Taps {
   int q8[5];
   float k11[11];
-};
-
-struct Frames {
-  const uint8_t* data;
-  int C;
-  long long fstride, cstride, pstride;
-};
-
-struct Geom {
-  int H, W;
-  long long HW;
 };
 
 __device__ __forceinline__ int reflect101(int i, int n) {
@@ -78,34 +67,6 @@ __device__ __forceinline__ int gray_at(const Frames& f, int b, long long p) {
     return (bb * 3735 + gg * 19235 + rr * 9798 + (1 << 14)) >> 15;
   }
   return d[0];
-}
-
-// Per-thread pixel coordinates for the (32 x 8) block mapping.
-struct Pix {
-  int x, y, b, lane;
-  bool in;
-  long long p;   // linear index within the frame
-};
-
-__device__ __forceinline__ Pix pix(const Geom& g) {
-  Pix q;
-  q.lane = threadIdx.x;
-  q.x = blockIdx.x * kTileW + threadIdx.x;
-  q.y = blockIdx.y * kTileH + threadIdx.y;
-  q.b = blockIdx.z;
-  q.in = q.x < g.W && q.y < g.H;
-  q.p = (long long)q.y * g.W + q.x;
-  return q;
-}
-
-// Linear index of the first pixel of this lane's run of equal `v` within the
-// warp's 32-pixel row segment.  Every lane of the warp must call it.
-__device__ __forceinline__ int run_start(bool v, const Pix& q) {
-  unsigned bits = __ballot_sync(kFull, v);
-  unsigned starts = (bits ^ (bits << 1)) | 1u;
-  unsigned upto = starts & ((2u << q.lane) - 1u);
-  int start_lane = 31 - __clz(upto);
-  return (int)(q.p - (q.lane - start_lane));
 }
 
 // ---------------------------------------------------------------- preprocess
@@ -198,61 +159,7 @@ __global__ void k_close_erode_init(Geom g, const uint8_t* in, uint8_t* fg,
 }
 
 // ------------------------------------------------------------- union-find
-
-__device__ __forceinline__ int find_root(const volatile int32_t* P, int x) {
-  int p = P[x];
-  while (p != x) {
-    x = p;
-    p = P[x];
-  }
-  return x;
-}
-
-// Hook the larger root under the smaller one.  A failed atomicMin means
-// another thread re-parented b first: carry on with b's new parent.
-__device__ void unite(int32_t* P, int a, int b) {
-  while (true) {
-    a = find_root(P, a);
-    b = find_root(P, b);
-    if (a == b) return;
-    if (a > b) {
-      int t = a;
-      a = b;
-      b = t;
-    }
-    int old = atomicMin(&P[b], a);
-    if (old == b) return;
-    b = old;
-  }
-}
-
-// Background, 4-connected.  Links inside a warp's row segment are already
-// made by the run-start parents; an up link is skipped when the left and
-// up-left pixels are background (their own links imply it).
-__global__ void k_link_bg(Geom g, const uint8_t* fg, int32_t* parent) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const uint8_t* m = fg + q.b * g.HW;
-  int32_t* P = parent + q.b * g.HW;
-  int p = (int)q.p;
-  if (m[p]) return;
-  bool left = q.x > 0 && !m[p - 1];
-  if (left && q.lane == 0) unite(P, p, p - 1);
-  if (q.y > 0 && !m[p - g.W] && !(left && !m[p - g.W - 1])) unite(P, p, p - g.W);
-}
-
-// Compress background paths and flag the roots that touch the frame border.
-__global__ void k_compress_mark(Geom g, const uint8_t* fg, int32_t* parent,
-                                int32_t* reach) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  long long base = q.b * g.HW;
-  if (fg[base + q.p]) return;
-  int r = find_root(parent + base, (int)q.p);
-  parent[base + q.p] = r;
-  if (q.x == 0 || q.y == 0 || q.x == g.W - 1 || q.y == g.H - 1)
-    reach[base + r] = 1;
-}
+// (the hole fill's k_link_bg and k_compress_mark are in common.cuh)
 
 // filled = fg | (bg not reached from the border); seeds the labeling
 // union-find with run starts of the filled mask.  Each thread reads and
@@ -304,34 +211,6 @@ __global__ void k_label(Geom g, const uint8_t* fg, int32_t* parent) {
 }
 
 // ------------------------------------------------------------ roots, slots
-
-// Exclusive block scan for blockDim.x == 256 (one dimension).
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sum[8];
-  __shared__ int all;
-  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int incl = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    int t = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += t;
-  }
-  if (lane == 31) warp_sum[wid] = incl;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0;
-    for (int w = 0; w < 8; ++w) {
-      int s = warp_sum[w];
-      warp_sum[w] = run;
-      run += s;
-    }
-    all = run;
-  }
-  __syncthreads();
-  int excl = incl - v + warp_sum[wid];
-  *total = all;
-  __syncthreads();
-  return excl;
-}
 
 // One block per (row, frame): raster rank of each root within its row
 // (written at the root's pixel in `rank`) and the row's root count.
@@ -472,19 +351,6 @@ __global__ void k_stats(Frames f, Geom g, int K, const uint8_t* fg,
   }
 }
 
-__device__ int block_sum(int v) {
-  __shared__ int part[8];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) part[wid] = v;
-  __syncthreads();
-  int t = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < 8; ++w) t += part[w];
-  __syncthreads();
-  return t;   // valid in thread 0
-}
-
 // One block per (slot, frame): zero the bbox of unused slots, and sum gray,
 // b, g, r over the inclusive bbox window of used ones.
 __global__ void k_bbox_sums(Frames f, Geom g, int K, const int32_t* nblobs,
@@ -519,32 +385,19 @@ __global__ void k_bbox_sums(Frames f, Geom g, int K, const int32_t* nblobs,
   }
 }
 
-}  // namespace
-
-// Runs the whole detect on `stream`.  Scratch planes are [B, H, W]:
-// gray/plane1/plane2 uint8, work int32 (also used as float32), labels int32
-// (the output label plane).  rowcnt/rowoff are int32 [B, H].  sums and bgsum
-// must be zeroed by the caller.  Returns the first CUDA error (0 = none).
-extern "C" int hd_fused_detect(
-    const uint8_t* frames, int B, int H, int W, int C, long long cstride,
-    long long pstride, int ct, int K, const int* q8, const float* k11,
-    uint8_t* gray, uint8_t* plane1, uint8_t* plane2, int32_t* work,
-    int32_t* labels, int32_t* rowcnt, int32_t* rowoff, int32_t* sums,
-    int32_t* bbox, int32_t* bgsum, int32_t* nblobs, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  Geom g{H, W, (long long)H * W};
-  Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
+// The preprocess passes of both entry points, up to the dilate of the
+// close: gray in `gray`, the dilated plane in plane1 (plane2 and work are
+// scratch).  Returns the first CUDA error.
+int launch_to_close_dilate(const Frames& f, const Geom& g, int B, int ct,
+                           const int* q8, const float* k11, uint8_t* gray,
+                           uint8_t* plane1, uint8_t* plane2, int32_t* work,
+                           cudaStream_t st) {
   Taps t;
   memcpy(t.q8, q8, sizeof(t.q8));
   memcpy(t.k11, k11, sizeof(t.k11));
-
   dim3 blk(kTileW, kTileH);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  dim3 grid((g.W + kTileW - 1) / kTileW, (g.H + kTileH - 1) / kTileH, B);
   float* fwork = reinterpret_cast<float*>(work);
-  cudaError_t e;
-#define HD_CHECK()                                   \
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e
-
   k_gray_blur_h<<<grid, blk, 0, st>>>(f, g, t, gray, work);
   HD_CHECK();
   k_blur_v<<<grid, blk, 0, st>>>(g, t, work, plane1);
@@ -559,6 +412,30 @@ extern "C" int hd_fused_detect(
   HD_CHECK();
   k_morph<<<grid, blk, 0, st>>>(g, plane2, plane1, 0);   // close: dilate
   HD_CHECK();
+  return 0;
+}
+
+}  // namespace
+
+// Runs the whole detect on `stream`.  Scratch planes are [B, H, W]:
+// gray/plane1/plane2 uint8, work int32 (also used as float32), labels int32
+// (the output label plane).  rowcnt/rowoff are int32 [B, H].  sums and bgsum
+// must be zeroed by the caller.  Returns the first CUDA error (0 = none).
+extern "C" int hd_fused_detect(
+    const uint8_t* frames, int B, int H, int W, int C, long long cstride,
+    long long pstride, int ct, int K, const int* q8, const float* k11,
+    uint8_t* gray, uint8_t* plane1, uint8_t* plane2, int32_t* work,
+    int32_t* labels, int32_t* rowcnt, int32_t* rowoff, int32_t* sums,
+    int32_t* bbox, int32_t* bgsum, int32_t* nblobs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Geom g{H, W, (long long)H * W, H, 1};
+  Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
+  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, gray, plane1, plane2,
+                                   work, st);
+  if (err) return err;
+
+  dim3 blk(kTileW, kTileH);
+  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   k_close_erode_init<<<grid, blk, 0, st>>>(g, plane1, plane2, labels, work);
   HD_CHECK();
   k_link_bg<<<grid, blk, 0, st>>>(g, plane2, labels);
@@ -582,9 +459,31 @@ extern "C" int hd_fused_detect(
   HD_CHECK();
   k_bbox_sums<<<dim3(K, B), 256, 0, st>>>(f, g, K, nblobs, gray, bbox, bgsum);
   HD_CHECK();
-#undef HD_CHECK
   return 0;
 }
 
 // Number of kernel launches one hd_fused_detect call makes.
 extern "C" int hd_fused_detect_launches() { return 17; }
+
+// The preprocess stages of hd_fused_detect alone, for frames of any size
+// (the band-tiled route of heimdall_tpu_torch/ops/ccl_tiled.py takes over
+// from the closed mask): gray u8 [B, H, W] and the closed binary plane
+// binary u8 [B, H, W] (0/1).  Scratch: work int32 [B, H, W] (also used as
+// float32), plane1/plane2 u8 [B, H, W].  Returns the first CUDA error.
+extern "C" int hd_preprocess(
+    const uint8_t* frames, int B, int H, int W, int C, long long cstride,
+    long long pstride, int ct, const int* q8, const float* k11,
+    uint8_t* gray, uint8_t* plane1, uint8_t* plane2, int32_t* work,
+    uint8_t* binary, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Geom g{H, W, (long long)H * W, H, 1};
+  Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
+  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, gray, plane1, plane2,
+                                   work, st);
+  if (err) return err;
+  dim3 blk(kTileW, kTileH);
+  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  k_morph<<<grid, blk, 0, st>>>(g, plane1, binary, 1);   // close: erode
+  HD_CHECK();
+  return 0;
+}

@@ -5,8 +5,11 @@ Per frame: gray -> GaussianBlur(5,5) -> adaptiveThreshold(GAUSSIAN_C,
 BINARY_INV, block 11, C=contrast_threshold) -> open then close (3x3 rect)
 -> hole fill -> 8-connected components -> per-blob statistics and the
 confidence blend 0.5*intensity + 0.2*shape + 0.3*color, then the size and
-confidence gates.  On the card the whole batch goes through the fused
-kernel of ops/fused_kernels.py; on the CPU through its plain version.
+confidence gates.  Frames of up to MAX_FRAME_PX (400,000) pixels go through
+the fused kernel of ops/fused_kernels.py; larger ones (the 1920x1080 design
+point) through ``contamination_program``'s band-tiled route: the kernel's
+preprocess stages, then ops/ccl_tiled.py and ops/stats_tiled.py.  On the
+card each stage launches its CUDA kernel; on the CPU its plain version.
 
 Host-side work is the frame upload, the download of the small blob table
 and, only when contour metadata is requested, border following on the
@@ -21,12 +24,64 @@ import torch
 
 from heimdall_tpu_torch.detectors.base import Defect, DefectDetector
 from heimdall_tpu_torch.ops.blobs import BlobTable
-from heimdall_tpu_torch.ops.fused_kernels import fused_detect
+from heimdall_tpu_torch.ops.ccl_tiled import (connected_components_tiled,
+                                              fill_holes_tiled)
+from heimdall_tpu_torch.ops.fused_kernels import (MAX_FRAME_PX,
+                                                  frame_layout, fused_detect,
+                                                  gate, preprocess)
+from heimdall_tpu_torch.ops.stats_tiled import (blob_stats_tiled,
+                                                check_sum_bound)
 from heimdall_tpu_torch.utils import contours as contours_mod
 
 # Config keys of the JAX detector that tune or route its TPU build only.
 TPU_TUNING_KEYS = ("backend", "ccl_sweeps", "ccl_adaptive", "ccl_scan_steps",
                    "rt_ccl", "rt_fill")
+
+
+# Rows per band of the tiled route that run_device takes for large frames.
+TILED_BAND = 128
+
+
+def contamination_program(images: torch.Tensor, contrast_threshold,
+                          min_size, max_size, min_confidence,
+                          max_blobs: int = 64, use_color: bool = True,
+                          formula: str = "python",
+                          return_labels: bool = False, tiled_band: int = 0,
+                          channel_major: bool = False):
+    """The batched detection program (counterpart of the JAX
+    contamination_program, without its TPU tuning knobs).
+
+    images: uint8 [N, H, W, 3] BGR, [N, H, W] Mono8, or with
+    channel_major=True [N, 3|1, H, W] planes, on the device it runs on.
+    With tiled_band = 0 the batch goes through the fused kernel
+    (ops/fused_kernels.py::fused_detect, frames of up to MAX_FRAME_PX).
+    With tiled_band > 0: preprocess -> fill_holes_tiled ->
+    connected_components_tiled -> blob_stats_tiled on bands of
+    min(tiled_band, 128) rows -> confidence -> gates.  Both routes give the
+    same outputs.
+
+    Returns (table: BlobTable, confidence [N,K] f32, accepted [N,K] bool
+    [, labels int32 [N,H,W]])."""
+    if tiled_band <= 0:
+        return fused_detect(images, contrast_threshold, min_size, max_size,
+                            min_confidence, max_blobs, use_color, formula,
+                            channel_major, return_labels)
+    band = min(tiled_band, 128)
+    _, C, H, W, _, _ = frame_layout(images, channel_major)
+    check_sum_bound(H, W)
+    gray, binary = preprocess(images, contrast_threshold, channel_major)
+    mask = fill_holes_tiled(binary, band=band)
+    labels, rl, n, slot_list, slot_count = connected_components_tiled(
+        mask, connectivity=8, band=band, return_roots=max_blobs,
+        band_slots=True)
+    table = blob_stats_tiled(labels, mask, gray,
+                             images if C == 3 else None, band=band,
+                             max_blobs=max_blobs, use_color=use_color,
+                             root_table=rl, root_count=n,
+                             slot_list=slot_list, slot_count=slot_count,
+                             channel_major=channel_major)
+    conf, accepted = gate(table, min_size, max_size, min_confidence, formula)
+    return (table, conf, accepted) + ((labels,) if return_labels else ())
 
 
 def resolve_device(device=None) -> torch.device:
@@ -66,11 +121,10 @@ class ContaminationDetector(DefectDetector):
 
     The JAX detector's TPU tuning keys (``backend``, ``ccl_sweeps``,
     ``ccl_adaptive``, ``ccl_scan_steps``, ``rt_ccl``, ``rt_fill``) are
-    accepted and ignored: on the card one route carries every frame of up
-    to 400,000 px, and its outputs are the fixpoint results the JAX
-    defaults give.  Larger frames raise NotImplementedError on the card
-    (the tiled 2 MP slice is still to be ported); the CPU path takes any
-    size.
+    accepted and ignored: frames of up to 400,000 px take the fused route
+    and larger ones (up to the int32 sum bound, about 2.2 MP) the
+    band-tiled route, on the card and on the CPU alike; both give the
+    fixpoint results the JAX defaults give.
 
     ``device`` defaults to CUDA; construction raises when no card is
     present unless ``device="cpu"`` is passed.
@@ -123,13 +177,15 @@ class ContaminationDetector(DefectDetector):
             raise ValueError(
                 f"channel_major expects [N, 1|3, H, W], got "
                 f"{tuple(images.shape)}")
-        return fused_detect(
+        _, _, H, W, _, _ = frame_layout(images, channel_major)
+        return contamination_program(
             images, int(self.contrast_threshold),
             float(self.min_contaminant_size),
             float(self.max_contaminant_size), float(self.min_confidence),
             max_blobs=self.max_blobs, use_color=self.use_color,
-            formula=self.formula, channel_major=channel_major,
-            return_labels=return_labels)
+            formula=self.formula, return_labels=return_labels,
+            tiled_band=TILED_BAND if H * W > MAX_FRAME_PX else 0,
+            channel_major=channel_major)
 
     def verdict_device(self, images, channel_major: bool = False):
         """Per-frame reject flag (any accepted blob) and max accepted

@@ -3,9 +3,10 @@
 Each source in ``heimdall_tpu_torch/csrc`` is compiled by ``nvcc`` into a
 shared library with a plain C interface (no PyTorch headers: seconds, not
 minutes) under ``heimdall_tpu_torch/_build/``, named by a hash of the
-sources and flags, at first use.  ``build`` starts one ``nvcc`` per missing
-library, all at once.  Libraries are loaded with ``ctypes``; pointers and
-the stream are passed as ``c_void_p``.
+source, the shared ``*.cuh`` headers and the flags, at first use.
+``build`` starts one ``nvcc`` per missing library, all at once.  Libraries
+are loaded with ``ctypes``; pointers and the stream are passed as
+``c_void_p``.
 """
 
 import ctypes
@@ -32,6 +33,20 @@ SIGNATURES = {
         "hd_fused_detect": [_P, _I, _I, _I, _I, _LL, _LL, _I, _I, _P, _P,
                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
         "hd_fused_detect_launches": [],
+        "hd_preprocess": [_P, _I, _I, _I, _I, _LL, _LL, _I, _P, _P, _P, _P,
+                          _P, _P, _P, _P],
+    },
+    "ccl_tiled": {
+        "hd_flood_fill": [_P, _I, _I, _I, _P, _P, _P, _P],
+        "hd_band_ccl": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "hd_merge_bands": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                           _P, _P, _P],
+    },
+    "stats_tiled": {
+        "hd_banded_stats": [_P, _I, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P,
+                            _P, _P, _P, _P, _P, _P],
+        "hd_bbox_sums": [_P, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P, _P, _P],
     },
 }
 
@@ -47,8 +62,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of csrc/<name>.cu is built, keyed by content."""
+    """Where the library of csrc/<name>.cu is built, keyed by its content,
+    the shared headers' and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -41,7 +41,7 @@ class BlobTable(NamedTuple):
     n_blobs: torch.Tensor          # int32 [...] — true blob count (may exceed K)
 
 
-def _box_sums(plane: torch.Tensor, x0, y0, x1, y1) -> torch.Tensor:
+def box_sums(plane: torch.Tensor, x0, y0, x1, y1) -> torch.Tensor:
     """Sums of plane [B, H, W] over the inclusive boxes [B, K] (int64)."""
     B, H, W = plane.shape
     ii = torch.zeros((B, H + 1, W + 1), dtype=torch.int64, device=plane.device)
@@ -73,23 +73,48 @@ def blob_sums(labels: torch.Tensor, mask: torch.Tensor, gray: torch.Tensor,
     B, H, W = mask.shape
     K = max_blobs
     HW = H * W
-    dev = mask.device
     lab = labels.reshape(B, HW).to(torch.int64)
     m = mask.reshape(B, HW)
-    lin = torch.arange(HW, device=dev)
-    is_root = m & (lab == lin)
+    is_root = m & (lab == torch.arange(HW, device=mask.device))
     n_blobs = is_root.sum(1)
     rank = is_root.cumsum(1) - 1                      # raster rank of roots
     slot = rank.gather(1, lab.clamp(max=HW - 1))      # rank of pixel's root
-    bid = torch.where(m & (slot < K), slot, K)        # K: dropped bucket
+    sums, bbox = slot_sums(mask, gray, color, torch.where(m, slot, K), K)
+    valid = sums[:, S_ONES] > 0
+    bbox = torch.where(valid[:, None], bbox, 0)
+    x0, y0, x1, y1 = bbox.unbind(1)
+    box_planes = [gray] + (list(color) if color is not None else [])
+    bg = [torch.where(valid, box_sums(p, x0, y0, x1, y1), 0)
+          for p in box_planes]
+    bg += [torch.zeros_like(x0)] * (4 - len(bg))
+    bgsum = torch.stack(bg, 1)
+    return (sums.to(torch.int32), bbox.to(torch.int32),
+            bgsum.to(torch.int32), n_blobs.to(torch.int32))
+
+
+def slot_sums(mask: torch.Tensor, gray: torch.Tensor,
+              color: Optional[Sequence[torch.Tensor]], slot: torch.Tensor,
+              max_blobs: int):
+    """Per-slot integer sums of the pixels in slots 0..K-1.
+
+    slot: int64 [B, H*W], each pixel's slot (>= K for none).  Returns
+    (sums int64 [B, 8, K] — ones, boundary, x, y, gray, b, g, r, the color
+    rows 0 without color planes; bbox int64 [B, 4, K] — x0, y0, x1, y1
+    inclusive, W, H, -1, -1 for a slot with no pixel)."""
+    B, H, W = mask.shape
+    K = max_blobs
+    HW = H * W
+    dev = mask.device
+    bid = slot.clamp(max=K)                           # K: dropped bucket
     flat = (torch.arange(B, device=dev)[:, None] * (K + 1) + bid).reshape(-1)
 
     mp = torch.zeros((B, H + 2, W + 2), dtype=torch.int32, device=dev)
     mp[:, 1:-1, 1:-1] = mask
     nb4 = (mp[:, :-2, 1:-1] + mp[:, 2:, 1:-1]
            + mp[:, 1:-1, :-2] + mp[:, 1:-1, 2:])
-    boundary = mask & (nb4 < 4)
+    boundary = mask.to(torch.bool) & (nb4 < 4)
 
+    lin = torch.arange(HW, device=dev)
     xs = (lin % W).expand(B, HW)
     ys = (lin // W).expand(B, HW)
     planes = [torch.ones((B, HW), dtype=torch.int64, device=dev),
@@ -106,20 +131,9 @@ def blob_sums(labels: torch.Tensor, mask: torch.Tensor, gray: torch.Tensor,
         out.scatter_reduce_(0, flat, v.reshape(-1), reduce=reduce)
         return out.view(B, K + 1)[:, :K]
 
-    valid = sums[:, S_ONES] > 0
-    x0 = torch.where(valid, extreme(xs, W, "amin"), 0)
-    y0 = torch.where(valid, extreme(ys, H, "amin"), 0)
-    x1 = torch.where(valid, extreme(xs, -1, "amax"), 0)
-    y1 = torch.where(valid, extreme(ys, -1, "amax"), 0)
-    bbox = torch.stack([x0, y0, x1, y1], 1)
-
-    box_planes = [gray] + (list(color) if color is not None else [])
-    bg = [torch.where(valid, _box_sums(p, x0, y0, x1, y1), 0)
-          for p in box_planes]
-    bg += [torch.zeros_like(x0)] * (4 - len(bg))
-    bgsum = torch.stack(bg, 1)
-    return (sums.to(torch.int32), bbox.to(torch.int32),
-            bgsum.to(torch.int32), n_blobs.to(torch.int32))
+    bbox = torch.stack([extreme(xs, W, "amin"), extreme(ys, H, "amin"),
+                        extreme(xs, -1, "amax"), extreme(ys, -1, "amax")], 1)
+    return sums.contiguous(), bbox
 
 
 def table_from_sums(sums: torch.Tensor, bbox: torch.Tensor,

@@ -8,7 +8,9 @@ the first-K-root statistics — and returns the raw outputs in the layout of
 kernel of ``csrc/fused_detect.cu``; on a CPU tensor it runs
 ``contamination_fused_reference``, the same function composed from the plain
 ops of this package.  ``fused_blob_table`` and ``fused_detect`` add the
-BlobTable formulas, the confidence blend and the gates.
+BlobTable formulas, the confidence blend and the gates (``gate``).
+``preprocess`` runs the kernel's preprocess stages alone (to the closed
+binary plane), for the band-tiled route of frames of any size.
 
 Accepted frame forms (uint8):
   [B, H, W, 3]  BGR,
@@ -31,13 +33,15 @@ from heimdall_tpu_torch.ops.filters import (_q8_taps_bitexact, f32_taps,
 from heimdall_tpu_torch.ops.morphology import morphology_ex
 from heimdall_tpu_torch.ops.threshold import adaptive_threshold
 
-# Frames up to this many pixels run in one launch sequence; larger frames
-# belong to the tiled 2 MP slice (ROADMAP.md, B2-B5), whose int32 sums also
-# need the wider bound of heimdall_tpu/ops/stats_tiled.py.
+# The detector sends frames of up to this many pixels through the fused
+# kernel and larger ones through the band-tiled route
+# (detectors/contamination_detector.py::contamination_program), whose int32
+# sums are guarded by ops/stats_tiled.py; a direct call of the fused kernel
+# on a larger frame raises.
 MAX_FRAME_PX = 400_000
 
 
-def _layout(frames: torch.Tensor, channel_major: bool):
+def frame_layout(frames: torch.Tensor, channel_major: bool):
     """(B, C, H, W, channel stride, pixel stride) of a frame batch."""
     if frames.dtype != torch.uint8:
         raise ValueError(f"frames must be uint8, got {frames.dtype}")
@@ -57,7 +61,7 @@ def _layout(frames: torch.Tensor, channel_major: bool):
 
 def _planes(frames: torch.Tensor, channel_major: bool):
     """(gray [B,H,W], color planes (b, g, r) or None)."""
-    B, C, H, W, _, _ = _layout(frames, channel_major)
+    B, C, H, W, _, _ = frame_layout(frames, channel_major)
     if C == 1:
         return frames.reshape(B, H, W), None
     if channel_major:
@@ -65,6 +69,71 @@ def _planes(frames: torch.Tensor, channel_major: bool):
     else:
         color = (frames[..., 0], frames[..., 1], frames[..., 2])
     return gray_from_planes(*color), color
+
+
+def _closed_binary(gray: torch.Tensor, contrast_threshold) -> torch.Tensor:
+    """Blur, INV threshold, open and close of a gray batch: u8, 1 = fg."""
+    blurred = gaussian_blur(gray, 5, 0)
+    binary = adaptive_threshold(blurred, 255, "gaussian", "binary_inv", 11,
+                                int(contrast_threshold))
+    se3 = np.ones((3, 3), np.uint8)
+    binary = morphology_ex(binary, "open", se3)
+    binary = morphology_ex(binary, "close", se3)
+    return (binary > 0).to(torch.uint8)
+
+
+def preprocess_reference(frames: torch.Tensor, contrast_threshold,
+                         channel_major: bool = False):
+    """Plain PyTorch version of hd_preprocess: (gray u8 [B,H,W], closed
+    binary u8 [B,H,W] with 1 for foreground)."""
+    gray, _ = _planes(frames, channel_major)
+    return gray, _closed_binary(gray, contrast_threshold)
+
+
+def _taps():
+    """The Q8 blur5 and f32 mean11 taps as C arrays."""
+    q8 = _q8_taps_bitexact(gaussian_kernel_1d(5, 0.0))
+    return (ctypes.c_int * 5)(*q8), (ctypes.c_float * 11)(*f32_taps(11))
+
+
+def preprocess(frames: torch.Tensor, contrast_threshold,
+               channel_major: bool = False):
+    """The fused kernel's preprocess stages alone, for frames of any size:
+    (gray u8 [B,H,W], closed binary u8 [B,H,W], 1 = foreground).
+
+    On a CUDA tensor this launches hd_preprocess of csrc/fused_detect.cu
+    (and raises if it cannot); on a CPU tensor it runs the plain version.
+    ``preprocess.launches`` counts kernel launches."""
+    if frames.device.type == "cpu":
+        return preprocess_reference(frames, contrast_threshold, channel_major)
+    if frames.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames.device}")
+    from heimdall_tpu_torch.ops import _cuda
+
+    B, C, H, W, cstride, pstride = frame_layout(frames, channel_major)
+    if not frames.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    if not (3 <= H and 3 <= W and 1 <= B <= 65535 and H * W < 2**31):
+        raise ValueError(f"unsupported shape B={B} H={H} W={W}")
+    u8 = torch.uint8
+    gray, plane1, plane2, binary = (
+        torch.empty((B, H, W), dtype=u8, device=frames.device)
+        for _ in range(4))
+    work = torch.empty((B, H, W), dtype=torch.int32, device=frames.device)
+    q8, k11 = _taps()
+    err = _cuda.library("fused_detect").hd_preprocess(
+        frames.data_ptr(), B, H, W, C, cstride, pstride,
+        int(contrast_threshold), q8, k11, gray.data_ptr(), plane1.data_ptr(),
+        plane2.data_ptr(), work.data_ptr(), binary.data_ptr(),
+        torch.cuda.current_stream(frames.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"preprocess kernel launch failed: CUDA error {err}")
+    preprocess.launches += 1
+    return gray, binary
+
+
+preprocess.launches = 0
 
 
 def contamination_fused_reference(frames: torch.Tensor, contrast_threshold,
@@ -77,13 +146,7 @@ def contamination_fused_reference(frames: torch.Tensor, contrast_threshold,
     n_blobs i32 [B]) and, with return_labels, the label plane i32
     [B,H,W] (background H*W)."""
     gray, color = _planes(frames, channel_major)
-    blurred = gaussian_blur(gray, 5, 0)
-    binary = adaptive_threshold(blurred, 255, "gaussian", "binary_inv", 11,
-                                int(contrast_threshold))
-    se3 = np.ones((3, 3), np.uint8)
-    binary = morphology_ex(binary, "open", se3)
-    binary = morphology_ex(binary, "close", se3)
-    mask = fill_holes(binary > 0)
+    mask = fill_holes(_closed_binary(gray, contrast_threshold) > 0)
     labels = connected_components(mask, connectivity=8)
     out = blobs_mod.blob_sums(labels, mask, gray, color, max_blobs)
     return out + (labels,) if return_labels else out
@@ -93,12 +156,14 @@ def _launch(frames: torch.Tensor, contrast_threshold, max_blobs: int,
             channel_major: bool, return_labels: bool):
     from heimdall_tpu_torch.ops import _cuda
 
-    B, C, H, W, cstride, pstride = _layout(frames, channel_major)
+    B, C, H, W, cstride, pstride = frame_layout(frames, channel_major)
     K = max_blobs
     if H * W > MAX_FRAME_PX:
         raise NotImplementedError(
             f"{H}x{W} frames exceed the fused kernel's {MAX_FRAME_PX} px; "
-            "they belong to the tiled 2 MP slice (ROADMAP.md, B2-B5)")
+            "larger frames (up to 2 MP) take the band-tiled route, "
+            "contamination_program(..., tiled_band=128), as "
+            "ContaminationDetector.run_device does")
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
     if not (3 <= H and 3 <= W and 1 <= B <= 65535 and 1 <= K <= 1024):
@@ -117,8 +182,7 @@ def _launch(frames: torch.Tensor, contrast_threshold, max_blobs: int,
     gray, plane1, plane2 = (empty((B, H, W), u8) for _ in range(3))
     work = empty((B, H, W), i32)
     rowcnt, rowoff = empty((B, H), i32), empty((B, H), i32)
-    q8 = (ctypes.c_int * 5)(*_q8_taps_bitexact(gaussian_kernel_1d(5, 0.0)))
-    k11 = (ctypes.c_float * 11)(*f32_taps(11))
+    q8, k11 = _taps()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _cuda.library("fused_detect").hd_fused_detect(
         frames.data_ptr(), B, H, W, C, cstride, pstride,
@@ -186,6 +250,13 @@ def fused_detect(frames: torch.Tensor, contrast_threshold, min_size,
     out = fused_blob_table(frames, contrast_threshold, max_blobs, use_color,
                            channel_major, return_labels)
     table = out[0] if return_labels else out
+    conf, accepted = gate(table, min_size, max_size, min_confidence, formula)
+    return (table, conf, accepted) + ((out[1],) if return_labels else ())
+
+
+def gate(table, min_size, max_size, min_confidence, formula: str = "python"):
+    """Confidence [B,K] f32 and accepted [B,K] bool of a BlobTable: the
+    confidence blend, then the size and confidence gates."""
     conf = (blobs_mod.confidence_native(table) if formula == "native"
             else blobs_mod.confidence_python(table))
 
@@ -196,4 +267,4 @@ def fused_detect(frames: torch.Tensor, contrast_threshold, min_size,
                 & (table.area >= f32(min_size))
                 & (table.area <= f32(max_size))
                 & (conf >= f32(min_confidence)))
-    return (table, conf, accepted) + ((out[1],) if return_labels else ())
+    return conf, accepted

@@ -1,0 +1,92 @@
+"""The band-tiled CUDA kernels against their plain PyTorch versions, on the
+card (marked ``cuda``; each test skips where torch.cuda.is_available() is
+false).  This file imports no JAX, so it runs on a machine with a card and
+no JAX:
+
+    python -m pytest tests/test_torch_tiled_cuda.py -q -m cuda
+
+Equality is exact: every kernel computes integers (labels, counts, int32
+sums) and the table formulas are the same float32 operations in the same
+order on both sides.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from heimdall_tpu_torch import scene
+from heimdall_tpu_torch.detectors.contamination_detector import (
+    contamination_program)
+from heimdall_tpu_torch.ops import ccl_tiled, stats_tiled
+from heimdall_tpu_torch.ops import fused_kernels
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+def _masks(h, w):
+    """Adversarial masks and thresholded bench frames, [6, h, w] bool."""
+    adv = np.stack(list(scene.adversarial_masks(h, w, seed=2).values()))
+    bench = scene.make_frames(2, h, w, seed=3)[..., 1] < 120
+    return np.concatenate([adv, bench])
+
+
+def _equal(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [16, 128])
+@pytest.mark.parametrize("k", [64, 4])
+def test_tiled_kernels_match_plain_versions(card, band, k):
+    masks = torch.from_numpy(_masks(301, 517)).to(card)
+    frames = scene.make_frames(6, 301, 517, seed=4)
+    gray = torch.from_numpy(np.ascontiguousarray(frames[..., 1])).to(card)
+    color = torch.from_numpy(frames).to(card)
+    filled = ccl_tiled.flood_fill(masks)
+    _equal((filled,), (ccl_tiled.flood_reference(masks),))
+    out = ccl_tiled.band_ccl(filled, band, 8, max(k, 128))
+    _equal(out, ccl_tiled.band_ccl_reference(filled, band, 8, max(k, 128)))
+    merged = ccl_tiled.merge_bands(out[0].clone(), out[1], out[2], band, 8,
+                                   k)
+    _equal(merged, ccl_tiled.merge_reference(out[0], out[1], out[2], band, 8,
+                                             k))
+    lab, rl, n, sl, sc = merged
+    args = (lab, filled, gray, color, rl, n, k)
+    sums = stats_tiled.banded_stats(*args)
+    _equal(sums, stats_tiled.banded_stats_reference(*args))
+    box = (sums[1], sl, sc, band, gray, color)
+    _equal((stats_tiled.bbox_sums(*box),),
+           (stats_tiled.bbox_sums_reference(*box),))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_preprocess_matches_plain_version(card):
+    frames = torch.from_numpy(scene.make_frames(3, 301, 517, seed=5)).to(card)
+    _equal(fused_kernels.preprocess(frames, 15),
+           fused_kernels.preprocess_reference(frames, 15))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["mono8", "bgr", "bgr_planes"])
+def test_tiled_route_on_card_equals_cpu_path(card, form):
+    frames = scene.make_frames(2, 301, 517, seed=6)
+    x, cm = {"mono8": (frames[..., 1], False), "bgr": (frames, False),
+             "bgr_planes": (frames.transpose(0, 3, 1, 2), True)}[form]
+    x = torch.from_numpy(np.ascontiguousarray(x))
+    cpu = contamination_program(x, 15, 3.0, 3000.0, 0.2, return_labels=True,
+                                tiled_band=64, channel_major=cm)
+    gpu = contamination_program(x.to(card), 15, 3.0, 3000.0, 0.2,
+                                return_labels=True, tiled_band=64,
+                                channel_major=cm)
+    for f in cpu[0]._fields:
+        assert torch.equal(getattr(gpu[0], f).cpu(), getattr(cpu[0], f)), f
+    for a, b in zip(gpu[1:], cpu[1:]):
+        assert torch.equal(a.cpu(), b)
