@@ -19,6 +19,13 @@ Phases (each prints a line; any failure exits non-zero without a result):
         band merge, banded stats, bbox sums) at 1920x1080: bench Mono8 and
         BGR frames, adversarial frames and masks with K = 64 and K = 4, and
         a frame whose height is not a multiple of the band;
+     c. the run-table 2 MP kernels (the preprocess with background tables,
+        run extraction, border flood, fill + extraction, run labels,
+        writeback) at 1920x1080: bench BGR frames NHWC and channel-major,
+        adversarial frames, adversarial masks with K = 4, a mixed batch of
+        masks that fit, trip the foreground guard and trip both guards, and
+        odd-sized BGR frames; on each, the route with the detector's guards
+        (per frame, tables or bands) equals the band route exactly;
   4. drive the detector's main paths, each with every kernel's launch count
      set to 0 just before and read just after:
      a. ContaminationDetector.run_device at 640x480x3 channel-major, batch
@@ -28,13 +35,20 @@ Phases (each prints a line; any failure exits non-zero without a result):
         route); one run_device call runs with CUDA sync debugging set to
         "error", so a host sync inside the route fails it; the first 2
         frames' table, confidence and gates must equal the CPU path;
+     c. the same three at 1920x1080 BGR channel-major, batch 128 (the
+        run-table route), with the same checks; prints how many frames took
+        the tables and how many the bands;
   5. times with CUDA events after warm-up: each kernel, its plain version
      and its bound; the main paths end to end (frames already on the card):
-     640x480x3, and 1920x1080 Mono8 and BGR;
+     640x480x3, 1920x1080 Mono8, and 1920x1080 BGR through the run tables
+     and through the band route, on the bench batch and on a mixed batch
+     whose every fourth frame is adversarial (most of those overflow the
+     tables and fall back; both routes must give the same table);
   6. JSON lines listing every kernel with its check and times;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
-DIR/fused_detect_profile.txt and DIR/tiled_2mp_profile.txt.
+DIR/fused_detect_profile.txt, DIR/tiled_2mp_profile.txt (Mono8) and
+DIR/tiled_2mp_bgr_profile.txt (BGR).
 """
 
 import json
@@ -54,6 +68,7 @@ BATCH_2MP = 128
 TIME_BATCH_2MP = 32
 H2, W2 = 1080, 1920
 ODD_2MP = (1037, 1531)        # a height that is not a multiple of the band
+RT_BG, RT_FG = 8, 7           # the detector's run-table widths
 # Published peaks of one H100 SXM (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -309,19 +324,15 @@ def tiled_phases(dev, smi, argv):
               f"plain version {plain_ms:.2f} ms; bound "
               f"{timings[name]['bound_ms']:.4f} ms ({moved[name]} bytes)")
 
-    for form, xe, cm in (("mono8", x, False),
-                         ("bgr_channel_major",
-                          on(frames.transpose(0, 3, 1, 2)), True)):
-        det.run_device(xe, channel_major=cm)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            det.run_device(xe, channel_major=cm)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / 5
-        phase(f"{smi}: main path 2MP {form} end to end {dt * 1e3:.3f} ms "
-              f"per batch of {BATCH_2MP} = {BATCH_2MP / dt:.1f} frames/s")
-        del xe
+    det.run_device(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        det.run_device(x)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 5
+    phase(f"{smi}: main path 2MP mono8 end to end {dt * 1e3:.3f} ms per "
+          f"batch of {BATCH_2MP} = {BATCH_2MP / dt:.1f} frames/s")
 
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
@@ -339,6 +350,291 @@ def tiled_phases(dev, smi, argv):
                      f"{BATCH_2MP}\n{text}\n")
         phase(f"profile: {out_dir}/tiled_2mp_profile.txt")
     return err, launches, timings
+
+
+def runtable_stages(x, channel_major, k, band, mask=None, plain=False):
+    """The run-table route's kernels on frames x, or with mask from the
+    mask's background tables, by kernel or by plain version; every frame
+    goes through every kernel: {kernel: outputs}."""
+    from heimdall_tpu_torch.ops import preprocess_tiled as pt
+    from heimdall_tpu_torch.ops import runtable_tiled as rt
+    out = {}
+    if mask is None:
+        pre = (pt.contamination_preprocess_tiled_reference if plain
+               else pt.contamination_preprocess_tiled)
+        out["preprocess_tiled"] = pre(x, CONTRAST, channel_major, RT_BG)
+        mask = out["preprocess_tiled"][0]
+    W = mask.shape[-1]
+    ext = rt.run_extract_reference if plain else rt.run_extract
+    out["run_extract"] = runid, S, E, _ = ext(mask, RT_BG, True)
+    fix = rt.flood_fix_reference if plain else rt.flood_fix
+    out["flood_fix"] = (fix(S, E, W),)
+    fill = rt.fill_extract_reference if plain else rt.fill_extract
+    out["fill_extract"] = filled, runid_fg, S_fg, E_fg, _ = fill(
+        mask, runid, out["flood_fix"][0], RT_FG)
+    lab = rt.label_fix_reference if plain else rt.label_fix
+    out["label_fix"] = lab(S_fg, E_fg, W, band, k)
+    wb = rt.writeback_reference if plain else rt.writeback
+    out["writeback"] = (wb(filled, runid_fg, out["label_fix"][0]),)
+    return out
+
+
+def check_runtable(name, x, channel_major, k, band, mask=None):
+    """Hold every run-table kernel against its plain version on one case,
+    and the route with the detector's guards against the band route; the
+    largest error (0 or the run fails)."""
+    import torch
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import runtable_tiled as rt
+    got = runtable_stages(x, channel_major, k, band, mask)
+    torch.cuda.synchronize()
+    want = runtable_stages(x, channel_major, k, band, mask, plain=True)
+    torch.cuda.synchronize()
+    errs = {s: max_abs_err(got[s], want[s]) for s in got}
+    binary = got["preprocess_tiled"][0] if mask is None else mask
+    route = rt.fill_label_runtable_tiled(
+        binary, band, max_blobs=k, r_bg=RT_BG, r_fg=RT_FG,
+        pre_extracted=got["run_extract"])
+    on_tables = rt.fill_label_runtable_tiled.last_route.tolist()
+    filled = ct.fill_holes_tiled(binary, band=band)
+    bands = (filled,) + ct.connected_components_tiled(
+        filled, band=band, return_roots=k, band_slots=True)
+    errs["route_vs_band_route"] = max_abs_err(route, bands)
+    phase(f"check 2MP run tables {name}: n_blobs {route[3].tolist()[:8]} "
+          f"frames on the tables {on_tables} max_abs_err {errs}")
+    if any(errs.values()):
+        fail(f"a run-table kernel differs from its plain version on {name}")
+    return max(errs.values())
+
+
+def _stripes(h, w, n=8):
+    """n full-height stripes from column 0 to column w-1: n - 1 background
+    runs per row, n foreground runs (only the foreground guard trips)."""
+    import numpy as np
+    m = np.zeros((h, w), bool)
+    for s in np.linspace(0, w - 4, n).astype(int):
+        m[:, s:s + 4] = True
+    return m
+
+
+def runtable_phases(dev, smi, argv):
+    """Phases 3c, 4c and 5 of the run-table 2 MP route (BGR); returns
+    (largest check error, {kernel: launches}, {kernel: timings})."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import ContaminationDetector, scene
+    from heimdall_tpu_torch.detectors.contamination_detector import (
+        TILED_BAND, contamination_program)
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    from heimdall_tpu_torch.ops import preprocess_tiled as pt
+    from heimdall_tpu_torch.ops import runtable_tiled as rt
+    from heimdall_tpu_torch.ops import stats_tiled as st
+
+    band = TILED_BAND
+    new = {"preprocess_tiled": pt.contamination_preprocess_tiled,
+           "run_extract": rt.run_extract, "flood_fix": rt.flood_fix,
+           "fill_extract": rt.fill_extract, "label_fix": rt.label_fix,
+           "writeback": rt.writeback}
+    wrappers = dict(new, preprocess=fk.preprocess, flood_fill=ct.flood_fill,
+                    band_ccl=ct.band_ccl, merge_bands=ct.merge_bands,
+                    banded_stats=st.banded_stats, bbox_sums=st.bbox_sums)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    # -- 3c. run-table kernels against their plain versions ----------------
+    bench = scene.make_frames(4, H2, W2, seed=2)
+    masks = scene.adversarial_masks(H2, W2, seed=1)
+    adv = scene.mask_frames(list(masks.values()))
+    checker = np.zeros((H2, W2), bool)
+    checker[H2 // 3:H2 // 3 + 9] = np.arange(W2) % 6 < 3
+    guards = np.stack([scene.make_frames(1, H2, W2, seed=3)[0, ..., 1] < 120,
+                       _stripes(H2, W2), checker])
+    odd = scene.make_frames(2, *ODD_2MP, seed=5)
+    err = 0
+    for name, x, cm, k, mask in (
+            ("bench4_bgr_nhwc", on(bench), False, K, None),
+            ("bench4_bgr_channel_major", on(bench.transpose(0, 3, 1, 2)),
+             True, K, None),
+            ("adversarial_frames", on(adv.transpose(0, 3, 1, 2)), True, K,
+             None),
+            ("adversarial_masks_k4", None, False, 4,
+             on(np.stack(list(masks.values())))),
+            ("guards_mixed_batch", None, False, K, on(guards)),
+            ("bench2_odd_bgr", on(odd), False, K, None)):
+        err = max(err, check_runtable(name, x, cm, k, band, mask))
+
+    # -- 4c. the BGR 2 MP main path ----------------------------------------
+    frames = scene.make_frames(BATCH_2MP, H2, W2, seed=2)
+    x = on(frames.transpose(0, 3, 1, 2))
+    det = ContaminationDetector(config={"include_contours": False})
+    det_c = ContaminationDetector(config={"include_contours": True})
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    table, conf, accepted = det.run_device(x, channel_major=True)
+    on_tables = rt.fill_label_runtable_tiled.last_route.clone()
+    torch.cuda.set_sync_debug_mode("default")
+    reject, max_conf = det.verdict_device(x, channel_major=True)
+    defects = det_c.detect_batch(frames[:2])
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    n_tables = int(on_tables.sum())
+    phase(f"main path 2MP BGR: run_device + verdict_device + detect_batch "
+          f"(1920x1080 BGR channel-major, batch {BATCH_2MP}) launched "
+          f"{launches}; run_device made no host sync; frames on the run "
+          f"tables {n_tables}, on the band route {BATCH_2MP - n_tables}")
+    if not all(launches[n] for n in new):
+        fail("the BGR 2 MP main path did not go through every run-table "
+             "kernel")
+    if (table.area.shape != (BATCH_2MP, K)
+            or not bool(torch.isfinite(conf).all())
+            or not bool(torch.isfinite(table.area).all())):
+        fail("BGR 2 MP outputs have the wrong shape or are not finite")
+    cpu = ContaminationDetector(config={"include_contours": False},
+                                device="cpu")
+    t_cpu, c_cpu, a_cpu = cpu.run_device(
+        np.ascontiguousarray(frames[:2].transpose(0, 3, 1, 2)),
+        channel_major=True)
+    for f in table._fields:
+        if not torch.equal(getattr(table, f)[:2].cpu(), getattr(t_cpu, f)):
+            fail(f"BGR 2 MP table field {f} differs from the CPU path")
+    if not (torch.equal(conf[:2].cpu(), c_cpu)
+            and torch.equal(accepted[:2].cpu(), a_cpu)):
+        fail("BGR 2 MP confidence/gates differ from the CPU path")
+    if not all(d and all("contour" in e.metadata for e in d) for d in defects):
+        fail("BGR 2 MP detect_batch with contours returned no contoured "
+             "defects")
+    phase(f"main path 2MP BGR: n_blobs[:8] {table.n_blobs[:8].tolist()} "
+          f"rejects {int(reject.sum())}/{BATCH_2MP} "
+          f"max conf {float(max_conf.max()):.6f} "
+          f"defects/frame (contours) {[len(d) for d in defects]}; "
+          f"first 2 frames equal to the CPU path")
+
+    # -- 5. times: each run-table kernel, its plain version, its bound ------
+    n = TIME_BATCH_2MP
+    xt = x[:n]
+    kern = runtable_stages(xt, True, K, band)
+    binary, gray, runid, S, E, nrun = kern["preprocess_tiled"]
+    (F,) = kern["flood_fix"]
+    filled, runid_fg, S_fg, E_fg, nrun_fg = kern["fill_extract"]
+    L = kern["label_fix"][0]
+    calls = {
+        "preprocess_tiled": (
+            lambda: pt.contamination_preprocess_tiled(xt, CONTRAST, True,
+                                                      RT_BG),
+            lambda: pt.contamination_preprocess_tiled_reference(
+                xt, CONTRAST, True, RT_BG)),
+        "run_extract": (lambda: rt.run_extract(binary, RT_BG, True),
+                        lambda: rt.run_extract_reference(binary, RT_BG,
+                                                         True)),
+        "flood_fix": (lambda: rt.flood_fix(S, E, W2),
+                      lambda: rt.flood_fix_reference(S, E, W2)),
+        "fill_extract": (lambda: rt.fill_extract(binary, runid, F, RT_FG),
+                         lambda: rt.fill_extract_reference(binary, runid, F,
+                                                           RT_FG)),
+        "label_fix": (lambda: rt.label_fix(S_fg, E_fg, W2, band, K),
+                      lambda: rt.label_fix_reference(S_fg, E_fg, W2, band,
+                                                     K)),
+        "writeback": (lambda: rt.writeback(filled, runid_fg, L),
+                      lambda: rt.writeback_reference(filled, runid_fg, L)),
+    }
+    # bytes each function must move: inputs read once, outputs written once
+    px, rows = n * H2 * W2, n * H2
+    Rb = -(-H2 // band)
+
+    def tables(r):          # S, E [rows, r] and nrun [rows, 1], int32
+        return rows * (2 * r + 1) * 4
+
+    moved = {
+        "preprocess_tiled": px * 3 + px * 3 + tables(RT_BG),
+        "run_extract": px * 2 + tables(RT_BG),
+        "flood_fix": rows * RT_BG * 4 * 3,
+        "fill_extract": px * 4 + rows * RT_BG * 4 + tables(RT_FG),
+        "label_fix": rows * RT_FG * 4 * 3 + n * (K + 1 + Rb * K + Rb) * 4,
+        "writeback": px * 6 + rows * RT_FG * 4,
+    }
+    timings = {}
+    for name, (kfn, pfn) in calls.items():
+        kfn()
+        ms = cuda_ms(kfn, 10)
+        pfn()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(pfn, 1)
+        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = (px * MEAN_FLOPS_PER_PX / F32_FLOPS_PER_S * 1e3
+                  if name == "preprocess_tiled" else 0.0)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms,
+                             bound_ms=max(bytes_ms, ops_ms),
+                             bound_by="bytes" if bytes_ms >= ops_ms
+                             else "operations", bytes=moved[name])
+        phase(f"{smi}: {name} {ms:.4f} ms per {n} frames of 1920x1080 BGR "
+              f"({ms / n * 1e3:.3f} us/frame); plain version "
+              f"{plain_ms:.2f} ms; bound {timings[name]['bound_ms']:.4f} ms "
+              f"({moved[name]} bytes)")
+
+    def band_route(xe):
+        return contamination_program(xe, CONTRAST, 10.0, 3000.0, 0.25,
+                                     max_blobs=K, tiled_band=band,
+                                     channel_major=True, tiled_runtable=False)
+
+    # every fourth frame of the bench batch replaced by an adversarial one
+    mixed = x.clone()
+    n_adv = mixed[::4].shape[0]
+    advc = on(adv.transpose(0, 3, 1, 2))
+    mixed[::4] = advc.repeat(-(-n_adv // len(advc)), 1, 1, 1)[:n_adv]
+    got = det.run_device(mixed, channel_major=True)
+    n_mixed = int(rt.fill_label_runtable_tiled.last_route.sum())
+    want = band_route(mixed)
+    if not (all(torch.equal(getattr(got[0], f), getattr(want[0], f))
+                for f in got[0]._fields)
+            and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+        fail("BGR 2 MP mixed batch: the run-table route with its fallback "
+             "differs from the band route")
+    phase(f"mixed batch 2MP BGR: frames on the run tables {n_mixed}, on the "
+          f"band route {BATCH_2MP - n_mixed}; table, confidence and gates "
+          f"equal to the band route's")
+    for label, fn in (
+            ("bench, run tables (run_device)",
+             lambda: det.run_device(x, channel_major=True)),
+            ("bench, band route (tiled_runtable=False)",
+             lambda: band_route(x)),
+            (f"mixed ({n_mixed} frames on the tables), run tables "
+             f"(run_device)",
+             lambda: det.run_device(mixed, channel_major=True)),
+            ("mixed, band route (tiled_runtable=False)",
+             lambda: band_route(mixed))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+        phase(f"{smi}: main path 2MP bgr_channel_major {label} end to end "
+              f"{dt * 1e3:.3f} ms per batch of {BATCH_2MP} = "
+              f"{BATCH_2MP / dt:.1f} frames/s")
+    del mixed
+
+    if "--profile" in argv:
+        out_dir = argv[argv.index("--profile") + 1]
+        os.makedirs(out_dir, exist_ok=True)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                det.run_device(x, channel_major=True)
+            torch.cuda.synchronize()
+        text = prof.key_averages().table(sort_by="cuda_time_total",
+                                         row_limit=45)
+        with open(os.path.join(out_dir, "tiled_2mp_bgr_profile.txt"),
+                  "w") as fh:
+            fh.write(f"{smi}\n3 x run_device, 1920x1080 BGR channel-major, "
+                     f"batch {BATCH_2MP}\n{text}\n")
+        phase(f"profile: {out_dir}/tiled_2mp_bgr_profile.txt")
+    return err, {n: launches[n] for n in new}, timings
 
 
 def main(argv):
@@ -508,6 +804,9 @@ def main(argv):
     # -- 3b-5 for the band-tiled 2 MP route --------------------------------
     err2, launches2, times2 = tiled_phases(dev, smi, argv)
 
+    # -- 3c-5 for the run-table 2 MP route ---------------------------------
+    err3, launches3, times3 = runtable_phases(dev, smi, argv)
+
     # -- 6. kernels lines -----------------------------------------------------
     csrc = "heimdall_tpu_torch/csrc/"
     tiled = {    # name: (source, the TPU kernel or XLA code it replaces)
@@ -522,18 +821,39 @@ def main(argv):
         "preprocess": ("fused_detect.cu",
                        "heimdall_tpu/detectors/contamination_detector.py:151"),
     }
+    runtable = {    # the run-table route of BGR frames
+        # hd_preprocess (most of its time), then hd_run_extract
+        "preprocess_tiled": (("fused_detect.cu", "runtable_tiled.cu"),
+                             "heimdall_tpu/ops/preprocess_tiled.py:82"),
+        "run_extract": ("runtable_tiled.cu",
+                        "heimdall_tpu/ops/runtable_tiled.py:59"),
+        "flood_fix": ("runtable_tiled.cu",
+                      "heimdall_tpu/ops/runtable_tiled.py:120"),
+        "fill_extract": ("runtable_tiled.cu",
+                         "heimdall_tpu/ops/runtable_tiled.py:80"),
+        "label_fix": ("runtable_tiled.cu",
+                      "heimdall_tpu/ops/runtable_tiled.py:148"),
+        "writeback": ("runtable_tiled.cu",
+                      "heimdall_tpu/ops/runtable_tiled.py:103"),
+    }
 
     def entry(name):
-        src, replaces = tiled[name]
-        t = times2[name]
-        return {"name": name, "route": "cuda", "source": csrc + src,
-                "replaces": replaces, "equal": err2 == 0,
-                "launches": launches2[name], "max_abs_err": err2,
+        if name in runtable:
+            (src, replaces), t = runtable[name], times3[name]
+            err, n, frame = err3, launches3[name], "1920x1080 BGR"
+        else:
+            (src, replaces), t = tiled[name], times2[name]
+            err, n, frame = err2, launches2[name], "1920x1080 Mono8"
+        srcs = [csrc + f for f in ((src,) if isinstance(src, str) else src)]
+        return {"name": name, "route": "cuda", "source": srcs[0],
+                "sources": srcs,
+                "replaces": replaces, "equal": err == 0,
+                "launches": n, "max_abs_err": err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": None,
                 "library_note": "no single PyTorch call computes it",
-                "batch": TIME_BATCH_2MP, "frame": "1920x1080 Mono8"}
+                "batch": TIME_BATCH_2MP, "frame": frame}
 
     kernels = [{
         "name": "fused_detect",
@@ -551,7 +871,7 @@ def main(argv):
         "library_note": "no single PyTorch call computes it",
         "batch": BATCH, "frame": "640x480x3",
     }] + [entry(n) for n in ("band_ccl", "flood_fill", "banded_stats",
-                             "bbox_sums")]
+                             "bbox_sums", *runtable)]
     print(json.dumps({"path_kernels": [entry("merge_bands"),
                                        entry("preprocess")]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,6 +34,11 @@
 // then the absent ones ascending; slot_count [B, R]).  A band with more
 // roots than its table holds is scanned pixel by pixel instead.
 //
+// Each entry point takes an optional `active` (int32 [B]): frames whose flag
+// is 0 are skipped and their outputs left unwritten, so that the run-table
+// route (runtable_tiled.cu) falls back to these kernels per frame with no
+// host sync.
+//
 // What bounds them on an H100 SXM: bytes.  The fill reads the mask and
 // writes the filled plane (2 B/px), the labeling reads the mask and writes
 // int32 labels (5 B/px), the merge reads and writes labels (8 B/px): about
@@ -51,31 +56,34 @@ constexpr int kItems = 8;   // consecutive pixels per thread in root scans
 
 __global__ void k_flood_init(Geom g, const uint8_t* mask, int32_t* parent,
                              uint8_t* reach) {
-  Pix q = pix(g);
-  bool bg = q.in && !mask[q.b * g.HW + q.p];
-  int start = run_start(bg, q);
-  if (!q.in) return;
-  parent[q.b * g.HW + q.p] = start;
-  reach[q.b * g.HW + q.p] = 0;
+  for_each_tile(g, [&](Pix q) {
+    bool bg = q.in && !mask[q.b * g.HW + q.p];
+    int start = run_start(bg, q);
+    if (!q.in) return;
+    parent[q.b * g.HW + q.p] = start;
+    reach[q.b * g.HW + q.p] = 0;
+  });
 }
 
 // (k_link_bg and k_compress_mark of common.cuh run between these two.)
 __global__ void k_flood_fill(Geom g, const uint8_t* mask,
                              const int32_t* parent, const uint8_t* reach,
                              uint8_t* filled) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  long long o = q.b * g.HW + q.p;
-  filled[o] = mask[o] || !reach[q.b * g.HW + parent[o]];
+  for_each_tile(g, [&](Pix q) {
+    if (!q.in) return;
+    long long o = q.b * g.HW + q.p;
+    filled[o] = mask[o] || !reach[q.b * g.HW + parent[o]];
+  });
 }
 
 // ------------------------------------------------------ band-local labels
 
 __global__ void k_band_init(Geom g, const uint8_t* mask, int32_t* labels) {
-  Pix q = pix(g);
-  bool v = q.in && mask[q.b * g.HW + q.p];
-  int start = run_start(v, q);
-  if (q.in) labels[q.b * g.HW + q.p] = start;
+  for_each_tile(g, [&](Pix q) {
+    bool v = q.in && mask[q.b * g.HW + q.p];
+    int start = run_start(v, q);
+    if (q.in) labels[q.b * g.HW + q.p] = start;
+  });
 }
 
 // Foreground links: left, and up-left, up, up-right unless this row is the
@@ -83,40 +91,42 @@ __global__ void k_band_init(Geom g, const uint8_t* mask, int32_t* labels) {
 // row) already implies skipped.
 __global__ void k_band_link(Geom g, int conn, const uint8_t* mask,
                             int32_t* labels) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const uint8_t* m = mask + q.b * g.HW;
-  int32_t* P = labels + q.b * g.HW;
-  int p = (int)q.p;
-  if (!m[p]) return;
-  bool left = q.x > 0 && m[p - 1];
-  if (left && q.lane == 0) unite(P, p, p - 1);
-  if (q.y % g.band == 0) return;
-  int u = p - g.W;
-  bool up = m[u];
-  if (conn == 4) {
-    if (up) unite(P, p, u);
-    return;
-  }
-  bool ul = q.x > 0 && m[u - 1];
-  bool ur = q.x < g.W - 1 && m[u + 1];
-  if (left) {
-    if (!up && ur) unite(P, p, u + 1);
-  } else if (up) {
-    unite(P, p, u);
-  } else {
-    if (ul) unite(P, p, u - 1);
-    if (ur) unite(P, p, u + 1);
-  }
+  for_each_tile(g, [&](Pix q) {
+    if (!q.in) return;
+    const uint8_t* m = mask + q.b * g.HW;
+    int32_t* P = labels + q.b * g.HW;
+    int p = (int)q.p;
+    if (!m[p]) return;
+    bool left = q.x > 0 && m[p - 1];
+    if (left && q.lane == 0) unite(P, p, p - 1);
+    if (q.y % g.band == 0) return;
+    int u = p - g.W;
+    bool up = m[u];
+    if (conn == 4) {
+      if (up) unite(P, p, u);
+      return;
+    }
+    bool ul = q.x > 0 && m[u - 1];
+    bool ur = q.x < g.W - 1 && m[u + 1];
+    if (left) {
+      if (!up && ur) unite(P, p, u + 1);
+    } else if (up) {
+      unite(P, p, u);
+    } else {
+      if (ul) unite(P, p, u - 1);
+      if (ur) unite(P, p, u + 1);
+    }
+  });
 }
 
 // Foreground pixels take their root, background H*W.
 __global__ void k_band_label(Geom g, const uint8_t* mask, int32_t* labels) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  long long base = q.b * g.HW;
-  labels[base + q.p] =
-      mask[base + q.p] ? find_root(labels + base, (int)q.p) : (int)g.HW;
+  for_each_tile(g, [&](Pix q) {
+    if (!q.in) return;
+    long long base = q.b * g.HW;
+    labels[base + q.p] =
+        mask[base + q.p] ? find_root(labels + base, (int)q.p) : (int)g.HW;
+  });
 }
 
 // Writes, in raster order, the roots (L[p] == p) among pixels [lo, hi) to
@@ -148,6 +158,7 @@ __device__ int append_roots(const int32_t* L, long long lo, long long hi,
 __global__ void k_band_roots(Geom g, int cap, const int32_t* labels,
                              int32_t* roots, int32_t* counts) {
   int r = blockIdx.x, b = blockIdx.y;
+  if (frame_skipped(g, b)) return;
   const int32_t* L = labels + b * g.HW;
   int32_t* tab = roots + ((long long)b * g.R + r) * cap;
   int n = append_roots(L, band_lo(g, r), band_hi(g, r), tab, 0, cap);
@@ -162,7 +173,7 @@ __global__ void k_band_roots(Geom g, int cap, const int32_t* labels,
 __global__ void k_merge_link(Geom g, int conn, int32_t* labels) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = (blockIdx.y + 1) * g.band;
-  if (x >= g.W) return;
+  if (x >= g.W || frame_skipped(g, blockIdx.z)) return;
   int32_t* P = labels + blockIdx.z * g.HW;
   int p = y * g.W + x, u = p - g.W;
   if (P[p] == g.HW) return;
@@ -177,10 +188,11 @@ __global__ void k_merge_link(Geom g, int conn, int32_t* labels) {
 }
 
 __global__ void k_merge_flatten(Geom g, int32_t* labels) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  int32_t* P = labels + q.b * g.HW;
-  if (P[q.p] != g.HW) P[q.p] = find_root(P, (int)q.p);
+  for_each_tile(g, [&](Pix q) {
+    if (!q.in) return;
+    int32_t* P = labels + q.b * g.HW;
+    if (P[q.p] != g.HW) P[q.p] = find_root(P, (int)q.p);
+  });
 }
 
 // One block per frame: the first K merged roots in raster order, and the
@@ -190,6 +202,7 @@ __global__ void k_root_table(Geom g, int K, int cap, const int32_t* labels,
                              const int32_t* roots, const int32_t* counts,
                              int32_t* rl, int32_t* nblobs) {
   int b = blockIdx.x;
+  if (frame_skipped(g, b)) return;
   const int32_t* L = labels + b * g.HW;
   int32_t* out = rl + (long long)b * K;
   int n = 0;
@@ -221,9 +234,10 @@ __global__ void k_incidence(Geom g, int K, int cap, const int32_t* labels,
                             const int32_t* roots, const int32_t* counts,
                             const int32_t* rl, const int32_t* nblobs,
                             int32_t* slot_list, int32_t* slot_count) {
-  __shared__ int s_rl[1024];
-  __shared__ int s_pres[1024];
+  __shared__ int s_rl[kMaxSlots];
+  __shared__ int s_pres[kMaxSlots];
   int r = blockIdx.x, b = blockIdx.y;
+  if (frame_skipped(g, b)) return;
   const int32_t* L = labels + b * g.HW;
   int n = min(nblobs[b], K);
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
@@ -248,27 +262,23 @@ __global__ void k_incidence(Geom g, int K, int cap, const int32_t* labels,
     }
   }
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  int32_t* lst = slot_list + ((long long)b * g.R + r) * K;
-  int c = 0;
-  for (int k = 0; k < K; ++k)
-    if (s_pres[k]) lst[c++] = k;
-  slot_count[b * g.R + r] = c;
-  for (int k = 0; k < K; ++k)
-    if (!s_pres[k]) lst[c++] = k;
+  if (threadIdx.x == 0)
+    write_slot_list(s_pres, K, slot_list + ((long long)b * g.R + r) * K,
+                    slot_count + b * g.R + r);
 }
 
 }  // namespace
 
 // mask u8 [B, H, W] (0/1) -> filled u8 [B, H, W] (0/1).  Scratch: parent
-// int32 [B, H, W], reach u8 [B, H, W].  Returns the first CUDA error.
+// int32 [B, H, W], reach u8 [B, H, W].  active: null, or int32 [B] (frames
+// with 0 are skipped).  Returns the first CUDA error.
 extern "C" int hd_flood_fill(const uint8_t* mask, int B, int H, int W,
-                             int32_t* parent, uint8_t* reach,
-                             uint8_t* filled, void* stream) {
+                             const int* active, int32_t* parent,
+                             uint8_t* reach, uint8_t* filled, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  Geom g{H, W, (long long)H * W, H, 1};
+  Geom g{H, W, (long long)H * W, H, 1, active};
   dim3 blk(kTileW, kTileH);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  dim3 grid = tile_grid(g, B);
   k_flood_init<<<grid, blk, 0, st>>>(g, mask, parent, reach);
   HD_CHECK();
   k_link_bg<<<grid, blk, 0, st>>>(g, mask, parent);
@@ -281,15 +291,17 @@ extern "C" int hd_flood_fill(const uint8_t* mask, int B, int H, int W,
 }
 
 // mask u8 [B, H, W] -> band-local labels int32 [B, H, W], band roots int32
-// [B, R, cap], counts int32 [B, R], with R = ceil(H / band).
+// [B, R, cap], counts int32 [B, R], with R = ceil(H / band); active as in
+// hd_flood_fill.
 extern "C" int hd_band_ccl(const uint8_t* mask, int B, int H, int W,
-                           int band, int conn, int cap, int32_t* labels,
-                           int32_t* roots, int32_t* counts, void* stream) {
+                           int band, int conn, int cap, const int* active,
+                           int32_t* labels, int32_t* roots, int32_t* counts,
+                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int R = (H + band - 1) / band;
-  Geom g{H, W, (long long)H * W, band, R};
+  Geom g{H, W, (long long)H * W, band, R, active};
   dim3 blk(kTileW, kTileH);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  dim3 grid = tile_grid(g, B);
   k_band_init<<<grid, blk, 0, st>>>(g, mask, labels);
   HD_CHECK();
   k_band_link<<<grid, blk, 0, st>>>(g, conn, mask, labels);
@@ -304,23 +316,22 @@ extern "C" int hd_band_ccl(const uint8_t* mask, int B, int H, int W,
 
 // Merges hd_band_ccl's outputs in place (labels) and writes rl int32
 // [B, K], nblobs int32 [B], slot_list int32 [B, R, K], slot_count int32
-// [B, R].  K <= 1024.
+// [B, R].  K <= kMaxSlots; active as in hd_flood_fill.
 extern "C" int hd_merge_bands(int B, int H, int W, int band, int conn,
-                              int cap, int K, int32_t* labels,
-                              const int32_t* roots, const int32_t* counts,
-                              int32_t* rl, int32_t* nblobs,
-                              int32_t* slot_list, int32_t* slot_count,
-                              void* stream) {
+                              int cap, int K, const int* active,
+                              int32_t* labels, const int32_t* roots,
+                              const int32_t* counts, int32_t* rl,
+                              int32_t* nblobs, int32_t* slot_list,
+                              int32_t* slot_count, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int R = (H + band - 1) / band;
-  Geom g{H, W, (long long)H * W, band, R};
+  Geom g{H, W, (long long)H * W, band, R, active};
   if (R > 1) {
     k_merge_link<<<dim3((W + 255) / 256, R - 1, B), 256, 0, st>>>(g, conn,
                                                                   labels);
     HD_CHECK();
     dim3 blk(kTileW, kTileH);
-    dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-    k_merge_flatten<<<grid, blk, 0, st>>>(g, labels);
+    k_merge_flatten<<<tile_grid(g, B), blk, 0, st>>>(g, labels);
     HD_CHECK();
   }
   k_root_table<<<B, kScanThreads, 0, st>>>(g, K, cap, labels, roots, counts,

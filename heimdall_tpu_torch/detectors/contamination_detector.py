@@ -7,9 +7,11 @@ BINARY_INV, block 11, C=contrast_threshold) -> open then close (3x3 rect)
 confidence blend 0.5*intensity + 0.2*shape + 0.3*color, then the size and
 confidence gates.  Frames of up to MAX_FRAME_PX (400,000) pixels go through
 the fused kernel of ops/fused_kernels.py; larger ones (the 1920x1080 design
-point) through ``contamination_program``'s band-tiled route: the kernel's
-preprocess stages, then ops/ccl_tiled.py and ops/stats_tiled.py.  On the
-card each stage launches its CUDA kernel; on the CPU its plain version.
+point) through ``contamination_program``'s tiled routes: BGR frames through
+the run tables (ops/preprocess_tiled.py, ops/runtable_tiled.py), Mono8
+frames through the bands (the fused kernel's preprocess stages, then
+ops/ccl_tiled.py), both then through ops/stats_tiled.py.  On the card each
+stage launches its CUDA kernel; on the CPU its plain version.
 
 Host-side work is the frame upload, the download of the small blob table
 and, only when contour metadata is requested, border following on the
@@ -29,6 +31,9 @@ from heimdall_tpu_torch.ops.ccl_tiled import (connected_components_tiled,
 from heimdall_tpu_torch.ops.fused_kernels import (MAX_FRAME_PX,
                                                   frame_layout, fused_detect,
                                                   gate, preprocess)
+from heimdall_tpu_torch.ops.preprocess_tiled import (
+    contamination_preprocess_tiled)
+from heimdall_tpu_torch.ops.runtable_tiled import fill_label_runtable_tiled
 from heimdall_tpu_torch.ops.stats_tiled import (blob_stats_tiled,
                                                 check_sum_bound)
 from heimdall_tpu_torch.utils import contours as contours_mod
@@ -38,7 +43,7 @@ TPU_TUNING_KEYS = ("backend", "ccl_sweeps", "ccl_adaptive", "ccl_scan_steps",
                    "rt_ccl", "rt_fill")
 
 
-# Rows per band of the tiled route that run_device takes for large frames.
+# Rows per band of the tiled routes that run_device takes for large frames.
 TILED_BAND = 128
 
 
@@ -47,7 +52,9 @@ def contamination_program(images: torch.Tensor, contrast_threshold,
                           max_blobs: int = 64, use_color: bool = True,
                           formula: str = "python",
                           return_labels: bool = False, tiled_band: int = 0,
-                          channel_major: bool = False):
+                          channel_major: bool = False,
+                          tiled_runtable: bool = True, rt_bg: int = 8,
+                          rt_fg: int = 7):
     """The batched detection program (counterpart of the JAX
     contamination_program, without its TPU tuning knobs).
 
@@ -55,10 +62,13 @@ def contamination_program(images: torch.Tensor, contrast_threshold,
     channel_major=True [N, 3|1, H, W] planes, on the device it runs on.
     With tiled_band = 0 the batch goes through the fused kernel
     (ops/fused_kernels.py::fused_detect, frames of up to MAX_FRAME_PX).
-    With tiled_band > 0: preprocess -> fill_holes_tiled ->
-    connected_components_tiled -> blob_stats_tiled on bands of
-    min(tiled_band, 128) rows -> confidence -> gates.  Both routes give the
-    same outputs.
+    With tiled_band > 0, on bands of min(tiled_band, 128) rows: BGR frames
+    with tiled_runtable take contamination_preprocess_tiled (with the
+    background run tables) -> fill_label_runtable_tiled (rt_bg / rt_fg runs
+    per row before a frame falls back to the bands); Mono8 frames (and BGR
+    without tiled_runtable) take preprocess -> fill_holes_tiled ->
+    connected_components_tiled; then blob_stats_tiled -> confidence ->
+    gates.  Every route gives the same outputs.
 
     Returns (table: BlobTable, confidence [N,K] f32, accepted [N,K] bool
     [, labels int32 [N,H,W]])."""
@@ -69,11 +79,19 @@ def contamination_program(images: torch.Tensor, contrast_threshold,
     band = min(tiled_band, 128)
     _, C, H, W, _, _ = frame_layout(images, channel_major)
     check_sum_bound(H, W)
-    gray, binary = preprocess(images, contrast_threshold, channel_major)
-    mask = fill_holes_tiled(binary, band=band)
-    labels, rl, n, slot_list, slot_count = connected_components_tiled(
-        mask, connectivity=8, band=band, return_roots=max_blobs,
-        band_slots=True)
+    if C == 3 and tiled_runtable:
+        binary, gray, *bg_tables = contamination_preprocess_tiled(
+            images, contrast_threshold, channel_major, bg_tables=rt_bg)
+        mask, labels, rl, n, slot_list, slot_count = (
+            fill_label_runtable_tiled(binary, band, max_blobs=max_blobs,
+                                      r_bg=rt_bg, r_fg=rt_fg,
+                                      pre_extracted=bg_tables))
+    else:
+        gray, binary = preprocess(images, contrast_threshold, channel_major)
+        mask = fill_holes_tiled(binary, band=band)
+        labels, rl, n, slot_list, slot_count = connected_components_tiled(
+            mask, connectivity=8, band=band, return_roots=max_blobs,
+            band_slots=True)
     table = blob_stats_tiled(labels, mask, gray,
                              images if C == 3 else None, band=band,
                              max_blobs=max_blobs, use_color=use_color,
@@ -122,9 +140,9 @@ class ContaminationDetector(DefectDetector):
     The JAX detector's TPU tuning keys (``backend``, ``ccl_sweeps``,
     ``ccl_adaptive``, ``ccl_scan_steps``, ``rt_ccl``, ``rt_fill``) are
     accepted and ignored: frames of up to 400,000 px take the fused route
-    and larger ones (up to the int32 sum bound, about 2.2 MP) the
-    band-tiled route, on the card and on the CPU alike; both give the
-    fixpoint results the JAX defaults give.
+    and larger ones (up to the int32 sum bound, about 2.2 MP) the tiled
+    routes (run tables for BGR, bands for Mono8), on the card and on the
+    CPU alike; all give the fixpoint results the JAX defaults give.
 
     ``device`` defaults to CUDA; construction raises when no card is
     present unless ``device="cpu"`` is passed.

@@ -37,10 +37,19 @@ SIGNATURES = {
                           _P, _P, _P, _P],
     },
     "ccl_tiled": {
-        "hd_flood_fill": [_P, _I, _I, _I, _P, _P, _P, _P],
-        "hd_band_ccl": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "hd_flood_fill": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+        "hd_band_ccl": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "hd_merge_bands": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                           _P, _P, _P],
+                           _P, _P, _P, _P],
+    },
+    "runtable_tiled": {
+        "hd_run_extract": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        "hd_flood_fix": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        "hd_fill_extract": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P],
+        "hd_label_fix": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P],
+        "hd_writeback": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     },
     "stats_tiled": {
         "hd_banded_stats": [_P, _I, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P,

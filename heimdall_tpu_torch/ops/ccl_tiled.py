@@ -27,46 +27,23 @@ running its plain PyTorch version on a CPU tensor:
   incidence.
 
 Each counts its kernel launches in ``.launches``.  Planes are [B, H, W]
-and unpadded: the last band may be shorter than ``band``.
+and unpadded: the last band may be shorter than ``band``.  Each also takes
+``active`` (int32 or bool [B] on the planes' device), to compute only the
+frames it marks and leave the others' outputs as they were, and ``out``,
+buffers to write into: the run-table route (ops/runtable_tiled.py) sends
+the frames that overflow its tables here, into its own outputs, with no
+host sync.
 """
 
 import torch
 
+from heimdall_tpu_torch.ops._launch import (active_ptr, alloc, check_cuda,
+                                            check_mask, raise_on, run_plain,
+                                            stream)
 from heimdall_tpu_torch.ops.ccl import connected_components, fill_holes
 
 # Static shared-memory tables of hd_merge_bands hold at most this many slots.
 MAX_SLOTS = 1024
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_cuda(t: torch.Tensor, name: str, dtypes, shape=None):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} must be {dtypes}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must be {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_mask(mask: torch.Tensor):
-    """(B, H, W) of a plane batch within the kernels' index range."""
-    if mask.dim() != 3:
-        raise ValueError(f"planes must be [B, H, W], got {tuple(mask.shape)}")
-    B, H, W = mask.shape
-    if not (1 <= B <= 65535 and H >= 1 and W >= 1 and H * W < 2**31 - 1):
-        raise ValueError(f"unsupported shape B={B} H={H} W={W}")
-    return B, H, W
-
-
-def _raise_on(err: int, what: str):
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 # ---------------------------------------------------------------- hole fill
@@ -76,21 +53,25 @@ def flood_reference(mask: torch.Tensor) -> torch.Tensor:
     return fill_holes(mask.to(torch.bool))
 
 
-def flood_fill(mask: torch.Tensor) -> torch.Tensor:
-    """Filled mask (bool [B, H, W]) of a bool or uint8 (nonzero = fg) mask."""
-    B, H, W = _check_mask(mask)
+def flood_fill(mask: torch.Tensor, active=None, out=None) -> torch.Tensor:
+    """Filled mask (bool [B, H, W]) of a bool or uint8 (nonzero = fg) mask;
+    ``out``: a bool [B, H, W] buffer to write it into."""
+    B, H, W = check_mask(mask)
+    filled = alloc(mask.device, ((B, H, W), torch.bool))[0] if out is None \
+        else out
     if mask.device.type == "cpu":
-        return flood_reference(mask)
+        run_plain(flood_reference, active, (mask,), (), (filled,))
+        return filled
     from heimdall_tpu_torch.ops import _cuda
 
-    _check_cuda(mask, "mask", (torch.bool, torch.uint8))
-    dev = mask.device
-    parent = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    reach = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
-    filled = torch.empty((B, H, W), dtype=torch.bool, device=dev)
-    _raise_on(_cuda.library("ccl_tiled").hd_flood_fill(
-        mask.data_ptr(), B, H, W, parent.data_ptr(), reach.data_ptr(),
-        filled.data_ptr(), _stream(mask)), "flood_fill")
+    check_cuda(mask, "mask", (torch.bool, torch.uint8))
+    check_cuda(filled, "out", (torch.bool,), (B, H, W))
+    flags, act = active_ptr(active, B)
+    parent, reach = alloc(mask.device, ((B, H, W), torch.int32),
+                          ((B, H, W), torch.uint8))
+    raise_on(_cuda.library("ccl_tiled").hd_flood_fill(
+        mask.data_ptr(), B, H, W, act, parent.data_ptr(), reach.data_ptr(),
+        filled.data_ptr(), stream(mask)), "flood_fill")
     flood_fill.launches += 1
     return filled
 
@@ -100,7 +81,7 @@ flood_fill.launches = 0
 
 # ------------------------------------------------------- band-local labels
 
-def _first_roots(keys: torch.Tensor, cap: int, sentinel: int) -> torch.Tensor:
+def first_roots(keys: torch.Tensor, cap: int, sentinel: int) -> torch.Tensor:
     """The `cap` smallest keys of each row, ascending, padded with
     sentinel ([..., N] -> [..., cap])."""
     n = min(cap, keys.shape[-1])
@@ -116,7 +97,7 @@ def band_ccl_reference(mask: torch.Tensor, band: int, connectivity: int = 8,
     Returns (labels int32 [B, H, W]: the band-local component minimum as a
     global linear index, background H*W; band roots int32 [B, R, cap];
     counts int32 [B, R])."""
-    B, H, W = _check_mask(mask)
+    B, H, W = check_mask(mask)
     R = -(-H // band)
     HW = H * W
     m = torch.zeros((B, R * band, W), dtype=torch.bool, device=mask.device)
@@ -132,35 +113,40 @@ def band_ccl_reference(mask: torch.Tensor, band: int, connectivity: int = 8,
     keys[:, :HW] = lab.reshape(B, HW)
     keys = keys.view(B, R, band * W)
     is_root = keys == lin
-    roots = _first_roots(torch.where(is_root, lin, HW), roots_cap, HW)
+    roots = first_roots(torch.where(is_root, lin, HW), roots_cap, HW)
     return (lab.to(torch.int32), roots.to(torch.int32),
             is_root.sum(-1).to(torch.int32))
 
 
 def band_ccl(mask: torch.Tensor, band: int, connectivity: int = 8,
-             roots_cap: int = 128):
+             roots_cap: int = 128, active=None, out=None):
     """Band-local labels, band root tables and counts of a bool or uint8
-    mask [B, H, W] (see band_ccl_reference)."""
-    B, H, W = _check_mask(mask)
+    mask [B, H, W] (see band_ccl_reference); ``out``: an int32 [B, H, W]
+    buffer for the labels."""
+    B, H, W = check_mask(mask)
     if connectivity not in (4, 8) or band < 1 or roots_cap < 1:
         raise ValueError(f"unsupported connectivity={connectivity} "
                          f"band={band} roots_cap={roots_cap}")
+    R = -(-H // band)
+    labels = alloc(mask.device, ((B, H, W), torch.int32))[0] \
+        if out is None else out
+    roots, counts = alloc(mask.device, ((B, R, roots_cap), torch.int32),
+                          ((B, R), torch.int32))
     if mask.device.type == "cpu":
-        return band_ccl_reference(mask, band, connectivity, roots_cap)
+        run_plain(band_ccl_reference, active, (mask,),
+                  (band, connectivity, roots_cap), (labels, roots, counts))
+        return labels, roots, counts
     from heimdall_tpu_torch.ops import _cuda
 
-    _check_cuda(mask, "mask", (torch.bool, torch.uint8))
-    R = -(-H // band)
+    check_cuda(mask, "mask", (torch.bool, torch.uint8))
+    check_cuda(labels, "out", (torch.int32,), (B, H, W))
     if R > 65535:
         raise ValueError(f"{R} bands exceed the kernel's grid")
-    dev = mask.device
-    labels = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    roots = torch.empty((B, R, roots_cap), dtype=torch.int32, device=dev)
-    counts = torch.empty((B, R), dtype=torch.int32, device=dev)
-    _raise_on(_cuda.library("ccl_tiled").hd_band_ccl(
-        mask.data_ptr(), B, H, W, band, connectivity, roots_cap,
+    flags, act = active_ptr(active, B)
+    raise_on(_cuda.library("ccl_tiled").hd_band_ccl(
+        mask.data_ptr(), B, H, W, band, connectivity, roots_cap, act,
         labels.data_ptr(), roots.data_ptr(), counts.data_ptr(),
-        _stream(mask)), "band_ccl")
+        stream(mask)), "band_ccl")
     band_ccl.launches += 1
     return labels, roots, counts
 
@@ -178,7 +164,7 @@ def _root_table(labels: torch.Tensor, max_blobs: int):
     lab = labels.reshape(B, HW).to(torch.int64)
     lin = torch.arange(HW, device=labels.device)
     is_root = lab == lin
-    rl = _first_roots(torch.where(is_root, lin, HW), max_blobs, HW)
+    rl = first_roots(torch.where(is_root, lin, HW), max_blobs, HW)
     return rl.to(torch.int32), is_root.sum(-1).to(torch.int32)
 
 
@@ -196,7 +182,7 @@ def label_slots(labels: torch.Tensor, rl: torch.Tensor,
     return torch.where(hit, idx, K)
 
 
-def _slot_incidence(labels: torch.Tensor, rl: torch.Tensor,
+def slot_incidence(labels: torch.Tensor, rl: torch.Tensor,
                    n_blobs: torch.Tensor, band: int):
     """(slot_list int32 [B, R, K], slot_count int32 [B, R]): per band, the
     slots of the root table rl [B, K] with a pixel there, ascending, then
@@ -226,39 +212,45 @@ def merge_reference(labels: torch.Tensor, band_roots: torch.Tensor,
     B, H, W = labels.shape
     lab = connected_components(labels != H * W, connectivity)
     rl, n = _root_table(lab, max_blobs)
-    return (lab, rl, n) + _slot_incidence(lab, rl, n, band)
+    return (lab, rl, n) + slot_incidence(lab, rl, n, band)
 
 
 def merge_bands(labels: torch.Tensor, band_roots: torch.Tensor,
                 counts: torch.Tensor, band: int, connectivity: int = 8,
-                max_blobs: int = 64):
-    """Join band_ccl's outputs across bands (see merge_reference).  On the
-    card ``labels`` is updated in place and returned."""
-    B, H, W = _check_mask(labels)
+                max_blobs: int = 64, active=None, out=None):
+    """Join band_ccl's outputs across bands (see merge_reference).
+    ``labels`` is updated in place and returned; ``out``: buffers for
+    (root table, n_blobs, slot_list, slot_count)."""
+    B, H, W = check_mask(labels)
     R = -(-H // band)
     K = max_blobs
     if connectivity not in (4, 8) or band < 1 or not 1 <= K <= MAX_SLOTS:
         raise ValueError(f"unsupported connectivity={connectivity} "
                          f"band={band} max_blobs={K} (1..{MAX_SLOTS})")
+    rl, n, slot_list, slot_count = out if out is not None else alloc(
+        labels.device, ((B, K), torch.int32), ((B,), torch.int32),
+        ((B, R, K), torch.int32), ((B, R), torch.int32))
     if labels.device.type == "cpu":
-        return merge_reference(labels, band_roots, counts, band,
-                               connectivity, K)
+        run_plain(merge_reference, active, (labels, band_roots, counts),
+                  (band, connectivity, K),
+                  (labels, rl, n, slot_list, slot_count))
+        return labels, rl, n, slot_list, slot_count
     from heimdall_tpu_torch.ops import _cuda
 
     cap = band_roots.shape[-1]
-    _check_cuda(labels, "labels", (torch.int32,))
-    _check_cuda(band_roots, "band_roots", (torch.int32,), (B, R, cap))
-    _check_cuda(counts, "counts", (torch.int32,), (B, R))
-    dev = labels.device
-    rl = torch.empty((B, K), dtype=torch.int32, device=dev)
-    n = torch.empty((B,), dtype=torch.int32, device=dev)
-    slot_list = torch.empty((B, R, K), dtype=torch.int32, device=dev)
-    slot_count = torch.empty((B, R), dtype=torch.int32, device=dev)
-    _raise_on(_cuda.library("ccl_tiled").hd_merge_bands(
-        B, H, W, band, connectivity, cap, K, labels.data_ptr(),
+    check_cuda(labels, "labels", (torch.int32,))
+    check_cuda(band_roots, "band_roots", (torch.int32,), (B, R, cap))
+    check_cuda(counts, "counts", (torch.int32,), (B, R))
+    for name, t, shape in (("root table", rl, (B, K)), ("n_blobs", n, (B,)),
+                           ("slot_list", slot_list, (B, R, K)),
+                           ("slot_count", slot_count, (B, R))):
+        check_cuda(t, name, (torch.int32,), shape)
+    flags, act = active_ptr(active, B)
+    raise_on(_cuda.library("ccl_tiled").hd_merge_bands(
+        B, H, W, band, connectivity, cap, K, act, labels.data_ptr(),
         band_roots.data_ptr(), counts.data_ptr(), rl.data_ptr(),
         n.data_ptr(), slot_list.data_ptr(), slot_count.data_ptr(),
-        _stream(labels)), "merge_bands")
+        stream(labels)), "merge_bands")
     merge_bands.launches += 1
     return labels, rl, n, slot_list, slot_count
 
@@ -268,7 +260,7 @@ merge_bands.launches = 0
 
 # -------------------------------------------------------------- public API
 
-def _unpad(mask: torch.Tensor, band: int, frame_h):
+def unpad_rows(mask: torch.Tensor, band: int, frame_h):
     """The real rows of a mask given in the padded layout of frame_h."""
     if frame_h is None:
         return mask
@@ -279,7 +271,7 @@ def _unpad(mask: torch.Tensor, band: int, frame_h):
     return mask[:, :frame_h].contiguous()
 
 
-def _pad(x: torch.Tensor, rows: int, value) -> torch.Tensor:
+def pad_rows(x: torch.Tensor, rows: int, value) -> torch.Tensor:
     if x.shape[1] == rows:
         return x
     pad = x.new_full((x.shape[0], rows - x.shape[1], x.shape[2]), value)
@@ -295,8 +287,8 @@ def fill_holes_tiled(mask: torch.Tensor, band: int = 256, frame_h=None):
     padded the same way (pad rows background)."""
     squeeze = mask.dim() == 2
     m = mask[None] if squeeze else mask
-    filled = flood_fill(_unpad(m, band, frame_h))
-    filled = _pad(filled, m.shape[1], False)
+    filled = flood_fill(unpad_rows(m, band, frame_h))
+    filled = pad_rows(filled, m.shape[1], False)
     return filled[0] if squeeze else filled
 
 
@@ -313,12 +305,12 @@ def connected_components_tiled(mask: torch.Tensor, connectivity: int = 8,
                          "(slot tables are recovered from the root table)")
     squeeze = mask.dim() == 2
     m = mask[None] if squeeze else mask
-    real = _unpad(m, band, frame_h)
+    real = unpad_rows(m, band, frame_h)
     K = max(return_roots, 1)
     lab, roots, counts = band_ccl(real, band, connectivity, max(K, 128))
     lab, rl, n, sl, sc = merge_bands(lab, roots, counts, band, connectivity,
                                      K)
-    lab = _pad(lab, m.shape[1], real.shape[1] * real.shape[2])
+    lab = pad_rows(lab, m.shape[1], real.shape[1] * real.shape[2])
     out = (lab,)
     if return_roots:
         out += (rl, n) + ((sl, sc) if band_slots else ())

@@ -23,8 +23,8 @@ import torch
 
 from heimdall_tpu_torch.ops.blobs import (BlobTable, N_SUMS, box_sums,
                                           slot_sums, table_from_sums)
-from heimdall_tpu_torch.ops.ccl_tiled import (MAX_SLOTS, _check_cuda,
-                                              _raise_on, _stream, label_slots)
+from heimdall_tpu_torch.ops._launch import check_cuda, raise_on, stream
+from heimdall_tpu_torch.ops.ccl_tiled import MAX_SLOTS, label_slots
 
 
 def check_sum_bound(H: int, W: int):
@@ -84,22 +84,22 @@ def banded_stats(labels, mask, gray, color, root_table, root_count,
     if not 1 <= K <= MAX_SLOTS:
         raise ValueError(f"max_blobs must be in 1..{MAX_SLOTS}, got {K}")
     C, fs, cs, ps = _color_layout(color, channel_major, B, H, W)
-    _check_cuda(labels, "labels", (torch.int32,))
-    _check_cuda(mask, "mask", (torch.bool, torch.uint8), (B, H, W))
-    _check_cuda(gray, "gray", (torch.uint8,), (B, H, W))
+    check_cuda(labels, "labels", (torch.int32,))
+    check_cuda(mask, "mask", (torch.bool, torch.uint8), (B, H, W))
+    check_cuda(gray, "gray", (torch.uint8,), (B, H, W))
     if color is not None:
-        _check_cuda(color, "color", (torch.uint8,))
+        check_cuda(color, "color", (torch.uint8,))
     rl = root_table[:, :K].contiguous()
-    _check_cuda(rl, "root_table", (torch.int32,), (B, K))
-    _check_cuda(root_count, "root_count", (torch.int32,), (B,))
+    check_cuda(rl, "root_table", (torch.int32,), (B, K))
+    check_cuda(root_count, "root_count", (torch.int32,), (B,))
     dev = labels.device
     sums = torch.empty((B, N_SUMS, K), dtype=torch.int32, device=dev)
     bbox = torch.empty((B, 4, K), dtype=torch.int32, device=dev)
-    _raise_on(_cuda.library("stats_tiled").hd_banded_stats(
+    raise_on(_cuda.library("stats_tiled").hd_banded_stats(
         0 if color is None else color.data_ptr(), C, fs, cs, ps, B, H, W, K,
         mask.data_ptr(), labels.data_ptr(), rl.data_ptr(),
         root_count.data_ptr(), gray.data_ptr(), sums.data_ptr(),
-        bbox.data_ptr(), _stream(labels)), "banded_stats")
+        bbox.data_ptr(), stream(labels)), "banded_stats")
     banded_stats.launches += 1
     return sums, bbox
 
@@ -151,19 +151,19 @@ def bbox_sums(bbox, slot_list, slot_count, band: int, gray, color=None,
     from heimdall_tpu_torch.ops import _cuda
 
     C, fs, cs, ps = _color_layout(color, channel_major, B, H, W)
-    _check_cuda(gray, "gray", (torch.uint8,))
-    _check_cuda(bbox, "bbox", (torch.int32,), (B, 4, K))
-    _check_cuda(slot_list, "slot_list", (torch.int32,), (B, R, K))
-    _check_cuda(slot_count, "slot_count", (torch.int32,), (B, R))
+    check_cuda(gray, "gray", (torch.uint8,))
+    check_cuda(bbox, "bbox", (torch.int32,), (B, 4, K))
+    check_cuda(slot_list, "slot_list", (torch.int32,), (B, R, K))
+    check_cuda(slot_count, "slot_count", (torch.int32,), (B, R))
     if color is not None:
-        _check_cuda(color, "color", (torch.uint8,))
+        check_cuda(color, "color", (torch.uint8,))
     if K > 65535 or R > 65535:
         raise ValueError(f"K={K} and R={R} must fit the kernel's grid")
     out = torch.zeros((B, 4, K), dtype=torch.int32, device=gray.device)
-    _raise_on(_cuda.library("stats_tiled").hd_bbox_sums(
+    raise_on(_cuda.library("stats_tiled").hd_bbox_sums(
         0 if color is None else color.data_ptr(), C, fs, cs, ps, B, H, W,
         band, K, bbox.data_ptr(), slot_list.data_ptr(), slot_count.data_ptr(),
-        gray.data_ptr(), out.data_ptr(), _stream(gray)), "bbox_sums")
+        gray.data_ptr(), out.data_ptr(), stream(gray)), "bbox_sums")
     bbox_sums.launches += 1
     return out
 
