@@ -26,6 +26,11 @@ Phases (each prints a line; any failure exits non-zero without a result):
         masks that fit, trip the foreground guard and trip both guards, and
         odd-sized BGR frames; on each, the route with the detector's guards
         (per frame, tables or bands) equals the band route exactly;
+     d. the split kernels at 640x480 (the label kernel at every stage, the
+        stats kernel on its labels): bench frames, adversarial frames with
+        K = 64 and K = 4, 2 frames of 477x631, and a uniform frame with no
+        foreground (contrast 15) and all foreground (contrast -15); on each,
+        stats(labels) with the labels equals the fused kernel's outputs;
   4. drive the detector's main paths, each with every kernel's launch count
      set to 0 just before and read just after:
      a. ContaminationDetector.run_device at 640x480x3 channel-major, batch
@@ -44,6 +49,13 @@ Phases (each prints a line; any failure exits non-zero without a result):
      and through the band route, on the bench batch and on a mixed batch
      whose every fourth frame is adversarial (most of those overflow the
      tables and fall back; both routes must give the same table);
+     d. the profiling path, with the split kernels' launch counts set to 0
+        just before and read just after: the port's profile_fused and
+        profile_preprocess (batch 256, 10 iterations; each stage's us/frame
+        and the breakdown line) and examples/performance_analysis on the
+        card (5 batches, its JSON report), and a ProfilingSession.trace of
+        the split kernels, which must list their CUDA kernels; then each
+        split kernel's plain version and bound;
   6. JSON lines listing every kernel with its check and times;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
@@ -637,6 +649,174 @@ def runtable_phases(dev, smi, argv):
     return err, {n: launches[n] for n in new}, timings
 
 
+def check_split(name, x, k, ct=CONTRAST):
+    """Phase 3d on one case: the label kernel at every stage and the stats
+    kernel on its labels against their plain versions, and B6a(B6b(x))
+    against the fused kernel; the largest error (0 or the run fails)."""
+    import torch
+    from heimdall_tpu_torch.ops import split_kernels as sk
+    from heimdall_tpu_torch.ops.fused_kernels import contamination_fused
+    errs = {}
+    for stage in sk.STAGES:
+        got = sk.label_kernel(x, ct, stage)
+        torch.cuda.synchronize()
+        want = sk.label_kernel_reference(x, ct, stage)
+        if got.dtype != want.dtype:
+            fail(f"label_kernel stage {stage} gives {got.dtype}, its plain "
+                 f"version {want.dtype}")
+        errs[stage] = max_abs_err((got,), (want,))
+    labels = sk.label_kernel(x, ct)
+    got = sk.stats_kernel(x, labels, k)
+    torch.cuda.synchronize()
+    errs["stats"] = max_abs_err(got, sk.stats_kernel_reference(x, labels, k))
+    fused = contamination_fused(x, ct, k, True, return_labels=True)
+    errs["split_vs_fused"] = max_abs_err(got + (labels,), fused)
+    phase(f"check split {name} (contrast {ct}, K {k}): n_blobs "
+          f"{got[3].tolist()[:8]} max_abs_err {errs}")
+    if any(errs.values()):
+        fail(f"a split kernel differs from its plain version or B6a(B6b) "
+             f"from the fused kernel on {name}")
+    return max(errs.values())
+
+
+def split_phases(dev, smi, cases):
+    """Phases 3d and 5d: the split kernels (B6b label_kernel at every stage,
+    B6a stats_kernel) against their plain versions on phase 3's frames, then
+    the profiling path (the port's profile_fused, profile_preprocess and
+    performance_analysis) on the card with every count set to 0 just before
+    and read just after; returns the split kernels' entries of the kernels
+    line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.examples import performance_analysis
+    from heimdall_tpu_torch.ops import _cuda
+    from heimdall_tpu_torch.ops import split_kernels as sk
+    from heimdall_tpu_torch.ops.fused_kernels import contamination_fused
+    from heimdall_tpu_torch.perf.profiling import ProfilingSession
+    from heimdall_tpu_torch.scripts import profile_fused, profile_preprocess
+
+    # -- 3d. split kernels against their plain versions ---------------------
+    uniform = torch.full((2, 3, 480, 640), 128, dtype=torch.uint8, device=dev)
+    adv = [n for n in cases if n.startswith("adversarial_")]
+    err = 0
+    for name, x, k, ct in (
+            ("bench8_channel_major", cases["bench8_channel_major"][0], K,
+             CONTRAST),
+            (adv[0], cases[adv[0]][0], K, CONTRAST),
+            (adv[1], cases[adv[1]][0], 4, CONTRAST),
+            ("bench2_477x631", cases["bench2_477x631"][0], K, CONTRAST),
+            ("uniform_no_foreground", uniform, K, CONTRAST),
+            ("uniform_full_foreground", uniform, K, -CONTRAST)):
+        err = max(err, check_split(name, x, k, ct))
+    full = sk.label_kernel(uniform, -CONTRAST, "fill")
+    if not bool(full.all()):
+        fail("the full-foreground case is not all foreground")
+
+    # -- 5d. the profiling path --------------------------------------------
+    torch.cuda.synchronize()
+    sk.label_kernel.launches = 0
+    sk.label_kernel.stage_launches.clear()
+    sk.stats_kernel.launches = 0
+    contamination_fused.launches = 0
+    t_fused = profile_fused.main([str(BATCH), "10"])
+    t_pre = profile_preprocess.main([str(BATCH), "10"])
+    with tempfile.TemporaryDirectory(dir=REPO) as out_dir:
+        report, path = performance_analysis.main(
+            ["--batches", "5", "--output-dir", out_dir])
+        with open(path) as fh:
+            saved = json.load(fh)
+        x = cases["bench8_channel_major"][0]
+        session = ProfilingSession("split_trace", device=dev)
+        with session.trace(os.path.join(out_dir, "trace")):
+            sk.stats_kernel(x, sk.label_kernel(x, CONTRAST), K)
+        traced = os.path.getsize(session.trace_path)
+    torch.cuda.synchronize()
+    launches = dict(sk.label_kernel.stage_launches,
+                    stats=sk.stats_kernel.launches,
+                    fused_detect=contamination_fused.launches)
+    phase(f"profiling path: profile_fused + profile_preprocess + "
+          f"performance_analysis launched {launches}")
+    if not all(launches.get(s) for s in (*sk.STAGES, "stats",
+                                         "fused_detect")):
+        fail("the profiling path did not launch every split kernel stage")
+    if (saved["counters"] != report.counters
+            or report.counters.get("frames") != 40
+            or not all(v > 0 for v in (*t_fused.values(), *t_pre.values()))):
+        fail("the profiling path's report or timings are wrong")
+    if "k_label" not in session.trace_table:
+        fail("ProfilingSession.trace on the card recorded no CUDA kernel")
+    phase(f"profiling path: report saved with counters {report.counters}; "
+          f"ProfilingSession.trace wrote {traced} bytes of Chrome trace and "
+          f"lists the CUDA kernels")
+
+    # -- 5. times of the plain versions, and bounds -------------------------
+    x = torch.from_numpy(np.ascontiguousarray(
+        scene.make_frames(BATCH, seed=0).transpose(0, 3, 1, 2))).to(dev)
+    labels = sk.label_kernel(x, CONTRAST)
+    px = BATCH * 480 * 640
+    us = dict(t_pre, fill=t_fused["fill"], ccl=t_fused["ccl"],
+              stats=t_fused["stats"])
+    plain = {s: (lambda s=s: sk.label_kernel_reference(x, CONTRAST, s))
+             for s in sk.STAGES}
+    plain["stats"] = lambda: sk.stats_kernel_reference(x, labels, K)
+    moved = {s: px * (3 + (4 if s == "ccl" else 1)) for s in sk.STAGES}
+    moved["stats"] = px * 7 + BATCH * (16 * K + 1) * 4
+    lib = _cuda.library("fused_detect")
+    per_call = {s: lib.hd_label_launches(sk.STAGES.index(s))
+                for s in sk.STAGES}
+    per_call["stats"] = lib.hd_stats_from_labels_launches()
+    timings = {}
+    for name, fn in plain.items():
+        fn()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(fn, 1)
+        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = (px * MEAN_FLOPS_PER_PX / F32_FLOPS_PER_S * 1e3
+                  if name in ("mean11", "pre", "fill", "ccl") else 0.0)
+        timings[name] = dict(
+            ms=us[name] * BATCH / 1e3, plain_ms=plain_ms,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        phase(f"{smi}: split {name} {us[name]:.3f} us/frame (profiling "
+              f"path, batch {BATCH} of 640x480x3, {per_call[name]} CUDA "
+              f"launches per call); plain version "
+              f"{plain_ms / BATCH * 1e3:.1f} us/frame; bound "
+              f"{timings[name]['bound_ms'] / BATCH * 1e3:.3f} us/frame "
+              f"({moved[name] // BATCH} bytes/frame)")
+
+    # name: (timing key, the TPU kernel it replaces)
+    profiled = "scripts/profile_fused.py:102"
+    staged = "scripts/profile_preprocess.py:100"
+    names = {"label_kernel": ("ccl", "heimdall_tpu/ops/pallas_kernels.py:901"),
+             "stats_kernel": ("stats",
+                              "heimdall_tpu/ops/pallas_kernels.py:965"),
+             "label_stage_gray": ("gray", staged),
+             "label_stage_blur5": ("blur5", staged),
+             "label_stage_mean11": ("mean11", staged),
+             "label_stage_pre": ("pre", profiled),
+             "label_stage_fill": ("fill", profiled),
+             "label_stage_ccl": ("ccl", profiled)}
+    entries = []
+    for name, (key, replaces) in names.items():
+        t = timings[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "heimdall_tpu_torch/csrc/fused_detect.cu",
+            "replaces": replaces, "equal": err == 0,
+            "launches": launches[key], "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes it",
+            "batch": BATCH, "frame": "640x480x3"})
+        if name == "label_stage_pre":      # also the profiler's "full" stage
+            entries[-1]["also_replaces"] = staged
+    return entries
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -807,6 +987,9 @@ def main(argv):
     # -- 3c-5 for the run-table 2 MP route ---------------------------------
     err3, launches3, times3 = runtable_phases(dev, smi, argv)
 
+    # -- 3d, 5d: the split kernels and the profiling path --------------------
+    split = split_phases(dev, smi, cases)
+
     # -- 6. kernels lines -----------------------------------------------------
     csrc = "heimdall_tpu_torch/csrc/"
     tiled = {    # name: (source, the TPU kernel or XLA code it replaces)
@@ -871,7 +1054,7 @@ def main(argv):
         "library_note": "no single PyTorch call computes it",
         "batch": BATCH, "frame": "640x480x3",
     }] + [entry(n) for n in ("band_ccl", "flood_fill", "banded_stats",
-                             "bbox_sums", *runtable)]
+                             "bbox_sums", *runtable)] + split
     print(json.dumps({"path_kernels": [entry("merge_bands"),
                                        entry("preprocess")]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,7 +36,9 @@
 // -fmad=false), and rounded half to even with __float2int_rn.
 //
 // hd_preprocess (at the end of the file) runs the preprocess stages alone
-// for frames of any size, for the band-tiled route.
+// for frames of any size, for the band-tiled route; hd_label and
+// hd_stats_from_labels are the two-kernel split of the same passes (the
+// profiling path, heimdall_tpu_torch/ops/split_kernels.py).
 
 #include <string.h>
 
@@ -70,6 +72,13 @@ __device__ __forceinline__ int gray_at(const Frames& f, int b, long long p) {
 }
 
 // ---------------------------------------------------------------- preprocess
+
+// The gray plane alone (hd_label's gray stage).
+__global__ void k_gray(Frames f, Geom g, uint8_t* gray) {
+  Pix q = pix(g);
+  if (!q.in) return;
+  gray[q.b * g.HW + q.p] = (uint8_t)gray_at(f, q.b, q.p);
+}
 
 __global__ void k_gray_blur_h(Frames f, Geom g, Taps t, uint8_t* gray,
                               int32_t* acc) {
@@ -106,8 +115,10 @@ __global__ void k_mean_h(Geom g, Taps t, const uint8_t* blurred, float* mh) {
   mh[q.b * g.HW + q.p] = s;
 }
 
-__global__ void k_mean_v_threshold(Geom g, Taps t, int ct, const float* mh,
-                                   const uint8_t* blurred, uint8_t* bin) {
+// Foreground pixels get `on` (1, or 255 for the label entry's mean11 stage).
+__global__ void k_mean_v_threshold(Geom g, Taps t, int ct, uint8_t on,
+                                   const float* mh, const uint8_t* blurred,
+                                   uint8_t* bin) {
   Pix q = pix(g);
   if (!q.in) return;
   const float* m = mh + q.b * g.HW;
@@ -117,7 +128,7 @@ __global__ void k_mean_v_threshold(Geom g, Taps t, int ct, const float* mh,
         t.k11[i], m[(long long)clampi(q.y + i - 5, 0, g.H - 1) * g.W + q.x]));
   int mean = __float2int_rn(s);
   long long o = q.b * g.HW + q.p;
-  bin[o] = (int)blurred[o] <= mean - ct ? 1 : 0;
+  bin[o] = (int)blurred[o] <= mean - ct ? on : 0;
 }
 
 // 3x3 erode (is_min) or dilate over in-frame neighbours: cv2's constant
@@ -211,6 +222,17 @@ __global__ void k_label(Geom g, const uint8_t* fg, int32_t* parent) {
 }
 
 // ------------------------------------------------------------ roots, slots
+
+// hd_stats_from_labels' first pass: gray from the frame, and foreground as
+// label != H*W, the planes that the fused detect's stats passes read.
+__global__ void k_from_labels(Frames f, Geom g, const int32_t* labels,
+                              uint8_t* gray, uint8_t* fg) {
+  Pix q = pix(g);
+  if (!q.in) return;
+  long long o = q.b * g.HW + q.p;
+  gray[o] = (uint8_t)gray_at(f, q.b, q.p);
+  fg[o] = labels[o] != (int)g.HW;
+}
 
 // One block per (row, frame): raster rank of each root within its row
 // (written at the root's pixel in `rank`) and the row's root count.
@@ -385,32 +407,97 @@ __global__ void k_bbox_sums(Frames f, Geom g, int K, const int32_t* nblobs,
   }
 }
 
-// The preprocess passes of both entry points, up to the dilate of the
+// The stages of hd_label, in order: it stops after `stage`.  Every other
+// entry point runs the whole preprocess (kCcl passed as the stage).
+enum Stage { kGray = 0, kBlur5, kMean11, kPre, kFill, kCcl, kNumStages };
+
+// The preprocess passes of every entry point, up to the dilate of the
 // close: gray in `gray`, the dilated plane in plane1 (plane2 and work are
-// scratch).  Returns the first CUDA error.
+// scratch).  With stage kGray, kBlur5 or kMean11 it stops after that stage,
+// whose plane is then in gray, plane1 or plane2 (threshold 0/255).  Returns
+// the first CUDA error.
 int launch_to_close_dilate(const Frames& f, const Geom& g, int B, int ct,
-                           const int* q8, const float* k11, uint8_t* gray,
-                           uint8_t* plane1, uint8_t* plane2, int32_t* work,
-                           cudaStream_t st) {
+                           const int* q8, const float* k11, int stage,
+                           uint8_t* gray, uint8_t* plane1, uint8_t* plane2,
+                           int32_t* work, cudaStream_t st) {
   Taps t;
   memcpy(t.q8, q8, sizeof(t.q8));
   memcpy(t.k11, k11, sizeof(t.k11));
   dim3 blk(kTileW, kTileH);
   dim3 grid((g.W + kTileW - 1) / kTileW, (g.H + kTileH - 1) / kTileH, B);
   float* fwork = reinterpret_cast<float*>(work);
+  if (stage == kGray) {
+    k_gray<<<grid, blk, 0, st>>>(f, g, gray);
+    HD_CHECK();
+    return 0;
+  }
   k_gray_blur_h<<<grid, blk, 0, st>>>(f, g, t, gray, work);
   HD_CHECK();
   k_blur_v<<<grid, blk, 0, st>>>(g, t, work, plane1);
   HD_CHECK();
+  if (stage == kBlur5) return 0;
   k_mean_h<<<grid, blk, 0, st>>>(g, t, plane1, fwork);
   HD_CHECK();
-  k_mean_v_threshold<<<grid, blk, 0, st>>>(g, t, ct, fwork, plane1, plane2);
+  uint8_t on = stage == kMean11 ? 255 : 1;
+  k_mean_v_threshold<<<grid, blk, 0, st>>>(g, t, ct, on, fwork, plane1,
+                                           plane2);
   HD_CHECK();
+  if (stage == kMean11) return 0;
   k_morph<<<grid, blk, 0, st>>>(g, plane2, plane1, 1);   // open: erode
   HD_CHECK();
   k_morph<<<grid, blk, 0, st>>>(g, plane1, plane2, 0);   //       dilate
   HD_CHECK();
   k_morph<<<grid, blk, 0, st>>>(g, plane2, plane1, 0);   // close: dilate
+  HD_CHECK();
+  return 0;
+}
+
+// From the close's dilated plane in plane1: the last erode into plane2
+// (seeding the union-finds), the hole fill (plane2 = filled mask, 0/1) and,
+// unless stage is kFill, the labels (`labels`, background H*W; the hole
+// fill's parents live there before).  work is scratch.
+int launch_fill_label(const Geom& g, int B, int stage, uint8_t* plane1,
+                      uint8_t* plane2, int32_t* work, int32_t* labels,
+                      cudaStream_t st) {
+  dim3 blk(kTileW, kTileH);
+  dim3 grid((g.W + kTileW - 1) / kTileW, (g.H + kTileH - 1) / kTileH, B);
+  k_close_erode_init<<<grid, blk, 0, st>>>(g, plane1, plane2, labels, work);
+  HD_CHECK();
+  k_link_bg<<<grid, blk, 0, st>>>(g, plane2, labels);
+  HD_CHECK();
+  k_compress_mark<<<grid, blk, 0, st>>>(g, plane2, labels, work);
+  HD_CHECK();
+  k_fill_init<<<grid, blk, 0, st>>>(g, plane2, labels, work);
+  HD_CHECK();
+  if (stage == kFill) return 0;
+  k_link_fg<<<grid, blk, 0, st>>>(g, plane2, labels);
+  HD_CHECK();
+  k_label<<<grid, blk, 0, st>>>(g, plane2, labels);
+  HD_CHECK();
+  return 0;
+}
+
+// The first-K-root statistics from the foreground plane fg (0/1), the label
+// plane and the gray plane: slot ranking (rank int32 [B, H, W] and rowcnt /
+// rowoff int32 [B, H] are scratch), per-slot sums and bbox, bbox-window sums
+// and the blob count.  sums and bgsum must be zeroed by the caller.
+int launch_stats(const Frames& f, const Geom& g, int B, int K,
+                 const uint8_t* fg, const int32_t* labels, int32_t* rank,
+                 int32_t* rowcnt, int32_t* rowoff, const uint8_t* gray,
+                 int32_t* sums, int32_t* bbox, int32_t* bgsum,
+                 int32_t* nblobs, cudaStream_t st) {
+  k_row_roots<<<dim3(g.H, B), 256, 0, st>>>(g, fg, labels, rank, rowcnt);
+  HD_CHECK();
+  k_frame_roots<<<B, 256, 0, st>>>(g, K, rowcnt, rowoff, nblobs, bbox);
+  HD_CHECK();
+  dim3 blk(kTileW, kTileH);
+  dim3 sgrid((g.W + kTileW - 1) / kTileW, (g.H + kStatsRows - 1) / kStatsRows,
+             B);
+  size_t smem = (size_t)11 * K * sizeof(int);
+  k_stats<<<sgrid, blk, smem, st>>>(f, g, K, fg, labels, rank, rowoff, gray,
+                                     sums, bbox);
+  HD_CHECK();
+  k_bbox_sums<<<dim3(K, B), 256, 0, st>>>(f, g, K, nblobs, gray, bbox, bgsum);
   HD_CHECK();
   return 0;
 }
@@ -430,36 +517,13 @@ extern "C" int hd_fused_detect(
   cudaStream_t st = (cudaStream_t)stream;
   Geom g{H, W, (long long)H * W, H, 1};
   Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
-  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, gray, plane1, plane2,
-                                   work, st);
-  if (err) return err;
-
-  dim3 blk(kTileW, kTileH);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  k_close_erode_init<<<grid, blk, 0, st>>>(g, plane1, plane2, labels, work);
-  HD_CHECK();
-  k_link_bg<<<grid, blk, 0, st>>>(g, plane2, labels);
-  HD_CHECK();
-  k_compress_mark<<<grid, blk, 0, st>>>(g, plane2, labels, work);
-  HD_CHECK();
-  k_fill_init<<<grid, blk, 0, st>>>(g, plane2, labels, work);
-  HD_CHECK();
-  k_link_fg<<<grid, blk, 0, st>>>(g, plane2, labels);
-  HD_CHECK();
-  k_label<<<grid, blk, 0, st>>>(g, plane2, labels);
-  HD_CHECK();
-  k_row_roots<<<dim3(H, B), 256, 0, st>>>(g, plane2, labels, work, rowcnt);
-  HD_CHECK();
-  k_frame_roots<<<B, 256, 0, st>>>(g, K, rowcnt, rowoff, nblobs, bbox);
-  HD_CHECK();
-  dim3 sgrid((W + kTileW - 1) / kTileW, (H + kStatsRows - 1) / kStatsRows, B);
-  size_t smem = (size_t)11 * K * sizeof(int);
-  k_stats<<<sgrid, blk, smem, st>>>(f, g, K, plane2, labels, work, rowoff,
-                                     gray, sums, bbox);
-  HD_CHECK();
-  k_bbox_sums<<<dim3(K, B), 256, 0, st>>>(f, g, K, nblobs, gray, bbox, bgsum);
-  HD_CHECK();
-  return 0;
+  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, kCcl, gray, plane1,
+                                   plane2, work, st);
+  if (!err) err = launch_fill_label(g, B, kCcl, plane1, plane2, work, labels,
+                                    st);
+  if (!err) err = launch_stats(f, g, B, K, plane2, labels, work, rowcnt,
+                               rowoff, gray, sums, bbox, bgsum, nblobs, st);
+  return err;
 }
 
 // Number of kernel launches one hd_fused_detect call makes.
@@ -478,8 +542,8 @@ extern "C" int hd_preprocess(
   cudaStream_t st = (cudaStream_t)stream;
   Geom g{H, W, (long long)H * W, H, 1};
   Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
-  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, gray, plane1, plane2,
-                                   work, st);
+  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, kCcl, gray, plane1,
+                                   plane2, work, st);
   if (err) return err;
   dim3 blk(kTileW, kTileH);
   dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
@@ -487,3 +551,75 @@ extern "C" int hd_preprocess(
   HD_CHECK();
   return 0;
 }
+
+// ------------------------------------------------- the two-kernel split
+//
+// hd_label and hd_stats_from_labels replace the split of the fused Pallas
+// kernel that heimdall_tpu's profiler runs (scripts/profile_fused.py):
+// pallas_kernels.py::_make_label_kernel (frame -> label plane) and
+// ::_make_stats_kernel (frame + label plane -> the fused kernel's tables),
+// and the profilers' truncations of the label kernel
+// (scripts/profile_fused.py, scripts/profile_preprocess.py), which are
+// hd_label's stages.  Both take BGR planes [B, 3, H, W] and run the fused
+// detect's passes above; B6b(frame) then B6a(frame, labels) gives the fused
+// detect's outputs.  What bounds them on an H100 SXM: bytes.  hd_label reads
+// the frame (3 B/px) and writes one plane (1 B/px, 4 B/px for the labels);
+// hd_stats_from_labels reads the frame and the labels (7 B/px) and writes
+// ~4 KB of tables.  Like the fused detect, they pass every stage through
+// global-memory scratch rather than approach that bound.
+
+// Frame -> the plane of `stage`: gray (gray), Q8 blur5 (plane1), the INV
+// threshold of the f32 mean11 as 0/255 (plane2), the opened and closed mask
+// (plane2, 0/1), the hole-filled mask (plane2, 0/1) or the 8-connected
+// labels (labels, background H*W).  Scratch: gray/plane1/plane2 u8 and
+// work/labels int32, all [B, H, W].  Returns the first CUDA error.
+extern "C" int hd_label(const uint8_t* frames, int B, int H, int W, int ct,
+                        int stage, const int* q8, const float* k11,
+                        uint8_t* gray, uint8_t* plane1, uint8_t* plane2,
+                        int32_t* work, int32_t* labels, void* stream) {
+  if (stage < 0 || stage >= kNumStages) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Geom g{H, W, (long long)H * W, H, 1};
+  Frames f{frames, 3, 3 * g.HW, g.HW, 1};
+  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, stage, gray, plane1,
+                                   plane2, work, st);
+  if (err || stage <= kMean11) return err;
+  if (stage == kPre) {
+    dim3 blk(kTileW, kTileH);
+    dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+    k_morph<<<grid, blk, 0, st>>>(g, plane1, plane2, 1);   // close: erode
+    HD_CHECK();
+    return 0;
+  }
+  return launch_fill_label(g, B, stage, plane1, plane2, work, labels, st);
+}
+
+// Number of kernel launches one hd_label call makes at `stage`.
+extern "C" int hd_label_launches(int stage) {
+  static const int n[kNumStages] = {1, 2, 4, 8, 11, 13};
+  return stage >= 0 && stage < kNumStages ? n[stage] : 0;
+}
+
+// Frame + label plane -> the fused detect's tables: sums [B,8,K], bbox
+// [B,4,K], bgsum [B,4,K] (sums and bgsum zeroed by the caller) and n [B].
+// Foreground is label != H*W and a root is a pixel whose label is its own
+// linear index; labels must be a label plane in that sense (hd_label's).
+// Scratch: gray/fg u8 and rank int32 [B, H, W], rowcnt/rowoff int32 [B, H].
+extern "C" int hd_stats_from_labels(
+    const uint8_t* frames, int B, int H, int W, int K, const int32_t* labels,
+    uint8_t* gray, uint8_t* fg, int32_t* rank, int32_t* rowcnt,
+    int32_t* rowoff, int32_t* sums, int32_t* bbox, int32_t* bgsum,
+    int32_t* nblobs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Geom g{H, W, (long long)H * W, H, 1};
+  Frames f{frames, 3, 3 * g.HW, g.HW, 1};
+  dim3 blk(kTileW, kTileH);
+  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  k_from_labels<<<grid, blk, 0, st>>>(f, g, labels, gray, fg);
+  HD_CHECK();
+  return launch_stats(f, g, B, K, fg, labels, rank, rowcnt, rowoff, gray,
+                      sums, bbox, bgsum, nblobs, st);
+}
+
+// Number of kernel launches one hd_stats_from_labels call makes.
+extern "C" int hd_stats_from_labels_launches() { return 5; }

@@ -71,11 +71,18 @@ def _planes(frames: torch.Tensor, channel_major: bool):
     return gray_from_planes(*color), color
 
 
-def _closed_binary(gray: torch.Tensor, contrast_threshold) -> torch.Tensor:
-    """Blur, INV threshold, open and close of a gray batch: u8, 1 = fg."""
+def preprocess_stage(gray: torch.Tensor, contrast_threshold,
+                     stage: str = "pre") -> torch.Tensor:
+    """Blur, INV threshold, open and close of a gray batch, up to ``stage``:
+    "blur5" (the Q8 blur, u8), "mean11" (the threshold of the f32 mean11,
+    u8 0/255) or "pre" (the opened and closed mask, u8 1 = foreground)."""
     blurred = gaussian_blur(gray, 5, 0)
+    if stage == "blur5":
+        return blurred
     binary = adaptive_threshold(blurred, 255, "gaussian", "binary_inv", 11,
                                 int(contrast_threshold))
+    if stage == "mean11":
+        return binary
     se3 = np.ones((3, 3), np.uint8)
     binary = morphology_ex(binary, "open", se3)
     binary = morphology_ex(binary, "close", se3)
@@ -87,10 +94,10 @@ def preprocess_reference(frames: torch.Tensor, contrast_threshold,
     """Plain PyTorch version of hd_preprocess: (gray u8 [B,H,W], closed
     binary u8 [B,H,W] with 1 for foreground)."""
     gray, _ = _planes(frames, channel_major)
-    return gray, _closed_binary(gray, contrast_threshold)
+    return gray, preprocess_stage(gray, contrast_threshold)
 
 
-def _taps():
+def kernel_taps():
     """The Q8 blur5 and f32 mean11 taps as C arrays."""
     q8 = _q8_taps_bitexact(gaussian_kernel_1d(5, 0.0))
     return (ctypes.c_int * 5)(*q8), (ctypes.c_float * 11)(*f32_taps(11))
@@ -120,7 +127,7 @@ def preprocess(frames: torch.Tensor, contrast_threshold,
         torch.empty((B, H, W), dtype=u8, device=frames.device)
         for _ in range(4))
     work = torch.empty((B, H, W), dtype=torch.int32, device=frames.device)
-    q8, k11 = _taps()
+    q8, k11 = kernel_taps()
     err = _cuda.library("fused_detect").hd_preprocess(
         frames.data_ptr(), B, H, W, C, cstride, pstride,
         int(contrast_threshold), q8, k11, gray.data_ptr(), plane1.data_ptr(),
@@ -146,7 +153,7 @@ def contamination_fused_reference(frames: torch.Tensor, contrast_threshold,
     n_blobs i32 [B]) and, with return_labels, the label plane i32
     [B,H,W] (background H*W)."""
     gray, color = _planes(frames, channel_major)
-    mask = fill_holes(_closed_binary(gray, contrast_threshold) > 0)
+    mask = fill_holes(preprocess_stage(gray, contrast_threshold) > 0)
     labels = connected_components(mask, connectivity=8)
     out = blobs_mod.blob_sums(labels, mask, gray, color, max_blobs)
     return out + (labels,) if return_labels else out
@@ -182,7 +189,7 @@ def _launch(frames: torch.Tensor, contrast_threshold, max_blobs: int,
     gray, plane1, plane2 = (empty((B, H, W), u8) for _ in range(3))
     work = empty((B, H, W), i32)
     rowcnt, rowoff = empty((B, H), i32), empty((B, H), i32)
-    q8, k11 = _taps()
+    q8, k11 = kernel_taps()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _cuda.library("fused_detect").hd_fused_detect(
         frames.data_ptr(), B, H, W, C, cstride, pstride,

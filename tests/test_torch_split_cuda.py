@@ -1,0 +1,79 @@
+"""The split CUDA kernels (hd_label at every stage, hd_stats_from_labels)
+against their plain PyTorch versions, on the card (marked ``cuda``; each
+test skips where torch.cuda.is_available() is false).  This file imports no
+JAX; on a machine with a card:
+
+    python -m pytest tests/test_torch_split_cuda.py -q -m cuda --noconftest
+
+Equality is exact: every stage is an integer plane and the stats are
+integer tables.  The stats kernel on the label kernel's labels must also
+equal the fused kernel's outputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from heimdall_tpu_torch import scene
+from heimdall_tpu_torch.ops import split_kernels as sk
+from heimdall_tpu_torch.ops.fused_kernels import contamination_fused
+
+CT = 15
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+def _frames(h, w):
+    """Bench frames, adversarial frames and a uniform frame, as BGR planes
+    [7, 3, h, w]."""
+    frames = np.concatenate([
+        scene.make_frames(2, h, w, seed=4),
+        scene.mask_frames(list(scene.adversarial_masks(h, w, seed=1)
+                               .values())),
+        np.full((1, h, w, 3), 128, np.uint8)])
+    return torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(480, 640), (237, 301)])
+@pytest.mark.parametrize("stage", sk.STAGES)
+def test_label_kernel_matches_plain_version(card, size, stage):
+    x = _frames(*size).to(card)
+    before = sk.label_kernel.stage_launches[stage]
+    got = sk.label_kernel(x, CT, stage)
+    torch.cuda.synchronize()
+    assert sk.label_kernel.stage_launches[stage] == before + 1
+    want = sk.label_kernel_reference(x, CT, stage)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 4])
+def test_stats_kernel_matches_plain_version_and_fused(card, k):
+    x = _frames(480, 640).to(card)
+    labels = sk.label_kernel(x, CT)
+    before = sk.stats_kernel.launches
+    got = sk.stats_kernel(x, labels, k)
+    torch.cuda.synchronize()
+    assert sk.stats_kernel.launches == before + 1
+    for a, b, c in zip(got, sk.stats_kernel_reference(x, labels, k),
+                       contamination_fused(x, CT, k, channel_major=True)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_full_foreground(card):
+    """A uniform frame at contrast -15 is all foreground: one blob."""
+    x = torch.full((2, 3, 64, 96), 77, dtype=torch.uint8, device=card)
+    labels = sk.label_kernel(x, -CT)
+    assert not labels.any()
+    got = sk.stats_kernel(x, labels)
+    for a, b in zip(got, sk.stats_kernel_reference(x, labels)):
+        assert torch.equal(a, b)
+    assert got[3].tolist() == [1, 1]
