@@ -31,6 +31,13 @@ Phases (each prints a line; any failure exits non-zero without a result):
         K = 64 and K = 4, 2 frames of 477x631, and a uniform frame with no
         foreground (contrast 15) and all foreground (contrast -15); on each,
         stats(labels) with the labels equals the fused kernel's outputs;
+     e. the preprocess and hole-fill probes at 640x480 on 3d's frames: the
+        roll stages, the preprocess variants (the exact four also equal to
+        the label kernel's "pre"; mxu_conv's mean within 1e-3 of the float32
+        product, its flips counted), the run-id product, the nine sweep
+        fills (each also equal to the label kernel's union-find "fill"),
+        and the stats kernel on a label plane whose labels need not name a
+        root;
   4. drive the detector's main paths, each with every kernel's launch count
      set to 0 just before and read just after:
      a. ContaminationDetector.run_device at 640x480x3 channel-major, batch
@@ -56,6 +63,15 @@ Phases (each prints a line; any failure exits non-zero without a result):
         card (5 batches, its JSON report), and a ProfilingSession.trace of
         the split kernels, which must list their CUDA kernels; then each
         split kernel's plain version and bound;
+     e. the probes path, with the probe kernels' launch counts set to 0
+        just before and read just after: the port's profile_preprocess
+        (with its roll stages), profile_pre_variants and
+        profile_fill_variants (batch 256, 10 iterations; every variant's
+        us/frame, mxu_conv's flips, the union-find fill beside the sweep
+        fills); then each probe's plain version and bound, and the
+        tensor-core products beside the PyTorch call that computes the
+        same (torch.matmul of the banded matrices, torch.cumsum of the run
+        starts);
   6. JSON lines listing every kernel with its check and times;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
@@ -84,9 +100,16 @@ RT_BG, RT_FG = 8, 7           # the detector's run-table widths
 # Published peaks of one H100 SXM (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 # float operations per pixel of the f32 mean11: 11 multiplies and 10 adds
 # per pass, 2 passes (counted as 44)
 MEAN_FLOPS_PER_PX = 44
+# TF32 operations per pixel of mxu_conv's band products: per 16 x 8 tile of
+# out, 3 k tiles x 2 splits in the row pass and 4 x 3 in the column pass,
+# each 16 x 8 x 8 multiply-adds
+MXU_FLOPS_PER_PX = (3 * 2 + 4 * 3) * 16 * 8 * 8 * 2 // (16 * 8)
+# mxu_conv's mean against the float32 product
+MEAN_TOL = 1e-3
 
 
 def phase(msg):
@@ -817,6 +840,215 @@ def split_phases(dev, smi, cases):
     return entries
 
 
+def check_probes(name, x, ct):
+    """Phase 3e on one case: the roll stages, the preprocess variants, the
+    run-id product and the sweep fills against their plain versions (the
+    exact variants also against the label kernel's "pre", the sweep fills
+    against its union-find "fill"); returns (largest error, mxu_conv's
+    largest mean error, mxu_conv's differing pre pixels)."""
+    import torch
+    from heimdall_tpu_torch.ops import fill_sweeps as fs
+    from heimdall_tpu_torch.ops import pre_variants as pv
+    from heimdall_tpu_torch.ops import split_kernels as sk
+    errs = {}
+    for stage in pv.ROLL_STAGES:
+        errs[stage] = max_abs_err((pv.roll_stage(x, ct, stage),),
+                                  (pv.roll_stage_reference(x, ct, stage),))
+    pre = sk.label_kernel(x, ct, "pre")
+    for v in pv.VARIANTS:
+        if v != "mxu_conv":
+            got = pv.pre_variant(x, ct, v)
+            errs[v] = max(max_abs_err((got,), (pre,)), max_abs_err(
+                (got,), (pv.pre_variant_reference(x, ct, v),)))
+    blurred = sk.label_kernel(x, ct, "blur5")
+    want = pv.mxu_mean_reference(blurred)
+    mean_err = float((pv.mxu_mean(blurred) - want).abs().max())
+    near_half = int(((want - want.floor() - 0.5).abs() <= MEAN_TOL).sum())
+    flips = int((pv.pre_variant(x, ct, "mxu_conv")
+                 != pv.pre_variant_reference(x, ct, "mxu_conv")).sum())
+    for guard in (False, True):
+        for pack in ("mxu", "ladder"):
+            errs[f"run_ids_{pack}_guard{int(guard)}"] = max_abs_err(
+                fs.run_ids(pre, guard, pack), fs.run_ids_reference(pre, guard))
+    uf = sk.label_kernel(x, ct, "fill")
+    errs["sweep_plain_vs_union_find"] = max_abs_err(
+        (fs.fill_sweeps_reference(x, ct),), (uf,))
+    for v in fs.VARIANTS:
+        errs[f"fill_{v}"] = max_abs_err((fs.fill_sweeps(x, ct, v),), (uf,))
+    torch.cuda.synchronize()
+    phase(f"check probes {name} (contrast {ct}): max_abs_err {errs}; "
+          f"mxu_conv mean max err {mean_err:.3e} (tolerance {MEAN_TOL}), "
+          f"{flips} pre pixels differ from the float32 product "
+          f"({near_half} means within {MEAN_TOL} of a half-integer)")
+    if any(errs.values()) or mean_err > MEAN_TOL:
+        fail(f"a probe kernel differs from its plain version, or a sweep "
+             f"fill from the union-find fill, on {name}")
+    return max(errs.values()), mean_err, flips
+
+
+def probe_phases(dev, smi, cases):
+    """Phases 3e and 5e: the probe kernels (roll stages, preprocess
+    variants, sweep fills) against their plain versions on phase 3d's
+    frames and the repaired stats kernel on a non-root label plane, then the
+    probes path (the port's profile_preprocess, profile_pre_variants and
+    profile_fill_variants) with the probe kernels' counts set to 0 just
+    before and read just after; returns the probes' entries of the kernels
+    line."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import fill_sweeps as fs
+    from heimdall_tpu_torch.ops import pre_variants as pv
+    from heimdall_tpu_torch.ops import split_kernels as sk
+    from heimdall_tpu_torch.ops.fused_kernels import kernel_taps
+    from heimdall_tpu_torch.scripts import (profile_fill_variants,
+                                            profile_pre_variants,
+                                            profile_preprocess)
+
+    # -- 3e. probe kernels against their plain versions ---------------------
+    uniform = torch.full((2, 3, 480, 640), 128, dtype=torch.uint8, device=dev)
+    adv = next(n for n in cases if n.startswith("adversarial_"))
+    err, mean_err, flips = 0, 0.0, 0
+    for name, x, ct in (
+            ("bench8_channel_major", cases["bench8_channel_major"][0],
+             CONTRAST),
+            (adv, cases[adv][0], CONTRAST),
+            ("bench2_477x631", cases["bench2_477x631"][0], CONTRAST),
+            ("uniform_no_foreground", uniform, CONTRAST),
+            ("uniform_full_foreground", uniform, -CONTRAST)):
+        e, m, f = check_probes(name, x, ct)
+        err, mean_err, flips = max(err, e), max(mean_err, m), flips + f
+    x = torch.cat([cases["bench8_channel_major"][0], cases[adv][0]])
+    labels = scene.non_root_labels(sk.label_kernel(x, CONTRAST))
+    got = sk.stats_kernel(x, labels, K)
+    torch.cuda.synchronize()
+    stats_err = max_abs_err(got, sk.stats_kernel_reference(x, labels, K))
+    phase(f"check stats on a non-root label plane (bench + adversarial): "
+          f"n_blobs {got[3].tolist()} max_abs_err {stats_err}")
+    if stats_err:
+        fail("the stats kernel differs from its plain version on a label "
+             "plane whose labels need not name a root")
+
+    # -- 5e. the probes path -----------------------------------------------
+    torch.cuda.synchronize()
+    for w in (pv.roll_stage, pv.pre_variant, fs.fill_sweeps):
+        w.launches = 0
+    pv.roll_stage.stage_launches.clear()
+    pv.pre_variant.variant_launches.clear()
+    fs.fill_sweeps.variant_launches.clear()
+    t_roll = profile_preprocess.main([str(BATCH), "10"])
+    t_var, batch_flips = profile_pre_variants.main([str(BATCH), "10"])
+    t_fill = profile_fill_variants.main([str(BATCH), "10"])
+    torch.cuda.synchronize()
+    launches = {"roll_stages": pv.roll_stage.launches,
+                "pre_variants": pv.pre_variant.launches,
+                "fill_sweeps": fs.fill_sweeps.launches}
+    phase(f"probes path: profile_preprocess + profile_pre_variants + "
+          f"profile_fill_variants launched {launches}; by stage "
+          f"{dict(pv.roll_stage.stage_launches)}, by variant "
+          f"{dict(pv.pre_variant.variant_launches)} "
+          f"{dict(fs.fill_sweeps.variant_launches)}")
+    if not all(launches.values()):
+        fail("the probes path did not launch every probe kernel")
+    if not all(v > 0 for v in (*t_roll.values(), *t_var.values(),
+                                *t_fill.values())):
+        fail("the probes path's timings are wrong")
+    phase(f"{smi}: sweep fill 'new' {t_fill['new']:.3f} us/frame against "
+          f"the union-find fill {t_fill['union_find']:.3f} (pre + fill, "
+          f"batch {BATCH}); mxu_conv flips {batch_flips} in {BATCH} frames")
+
+    # -- 5e. plain versions, bounds, the products and their library calls --
+    x = torch.from_numpy(np.ascontiguousarray(
+        scene.make_frames(BATCH, seed=0).transpose(0, 3, 1, 2))).to(dev)
+    px = BATCH * 480 * 640
+    blurred = sk.label_kernel(x, CONTRAST, "blur5")
+    pre = sk.label_kernel(x, CONTRAST, "pre")
+    k11 = list(kernel_taps()[1])
+    tw = pv.band_matrix(640, k11, dev)
+    th = pv.band_matrix(480, k11, dev).T.contiguous()
+    xf = blurred.to(torch.float32)
+    bg = (pre == 0).to(torch.int32)
+    start_r = bg - bg * torch.nn.functional.pad(bg, (1, 0))[..., :-1]
+    start_c = bg - bg * torch.nn.functional.pad(bg, (0, 0, 1, 0))[..., :-1, :]
+    products = {
+        "mxu_mean": (lambda: pv.mxu_mean(blurred),
+                     lambda: torch.matmul(th, torch.matmul(xf, tw))),
+        "run_ids": (lambda: fs.run_ids(pre),
+                    lambda: (torch.cumsum(start_r, -1),
+                             torch.cumsum(start_c, -2))),
+    }
+    prod_ms = {}
+    for name, (kfn, lfn) in products.items():
+        kfn(), lfn()
+        torch.cuda.synchronize()
+        prod_ms[name] = (cuda_ms(kfn, 10), cuda_ms(lfn, 10))
+        phase(f"{smi}: {name} (tensor cores) {prod_ms[name][0]:.4f} ms per "
+              f"{BATCH} frames; the PyTorch call of the same function "
+              f"{prod_ms[name][1]:.4f} ms")
+    plain = {"roll_stages": lambda: pv.roll_stage_reference(x, CONTRAST,
+                                                            "full_roll"),
+             "pre_variants": lambda: pv.pre_variant_reference(x, CONTRAST,
+                                                              "mxu_conv"),
+             "fill_sweeps": lambda: fs.fill_sweeps_reference(x, CONTRAST)}
+    us = {"roll_stages": t_roll["full_roll"],
+          "pre_variants": t_var["mxu_conv"], "fill_sweeps": t_fill["new"]}
+    variants = {"roll_stages": {s: t_roll[s] for s in pv.ROLL_STAGES},
+                "pre_variants": t_var, "fill_sweeps": t_fill}
+    bytes_ms = px * 4 / HBM_BYTES_PER_S * 1e3      # frame in, plane out
+    ops_ms = max(px * MEAN_FLOPS_PER_PX / F32_FLOPS_PER_S,
+                 px * MXU_FLOPS_PER_PX / TF32_FLOPS_PER_S) * 1e3
+    replaces = {
+        "roll_stages": "scripts/profile_preprocess.py:100",
+        "pre_variants": "scripts/profile_pre_variants.py:186",
+        "fill_sweeps": "scripts/profile_fill_variants.py:211"}
+    sources = {"roll_stages": "pre_variants.cu",
+               "pre_variants": "pre_variants.cu",
+               "fill_sweeps": "fill_sweeps.cu"}
+    entries = []
+    for name, fn in plain.items():
+        fn()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(fn, 1)
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "heimdall_tpu_torch/csrc/" + sources[name],
+            "replaces": replaces[name], "equal": err == 0,
+            "launches": launches[name], "max_abs_err": err,
+            "ms": us[name] * BATCH / 1e3, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes it",
+            "variants": {v: t * BATCH / 1e3
+                         for v, t in variants[name].items()},
+            "batch": BATCH, "frame": "640x480x3"}
+        if name == "pre_variants":
+            entry.update(
+                library_ms=prod_ms["mxu_mean"][1],
+                library_note="torch.matmul of mxu_conv's banded matrices "
+                             "(its products alone; product_ms is the "
+                             "kernel's)",
+                product_ms=prod_ms["mxu_mean"][0], ms_of="mxu_conv",
+                mxu_conv_mean_max_abs_err=mean_err,
+                mxu_conv_flips=batch_flips)
+        elif name == "fill_sweeps":
+            entry.update(
+                library_ms=prod_ms["run_ids"][1],
+                library_note="torch.cumsum of the run starts along the rows "
+                             "and the columns (the run-id product alone; "
+                             "product_ms is the kernel's)",
+                product_ms=prod_ms["run_ids"][0], ms_of="new",
+                union_find_ms=t_fill["union_find"] * BATCH / 1e3)
+        else:
+            entry["ms_of"] = "full_roll"
+        entries.append(entry)
+        phase(f"{smi}: {name} ({entry['ms_of']}) {us[name]:.3f} us/frame "
+              f"(probes path, batch {BATCH} of 640x480x3); plain version "
+              f"{plain_ms / BATCH * 1e3:.1f} us/frame; bound "
+              f"{entry['bound_ms'] / BATCH * 1e3:.3f} us/frame")
+    return entries
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -990,6 +1222,9 @@ def main(argv):
     # -- 3d, 5d: the split kernels and the profiling path --------------------
     split = split_phases(dev, smi, cases)
 
+    # -- 3e, 5e: the preprocess and hole-fill probes -------------------------
+    probes = probe_phases(dev, smi, cases)
+
     # -- 6. kernels lines -----------------------------------------------------
     csrc = "heimdall_tpu_torch/csrc/"
     tiled = {    # name: (source, the TPU kernel or XLA code it replaces)
@@ -1054,7 +1289,7 @@ def main(argv):
         "library_note": "no single PyTorch call computes it",
         "batch": BATCH, "frame": "640x480x3",
     }] + [entry(n) for n in ("band_ccl", "flood_fill", "banded_stats",
-                             "bbox_sums", *runtable)] + split
+                             "bbox_sums", *runtable)] + split + probes
     print(json.dumps({"path_kernels": [entry("merge_bands"),
                                        entry("preprocess")]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,12 @@
 // Device helpers shared by the port's kernels (fused_detect.cu,
-// ccl_tiled.cu, stats_tiled.cu, runtable_tiled.cu): the 32 x 8 pixel
-// mapping and its per-frame skip, warp run starts, union-find with atomicMin
-// hooking and the background union-find of the hole fill, block scans and
-// sums for 256-thread blocks, a search in a sorted root table, the slot-list
-// writer, and the launch check of the entry points.  Each .cu that includes
-// this file is its own library, so everything here has internal linkage.
+// ccl_tiled.cu, stats_tiled.cu, runtable_tiled.cu, pre_variants.cu,
+// fill_sweeps.cu): the 32 x 8 pixel mapping and its per-frame skip, the
+// preprocess's taps, borders, gray and 3x3 erode/dilate pass, warp run starts,
+// union-find with atomicMin hooking and the background union-find of the
+// hole fill, block scans and sums for 256-thread blocks, a search in a sorted
+// root table, the slot-list writer, and the launch check of the entry
+// points.  Each .cu that includes this file is its own library, so
+// everything here has internal linkage.
 
 #pragma once
 
@@ -83,6 +85,55 @@ __device__ __forceinline__ Pix pix_at(const Geom& g, int ty) {
 
 __device__ __forceinline__ Pix pix(const Geom& g) {
   return pix_at(g, blockIdx.y);
+}
+
+// The preprocess's taps: the Q8 blur5 and the f32 mean11.
+struct Taps {
+  int q8[5];
+  float k11[11];
+};
+
+__device__ __forceinline__ int reflect101(int i, int n) {
+  i = i < 0 ? -i : i;
+  return i >= n ? 2 * (n - 1) - i : i;
+}
+
+__device__ __forceinline__ int clampi(int i, int lo, int hi) {
+  return i < lo ? lo : (i > hi ? hi : i);
+}
+
+__device__ __forceinline__ int gray_at(const Frames& f, int b, long long p) {
+  const uint8_t* d = f.data + b * f.fstride + p * f.pstride;
+  if (f.C == 3) {
+    int bb = d[0], gg = d[f.cstride], rr = d[2 * f.cstride];
+    return (bb * 3735 + gg * 19235 + rr * 9798 + (1 << 14)) >> 15;
+  }
+  return d[0];
+}
+
+// 3x3 erode (is_min) or dilate over in-frame neighbours: cv2's constant
+// border of 255 for erode and 0 for dilate never wins the reduction.
+__device__ __forceinline__ int minmax3(const uint8_t* in, const Geom& g,
+                                       const Pix& q, bool is_min) {
+  int v = is_min ? 255 : 0;
+  for (int dy = -1; dy <= 1; ++dy) {
+    int yy = q.y + dy;
+    if (yy < 0 || yy >= g.H) continue;
+    for (int dx = -1; dx <= 1; ++dx) {
+      int xx = q.x + dx;
+      if (xx < 0 || xx >= g.W) continue;
+      int u = in[(long long)yy * g.W + xx];
+      v = is_min ? min(v, u) : max(v, u);
+    }
+  }
+  return v;
+}
+
+// One 3x3 erode (is_min) or dilate pass over a [B, H, W] u8 batch.
+__global__ void k_morph(Geom g, const uint8_t* in, uint8_t* out, int is_min) {
+  Pix q = pix(g);
+  if (!q.in) return;
+  out[q.b * g.HW + q.p] = (uint8_t)minmax3(in + q.b * g.HW, g, q, is_min);
 }
 
 // Calls body(q) for every tile row this block covers: its own tile when no

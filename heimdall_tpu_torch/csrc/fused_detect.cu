@@ -48,30 +48,8 @@ namespace {
 
 constexpr int kStatsRows = 64;    // rows per block in the stats kernel
 
-struct Taps {
-  int q8[5];
-  float k11[11];
-};
-
-__device__ __forceinline__ int reflect101(int i, int n) {
-  i = i < 0 ? -i : i;
-  return i >= n ? 2 * (n - 1) - i : i;
-}
-
-__device__ __forceinline__ int clampi(int i, int lo, int hi) {
-  return i < lo ? lo : (i > hi ? hi : i);
-}
-
-__device__ __forceinline__ int gray_at(const Frames& f, int b, long long p) {
-  const uint8_t* d = f.data + b * f.fstride + p * f.pstride;
-  if (f.C == 3) {
-    int bb = d[0], gg = d[f.cstride], rr = d[2 * f.cstride];
-    return (bb * 3735 + gg * 19235 + rr * 9798 + (1 << 14)) >> 15;
-  }
-  return d[0];
-}
-
 // ---------------------------------------------------------------- preprocess
+// (Taps, reflect101, clampi, gray_at, minmax3 and k_morph are in common.cuh)
 
 // The gray plane alone (hd_label's gray stage).
 __global__ void k_gray(Frames f, Geom g, uint8_t* gray) {
@@ -129,30 +107,6 @@ __global__ void k_mean_v_threshold(Geom g, Taps t, int ct, uint8_t on,
   int mean = __float2int_rn(s);
   long long o = q.b * g.HW + q.p;
   bin[o] = (int)blurred[o] <= mean - ct ? on : 0;
-}
-
-// 3x3 erode (is_min) or dilate over in-frame neighbours: cv2's constant
-// border of 255 for erode and 0 for dilate never wins the reduction.
-__device__ __forceinline__ int minmax3(const uint8_t* in, const Geom& g,
-                                       const Pix& q, bool is_min) {
-  int v = is_min ? 255 : 0;
-  for (int dy = -1; dy <= 1; ++dy) {
-    int yy = q.y + dy;
-    if (yy < 0 || yy >= g.H) continue;
-    for (int dx = -1; dx <= 1; ++dx) {
-      int xx = q.x + dx;
-      if (xx < 0 || xx >= g.W) continue;
-      int u = in[(long long)yy * g.W + xx];
-      v = is_min ? min(v, u) : max(v, u);
-    }
-  }
-  return v;
-}
-
-__global__ void k_morph(Geom g, const uint8_t* in, uint8_t* out, int is_min) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  out[q.b * g.HW + q.p] = (uint8_t)minmax3(in + q.b * g.HW, g, q, is_min);
 }
 
 // Last erode of the close; also seeds the hole-fill union-find (parents =
@@ -285,7 +239,12 @@ __global__ void k_frame_roots(Geom g, int K, const int32_t* rowcnt,
 // Per-slot sums and bbox over a 32 x 64 tile per block: each warp reduces
 // when all its lanes share a slot (the common case inside a blob), else its
 // lanes add one by one; the block then adds its shared totals to the
-// outputs with one atomic per touched slot and statistic.
+// outputs with one atomic per touched slot and statistic.  kAnyLabels (the
+// stats kernel from a given label plane) gives a pixel a slot only if its
+// label names a root, a pixel whose label is its own index, as the TPU stats
+// kernel does; rank holds nothing at other pixels.  The fused detect's
+// labels always name a root, so it skips that read.
+template <bool kAnyLabels>
 __global__ void k_stats(Frames f, Geom g, int K, const uint8_t* fg,
                         const int32_t* labels, const int32_t* rank,
                         const int32_t* rowoff, const uint8_t* gray,
@@ -317,7 +276,9 @@ __global__ void k_stats(Frames f, Geom g, int K, const uint8_t* fg,
     int v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     if (in && fg[base + p]) {
       int root = labels[base + p];
-      int s = rowoff[(long long)b * g.H + root / g.W] + rank[base + root];
+      int s = !kAnyLabels || labels[base + root] == root
+                  ? rowoff[(long long)b * g.H + root / g.W] + rank[base + root]
+                  : K;
       if (s < K) {
         slot = s;
         bool bnd = x == 0 || y == 0 || x == g.W - 1 || y == g.H - 1 ||
@@ -480,8 +441,9 @@ int launch_fill_label(const Geom& g, int B, int stage, uint8_t* plane1,
 // The first-K-root statistics from the foreground plane fg (0/1), the label
 // plane and the gray plane: slot ranking (rank int32 [B, H, W] and rowcnt /
 // rowoff int32 [B, H] are scratch), per-slot sums and bbox, bbox-window sums
-// and the blob count.  sums and bgsum must be zeroed by the caller.
-int launch_stats(const Frames& f, const Geom& g, int B, int K,
+// and the blob count.  sums and bgsum must be zeroed by the caller.  With
+// any_labels, a label that is not a root's index gives no slot (k_stats).
+int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
                  const uint8_t* fg, const int32_t* labels, int32_t* rank,
                  int32_t* rowcnt, int32_t* rowoff, const uint8_t* gray,
                  int32_t* sums, int32_t* bbox, int32_t* bgsum,
@@ -494,8 +456,12 @@ int launch_stats(const Frames& f, const Geom& g, int B, int K,
   dim3 sgrid((g.W + kTileW - 1) / kTileW, (g.H + kStatsRows - 1) / kStatsRows,
              B);
   size_t smem = (size_t)11 * K * sizeof(int);
-  k_stats<<<sgrid, blk, smem, st>>>(f, g, K, fg, labels, rank, rowoff, gray,
-                                     sums, bbox);
+  if (any_labels)
+    k_stats<true><<<sgrid, blk, smem, st>>>(f, g, K, fg, labels, rank, rowoff,
+                                           gray, sums, bbox);
+  else
+    k_stats<false><<<sgrid, blk, smem, st>>>(f, g, K, fg, labels, rank,
+                                            rowoff, gray, sums, bbox);
   HD_CHECK();
   k_bbox_sums<<<dim3(K, B), 256, 0, st>>>(f, g, K, nblobs, gray, bbox, bgsum);
   HD_CHECK();
@@ -521,8 +487,9 @@ extern "C" int hd_fused_detect(
                                    plane2, work, st);
   if (!err) err = launch_fill_label(g, B, kCcl, plane1, plane2, work, labels,
                                     st);
-  if (!err) err = launch_stats(f, g, B, K, plane2, labels, work, rowcnt,
-                               rowoff, gray, sums, bbox, bgsum, nblobs, st);
+  if (!err) err = launch_stats(f, g, B, K, false, plane2, labels, work,
+                               rowcnt, rowoff, gray, sums, bbox, bgsum, nblobs,
+                               st);
   return err;
 }
 
@@ -603,7 +570,8 @@ extern "C" int hd_label_launches(int stage) {
 // Frame + label plane -> the fused detect's tables: sums [B,8,K], bbox
 // [B,4,K], bgsum [B,4,K] (sums and bgsum zeroed by the caller) and n [B].
 // Foreground is label != H*W and a root is a pixel whose label is its own
-// linear index; labels must be a label plane in that sense (hd_label's).
+// linear index; a pixel belongs to the slot of the root its label names, and
+// to none if its label names no root.  labels: int32 in [0, H*W].
 // Scratch: gray/fg u8 and rank int32 [B, H, W], rowcnt/rowoff int32 [B, H].
 extern "C" int hd_stats_from_labels(
     const uint8_t* frames, int B, int H, int W, int K, const int32_t* labels,
@@ -617,8 +585,8 @@ extern "C" int hd_stats_from_labels(
   dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   k_from_labels<<<grid, blk, 0, st>>>(f, g, labels, gray, fg);
   HD_CHECK();
-  return launch_stats(f, g, B, K, fg, labels, rank, rowcnt, rowoff, gray,
-                      sums, bbox, bgsum, nblobs, st);
+  return launch_stats(f, g, B, K, true, fg, labels, rank, rowcnt, rowoff,
+                      gray, sums, bbox, bgsum, nblobs, st);
 }
 
 // Number of kernel launches one hd_stats_from_labels call makes.

@@ -56,6 +56,15 @@ SIGNATURES = {
                          _P, _P, _P],
         "hd_writeback": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     },
+    "pre_variants": {
+        "hd_pre_variant": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _P, _P],
+        "hd_mxu_mean": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    },
+    "fill_sweeps": {
+        "hd_run_ids": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "hd_sweep_fill": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    },
     "stats_tiled": {
         "hd_banded_stats": [_P, _I, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P,
                             _P, _P, _P, _P, _P, _P],

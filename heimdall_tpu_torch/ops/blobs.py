@@ -75,12 +75,22 @@ def blob_sums(labels: torch.Tensor, mask: torch.Tensor, gray: torch.Tensor,
     HW = H * W
     lab = labels.reshape(B, HW).to(torch.int64)
     m = mask.reshape(B, HW)
-    is_root = m & (lab == torch.arange(HW, device=mask.device))
+    lin = torch.arange(HW, device=mask.device)
+    is_root = m & (lab == lin)
     n_blobs = is_root.sum(1)
     rank = is_root.cumsum(1) - 1                      # raster rank of roots
-    slot = rank.gather(1, lab.clamp(max=HW - 1))      # rank of pixel's root
+    # a pixel takes the slot of the root its label names, and none if the
+    # label names no root (a label plane need not come from labeling)
+    named = lab.clamp(max=HW - 1)
+    slot = torch.where(is_root.gather(1, named), rank.gather(1, named), K)
     sums, bbox = slot_sums(mask, gray, color, torch.where(m, slot, K), K)
     valid = sums[:, S_ONES] > 0
+    # y0 is the root's row, as in the fused kernel (a root is its
+    # component's first raster pixel in a labeling's planes)
+    root_y = torch.zeros((B, K + 1), dtype=torch.int64, device=mask.device)
+    root_y.scatter_(1, torch.where(is_root, rank, K).clamp(max=K),
+                    (lin // W).expand(B, HW))
+    bbox[:, 1] = root_y[:, :K]
     bbox = torch.where(valid[:, None], bbox, 0)
     x0, y0, x1, y1 = bbox.unbind(1)
     box_planes = [gray] + (list(color) if color is not None else [])

@@ -62,7 +62,7 @@ def f32_taps(ksize: int, sigma: float = 0.0) -> list:
     return [float(np.float32(t)) for t in gaussian_kernel_1d(ksize, sigma)]
 
 
-def _border_index(n: int, r: int, border: str, device) -> torch.Tensor:
+def border_index(n: int, r: int, border: str, device) -> torch.Tensor:
     """Source indices of a length-n axis padded by r on both sides."""
     idx = torch.arange(-r, n + r, device=device)
     if border == "reflect101":
@@ -83,8 +83,8 @@ def _pad2d(x: torch.Tensor, r_h: int, r_w: int, border: str,
                          dtype=x.dtype, device=x.device)
         out[..., r_h:r_h + H, r_w:r_w + W] = x
         return out
-    x = x.index_select(-2, _border_index(H, r_h, border, x.device))
-    return x.index_select(-1, _border_index(W, r_w, border, x.device))
+    x = x.index_select(-2, border_index(H, r_h, border, x.device))
+    return x.index_select(-1, border_index(W, r_w, border, x.device))
 
 
 def _sep_conv_i32(x: torch.Tensor, taps_h, taps_w, border: str) -> torch.Tensor:

@@ -33,7 +33,7 @@ from heimdall_tpu_torch.ops.fused_kernels import (MAX_FRAME_PX, kernel_taps,
 STAGES = ("gray", "blur5", "mean11", "pre", "fill", "ccl")
 
 
-def _check_frames(frames: torch.Tensor):
+def check_frames(frames: torch.Tensor):
     """(B, H, W) of a [B, 3, H, W] uint8 batch of at most MAX_FRAME_PX px
     per frame (the int32 sum bound of the fused kernel's statistics)."""
     if frames.dtype != torch.uint8:
@@ -78,7 +78,7 @@ def label_kernel(frames: torch.Tensor, contrast_threshold,
     ``label_kernel.stage_launches`` counts them by stage."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
-    B, H, W = _check_frames(frames)
+    B, H, W = check_frames(frames)
     if frames.device.type == "cpu":
         return label_kernel_reference(frames, contrast_threshold, stage)
     from heimdall_tpu_torch.ops import _cuda
@@ -108,7 +108,8 @@ label_kernel.stage_launches = collections.Counter()
 def stats_kernel_reference(frames: torch.Tensor, labels: torch.Tensor,
                            max_blobs: int = 64):
     """Plain PyTorch version of hd_stats_from_labels: ops/blobs.py's
-    blob_sums with foreground = labels != H*W."""
+    blob_sums with foreground = labels != H*W (a pixel whose label names no
+    root gets no slot)."""
     H, W = frames.shape[-2:]
     planes = (frames[:, 0], frames[:, 1], frames[:, 2])
     return blob_sums(labels, labels != H * W, _gray(frames), planes,
@@ -118,14 +119,16 @@ def stats_kernel_reference(frames: torch.Tensor, labels: torch.Tensor,
 def stats_kernel(frames: torch.Tensor, labels: torch.Tensor,
                  max_blobs: int = 64):
     """The stats kernel (B6a): frames [B, 3, H, W] uint8 and a label plane
-    int32 [B, H, W] (as label_kernel gives it: each foreground pixel holds
-    the linear index of its component's root, background H*W) -> (sums i32
-    [B,8,K] — ones, boundary, x, y, gray, b, g, r; bbox i32 [B,4,K] — x0,
-    y0, x1, y1 inclusive; bgsum i32 [B,4,K] — bbox-window sums of gray, b,
-    g, r; n_blobs i32 [B]) over the first K roots in raster order.  Slots
-    past min(n, K) are zero.  ``stats_kernel.launches`` counts kernel
-    launches."""
-    B, H, W = _check_frames(frames)
+    int32 [B, H, W] with values in [0, H*W] -> (sums i32 [B,8,K] — ones,
+    boundary, x, y, gray, b, g, r; bbox i32 [B,4,K] — x0, y0, x1, y1
+    inclusive; bgsum i32 [B,4,K] — bbox-window sums of gray, b, g, r;
+    n_blobs i32 [B]) over the first K roots in raster order.  Background is
+    H*W; a root is a pixel whose label is its own linear index; a pixel
+    belongs to the slot of the root its label names, or to none if it names
+    no root; y0 is the root's row (label_kernel's labels name their
+    component's first raster pixel).  Slots past min(n, K) are zero.
+    ``stats_kernel.launches`` counts kernel launches."""
+    B, H, W = check_frames(frames)
     K = max_blobs
     if not 1 <= K <= 1024:
         raise ValueError(f"max_blobs must be in [1, 1024], got {K}")

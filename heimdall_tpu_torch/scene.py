@@ -84,3 +84,31 @@ def mask_frames(masks):
         img[m] = 20
         out.append(img)
     return np.stack(out)
+
+
+def non_root_labels(labels):
+    """A label plane whose labels need not name a root, for the stats
+    kernel's checks, from a labeling's int32 tensor [B, H, W] (background
+    H*W, roots hold their own linear index).  In each frame with 6 roots or
+    more: the 2nd component relabelled to a background pixel's index, the
+    3rd to a non-root pixel of the 1st, the 4th's root pixel to the 1st
+    root's index (the rest of the 4th then names no root), and the 5th to
+    the 6th's root (members above their root's row)."""
+    import torch
+
+    out = labels.clone()
+    HW = out.shape[-2] * out.shape[-1]
+    for b in range(out.shape[0]):
+        lab = out[b].reshape(-1)
+        roots = torch.nonzero(lab == torch.arange(HW, device=lab.device))
+        roots = roots.flatten().tolist()
+        if len(roots) < 6:
+            continue
+        bg = int(torch.nonzero(lab == HW)[0])
+        first = torch.nonzero(lab == roots[0]).flatten().tolist()
+        lab[lab == roots[1]] = bg
+        if len(first) > 1:
+            lab[lab == roots[2]] = first[-1]
+        lab[roots[3]] = roots[0]
+        lab[lab == roots[4]] = roots[5]
+    return out

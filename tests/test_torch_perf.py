@@ -1,6 +1,7 @@
 """The port's copies of the JAX-free perf and camera modules
 (heimdall_tpu_torch/perf, heimdall_tpu_torch/camera), its torch.profiler
-trace, and its performance_analysis example on the CPU.
+trace, and its performance_analysis example on the CPU; the profilers
+(heimdall_tpu_torch/scripts) exit without a card.
 
 The cases are those of tests/test_perf_serving.py (metrics, profiling
 sessions, report formats, the manager, the measure helpers) and of
@@ -217,3 +218,17 @@ class TestPerformanceAnalysis:
                                     device="cpu")
         n = det.run_device(frames)[0].n_blobs.tolist()
         assert n[:4] == [n[0]] * 4 and n[4] == n[0] + 1
+
+
+@pytest.mark.parametrize("name", ["profile_fused", "profile_preprocess",
+                                  "profile_pre_variants",
+                                  "profile_fill_variants"])
+def test_profilers_exit_without_a_card(name, monkeypatch, capsys):
+    """The profilers time the card only: without one they exit with an
+    error before timing anything."""
+    import importlib
+    mod = importlib.import_module(f"heimdall_tpu_torch.scripts.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        mod.main(["2", "1"])
+    assert "us/frame" not in capsys.readouterr().out

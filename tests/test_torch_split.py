@@ -11,7 +11,9 @@
    frame; and a uniform frame at contrast -15, whose foreground is full).
    B6b at the shipped settings, at profile_fused's rt_fill=12 / rt_ccl=8
    and with joint=True: the port takes none of these TPU settings and gives
-   the same labels for all of them.
+   the same labels for all of them.  B6a also on label planes whose
+   labels need not name a root (scene.non_root_labels): a pixel takes the
+   slot of the root its label names, or none.
 2. The label kernel's stages against the profilers' truncated kernels,
    built as scripts/profile_fused.py (pre / fill / ccl) and
    scripts/profile_preprocess.py (gray / blur5 / mean11 / full) build them.
@@ -106,10 +108,10 @@ FRAMES = np.ascontiguousarray(np.concatenate(
 B, _, H, W = FRAMES.shape
 
 
-def _pallas(kernel, n_in, outs):
+def _pallas(kernel, n_in, outs, dtype=jnp.int32):
     """pallas_call of a per-frame kernel over FRAMES (and, with n_in = 2,
     the label planes), in interpret mode, as scripts/profile_fused.py
-    launches its kernels."""
+    launches its kernels; every output of ``dtype``."""
     in_specs = [pl.BlockSpec((1, 3, H, W), lambda i, c: (i, 0, 0, 0),
                              memory_space=pltpu.VMEM)]
     if n_in == 2:
@@ -122,7 +124,7 @@ def _pallas(kernel, n_in, outs):
                                       in_specs=in_specs, out_specs=out_specs)
     return pl.pallas_call(
         kernel, grid_spec=gs,
-        out_shape=tuple(jax.ShapeDtypeStruct((B,) + s, jnp.int32)
+        out_shape=tuple(jax.ShapeDtypeStruct((B,) + s, dtype)
                         for s in outs),
         interpret=True)
 
@@ -138,13 +140,18 @@ def _jax_labels(setting):
                                                    jnp.asarray(FRAMES))[0])
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_stats(k):
+def _pallas_stats(labels, k):
+    """The Pallas stats kernel (B6a) on FRAMES and label planes ``labels``."""
     call = _pallas(pk._make_stats_kernel(H, W, k), 2,
                    [(pk.N_SUMS, k), (4, k), (4, k), (1, 1)])
-    out = call(_ct(), jnp.asarray(FRAMES), jnp.asarray(_jax_labels("shipped")))
+    out = call(_ct(), jnp.asarray(FRAMES), jnp.asarray(labels))
     sums, bbox, bgsum, meta = (np.asarray(o) for o in out)
     return sums, bbox, bgsum, meta[:, 0, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_stats(k):
+    return _pallas_stats(_jax_labels("shipped"), k)
 
 
 _TAPS5 = jfilters._q8_taps(jfilters.gaussian_kernel_1d(5, 0.0))
@@ -248,6 +255,22 @@ def test_stats_kernel_matches_pallas(k):
             assert b.dtype == torch.int32
             np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
     assert (want[3] > 4).any()          # K = 4 drops blobs past the 4th
+
+
+@pytest.mark.parametrize("k", [64, 4])
+def test_stats_kernel_on_non_root_labels_matches_pallas(k):
+    """A label plane whose labels need not name a root (relabelled to a
+    background pixel's index, to a non-root pixel, a root moved into
+    another slot, members above their root's row): a pixel takes the slot
+    of the root its label names or none, y0 is the root's row."""
+    labels = scene.non_root_labels(
+        torch.from_numpy(_jax_labels("shipped").copy()))
+    assert not np.array_equal(labels.numpy(), _jax_labels("shipped"))
+    want = _pallas_stats(labels.numpy(), k)
+    got = sk.stats_kernel(torch.from_numpy(FRAMES), labels, k)
+    for name, a, b in zip(("sums", "bbox", "bgsum", "n"), want, got):
+        np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
+    assert not np.array_equal(want[0], _jax_stats(k)[0])
 
 
 @pytest.mark.parametrize("k", [64, 4])
