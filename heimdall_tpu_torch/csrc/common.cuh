@@ -4,9 +4,10 @@
 // preprocess's taps, borders, gray and 3x3 erode/dilate pass, warp run starts,
 // union-find with atomicMin hooking and the background union-find of the
 // hole fill, block scans and sums for 256-thread blocks, a search in a sorted
-// root table, the slot-list writer, and the launch check of the entry
-// points.  Each .cu that includes this file is its own library, so
-// everything here has internal linkage.
+// root table, the slot-list writer, the launch check of the entry points,
+// and the preprocess's passes up to the threshold (exact, or with the
+// probes' borders and paired taps).  Each .cu that includes this file is
+// its own library, so everything here has internal linkage.
 
 #pragma once
 
@@ -134,6 +135,112 @@ __global__ void k_morph(Geom g, const uint8_t* in, uint8_t* out, int is_min) {
   Pix q = pix(g);
   if (!q.in) return;
   out[q.b * g.HW + q.p] = (uint8_t)minmax3(in + q.b * g.HW, g, q, is_min);
+}
+
+// The preprocess's passes up to the threshold, one launch each over [B, H, W]
+// planes: gray + the blur's row pass (acc int32), its column pass (blurred
+// u8), the mean's row pass (mh float32) and its column pass with the INV
+// threshold.  fused_detect.cu runs them exact (<kExact, false>: reflect-101
+// for the blur, replicate for the mean); pre_variants.cu swaps in the
+// probes' borders and paired taps.  The f32 taps are summed in sequence with
+// __fmul_rn/__fadd_rn (never contracted; every file is also built with
+// -fmad=false) and rounded half to even: a border only moves where a tap
+// reads, never the order of the sum.
+
+// The border of a pass: exact, wrap-around (a roll, (j mod n)), or the exact
+// one only where a tap leaves the axis and an unchecked read elsewhere.
+enum Border { kExact = 0, kWrap = 1, kSplit = 2 };
+
+// (j mod n) for -n <= j < 2n: the wrap-around read of a roll.
+__device__ __forceinline__ int wrapi(int j, int n) {
+  return j < 0 ? j + n : (j >= n ? j - n : j);
+}
+
+// Source index of the tap at j = x + i - r along an axis of n: the exact
+// border (reflect-101 for the blur, replicate for the mean), wrap-around,
+// or, with kSplit, j itself where `inner` (no tap leaves the axis).
+template <int kBorder, bool kReflect>
+__device__ __forceinline__ int tap_src(int j, int n, bool inner) {
+  if (kBorder == kWrap) return wrapi(j, n);
+  if (kBorder == kSplit && inner) return j;
+  return kReflect ? reflect101(j, n) : clampi(j, 0, n - 1);
+}
+
+// The Q8 blur's sum over five taps v[0..4]: in tap order, or paired as
+// t2*c + t1*(a+b) + t0*(a'+b') (the taps are symmetric; exact in int).
+template <bool kPair>
+__device__ __forceinline__ int blur_sum(const Taps& t, const int (&v)[5]) {
+  if (kPair)
+    return t.q8[2] * v[2] + t.q8[1] * (v[1] + v[3]) + t.q8[0] * (v[0] + v[4]);
+  int s = 0;
+  for (int i = 0; i < 5; ++i) s += t.q8[i] * v[i];
+  return s;
+}
+
+// The blur's row pass into acc; with kWriteGray also the gray plane.
+template <int kBorder, bool kPair, bool kWriteGray>
+__global__ void k_gray_blur_h(Frames f, Geom g, Taps t, uint8_t* gray,
+                              int32_t* acc) {
+  Pix q = pix(g);
+  if (!q.in) return;
+  long long row = (long long)q.y * g.W;
+  bool inner = q.x >= 2 && q.x < g.W - 2;
+  int v[5];
+  for (int i = 0; i < 5; ++i)
+    v[i] = gray_at(f, q.b, row + tap_src<kBorder, true>(q.x + i - 2, g.W,
+                                                         inner));
+  long long o = q.b * g.HW + q.p;
+  if (kWriteGray) gray[o] = (uint8_t)gray_at(f, q.b, q.p);
+  acc[o] = blur_sum<kPair>(t, v);
+}
+
+template <int kBorder, bool kPair>
+__global__ void k_blur_v(Geom g, Taps t, const int32_t* acc,
+                         uint8_t* blurred) {
+  Pix q = pix(g);
+  if (!q.in) return;
+  const int32_t* a = acc + q.b * g.HW;
+  bool inner = q.y >= 2 && q.y < g.H - 2;
+  int v[5];
+  for (int i = 0; i < 5; ++i)
+    v[i] = a[(long long)tap_src<kBorder, true>(q.y + i - 2, g.H, inner) *
+                 g.W + q.x];
+  int s = blur_sum<kPair>(t, v);
+  blurred[q.b * g.HW + q.p] = (uint8_t)clampi((s + (1 << 15)) >> 16, 0, 255);
+}
+
+template <int kBorder>
+__global__ void k_mean_h(Geom g, Taps t, const uint8_t* blurred, float* mh) {
+  Pix q = pix(g);
+  if (!q.in) return;
+  const uint8_t* r = blurred + q.b * g.HW + (long long)q.y * g.W;
+  bool inner = q.x >= 5 && q.x < g.W - 5;
+  float s = __fmul_rn(t.k11[0],
+                      (float)r[tap_src<kBorder, false>(q.x - 5, g.W, inner)]);
+  for (int i = 1; i < 11; ++i)
+    s = __fadd_rn(s, __fmul_rn(t.k11[i], (float)r[tap_src<kBorder, false>(
+                                             q.x + i - 5, g.W, inner)]));
+  mh[q.b * g.HW + q.p] = s;
+}
+
+// Foreground pixels get `on` (1, or 255 for the mean11 stage).
+template <int kBorder>
+__global__ void k_mean_v_threshold(Geom g, Taps t, int ct, uint8_t on,
+                                   const float* mh, const uint8_t* blurred,
+                                   uint8_t* bin) {
+  Pix q = pix(g);
+  if (!q.in) return;
+  const float* m = mh + q.b * g.HW;
+  bool inner = q.y >= 5 && q.y < g.H - 5;
+  float s = __fmul_rn(
+      t.k11[0], m[(long long)tap_src<kBorder, false>(q.y - 5, g.H, inner) *
+                      g.W + q.x]);
+  for (int i = 1; i < 11; ++i)
+    s = __fadd_rn(s, __fmul_rn(t.k11[i],
+                               m[(long long)tap_src<kBorder, false>(
+                                     q.y + i - 5, g.H, inner) * g.W + q.x]));
+  long long o = q.b * g.HW + q.p;
+  bin[o] = (int)blurred[o] <= __float2int_rn(s) - ct ? on : 0;
 }
 
 // Calls body(q) for every tile row this block covers: its own tile when no

@@ -49,64 +49,14 @@ namespace {
 constexpr int kStatsRows = 64;    // rows per block in the stats kernel
 
 // ---------------------------------------------------------------- preprocess
-// (Taps, reflect101, clampi, gray_at, minmax3 and k_morph are in common.cuh)
+// (Taps, reflect101, clampi, gray_at, minmax3, k_morph and the passes up to
+// the threshold are in common.cuh; this file runs them <kExact, false>)
 
 // The gray plane alone (hd_label's gray stage).
 __global__ void k_gray(Frames f, Geom g, uint8_t* gray) {
   Pix q = pix(g);
   if (!q.in) return;
   gray[q.b * g.HW + q.p] = (uint8_t)gray_at(f, q.b, q.p);
-}
-
-__global__ void k_gray_blur_h(Frames f, Geom g, Taps t, uint8_t* gray,
-                              int32_t* acc) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  long long row = (long long)q.y * g.W;
-  int s = 0;
-  for (int i = 0; i < 5; ++i)
-    s += t.q8[i] * gray_at(f, q.b, row + reflect101(q.x + i - 2, g.W));
-  long long o = q.b * g.HW + q.p;
-  gray[o] = (uint8_t)gray_at(f, q.b, q.p);
-  acc[o] = s;
-}
-
-__global__ void k_blur_v(Geom g, Taps t, const int32_t* acc,
-                         uint8_t* blurred) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const int32_t* a = acc + q.b * g.HW;
-  int s = 0;
-  for (int i = 0; i < 5; ++i)
-    s += t.q8[i] * a[(long long)reflect101(q.y + i - 2, g.H) * g.W + q.x];
-  blurred[q.b * g.HW + q.p] = (uint8_t)clampi((s + (1 << 15)) >> 16, 0, 255);
-}
-
-__global__ void k_mean_h(Geom g, Taps t, const uint8_t* blurred, float* mh) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const uint8_t* r = blurred + q.b * g.HW + (long long)q.y * g.W;
-  float s = __fmul_rn(t.k11[0], (float)r[clampi(q.x - 5, 0, g.W - 1)]);
-  for (int i = 1; i < 11; ++i)
-    s = __fadd_rn(s, __fmul_rn(t.k11[i],
-                               (float)r[clampi(q.x + i - 5, 0, g.W - 1)]));
-  mh[q.b * g.HW + q.p] = s;
-}
-
-// Foreground pixels get `on` (1, or 255 for the label entry's mean11 stage).
-__global__ void k_mean_v_threshold(Geom g, Taps t, int ct, uint8_t on,
-                                   const float* mh, const uint8_t* blurred,
-                                   uint8_t* bin) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const float* m = mh + q.b * g.HW;
-  float s = __fmul_rn(t.k11[0], m[(long long)clampi(q.y - 5, 0, g.H - 1) * g.W + q.x]);
-  for (int i = 1; i < 11; ++i)
-    s = __fadd_rn(s, __fmul_rn(
-        t.k11[i], m[(long long)clampi(q.y + i - 5, 0, g.H - 1) * g.W + q.x]));
-  int mean = __float2int_rn(s);
-  long long o = q.b * g.HW + q.p;
-  bin[o] = (int)blurred[o] <= mean - ct ? on : 0;
 }
 
 // Last erode of the close; also seeds the hole-fill union-find (parents =
@@ -392,16 +342,17 @@ int launch_to_close_dilate(const Frames& f, const Geom& g, int B, int ct,
     HD_CHECK();
     return 0;
   }
-  k_gray_blur_h<<<grid, blk, 0, st>>>(f, g, t, gray, work);
+  k_gray_blur_h<kExact, false, true><<<grid, blk, 0, st>>>(f, g, t, gray,
+                                                        work);
   HD_CHECK();
-  k_blur_v<<<grid, blk, 0, st>>>(g, t, work, plane1);
+  k_blur_v<kExact, false><<<grid, blk, 0, st>>>(g, t, work, plane1);
   HD_CHECK();
   if (stage == kBlur5) return 0;
-  k_mean_h<<<grid, blk, 0, st>>>(g, t, plane1, fwork);
+  k_mean_h<kExact><<<grid, blk, 0, st>>>(g, t, plane1, fwork);
   HD_CHECK();
   uint8_t on = stage == kMean11 ? 255 : 1;
-  k_mean_v_threshold<<<grid, blk, 0, st>>>(g, t, ct, on, fwork, plane1,
-                                           plane2);
+  k_mean_v_threshold<kExact><<<grid, blk, 0, st>>>(g, t, ct, on, fwork,
+                                                   plane1, plane2);
   HD_CHECK();
   if (stage == kMean11) return 0;
   k_morph<<<grid, blk, 0, st>>>(g, plane2, plane1, 1);   // open: erode

@@ -46,95 +46,9 @@
 namespace {
 
 enum Stage { kBlur5 = 1, kMean11 = 2, kPre = 3 };   // hd_label's numbers
-enum Border { kExact = 0, kWrap = 1, kSplit = 2 };
 
-// (j mod n) for -n <= j < 2n: the wrap-around read of a roll.
-__device__ __forceinline__ int wrapi(int j, int n) {
-  return j < 0 ? j + n : (j >= n ? j - n : j);
-}
-
-// Source index of the tap at j = x + i - r along an axis of n: the exact
-// border (reflect-101 for the blur, replicate for the mean), wrap-around,
-// or, with kSplit, j itself where `inner` (no tap leaves the axis).
-template <int kBorder, bool kReflect>
-__device__ __forceinline__ int tap_src(int j, int n, bool inner) {
-  if (kBorder == kWrap) return wrapi(j, n);
-  if (kBorder == kSplit && inner) return j;
-  return kReflect ? reflect101(j, n) : clampi(j, 0, n - 1);
-}
-
-// The Q8 blur's sum over five taps v[0..4]: in tap order, or paired as
-// t2*c + t1*(a+b) + t0*(a'+b') (the taps are symmetric; exact in int).
-template <bool kPair>
-__device__ __forceinline__ int blur_sum(const Taps& t, const int (&v)[5]) {
-  if (kPair)
-    return t.q8[2] * v[2] + t.q8[1] * (v[1] + v[3]) + t.q8[0] * (v[0] + v[4]);
-  int s = 0;
-  for (int i = 0; i < 5; ++i) s += t.q8[i] * v[i];
-  return s;
-}
-
-template <int kBorder, bool kPair>
-__global__ void k_gray_blur_h(Frames f, Geom g, Taps t, int32_t* acc) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  long long row = (long long)q.y * g.W;
-  bool inner = q.x >= 2 && q.x < g.W - 2;
-  int v[5];
-  for (int i = 0; i < 5; ++i)
-    v[i] = gray_at(f, q.b, row + tap_src<kBorder, true>(q.x + i - 2, g.W,
-                                                         inner));
-  acc[q.b * g.HW + q.p] = blur_sum<kPair>(t, v);
-}
-
-template <int kBorder, bool kPair>
-__global__ void k_blur_v(Geom g, Taps t, const int32_t* acc,
-                         uint8_t* blurred) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const int32_t* a = acc + q.b * g.HW;
-  bool inner = q.y >= 2 && q.y < g.H - 2;
-  int v[5];
-  for (int i = 0; i < 5; ++i)
-    v[i] = a[(long long)tap_src<kBorder, true>(q.y + i - 2, g.H, inner) *
-                 g.W + q.x];
-  int s = blur_sum<kPair>(t, v);
-  blurred[q.b * g.HW + q.p] = (uint8_t)clampi((s + (1 << 15)) >> 16, 0, 255);
-}
-
-template <int kBorder>
-__global__ void k_mean_h(Geom g, Taps t, const uint8_t* blurred, float* mh) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const uint8_t* r = blurred + q.b * g.HW + (long long)q.y * g.W;
-  bool inner = q.x >= 5 && q.x < g.W - 5;
-  float s = __fmul_rn(t.k11[0],
-                      (float)r[tap_src<kBorder, false>(q.x - 5, g.W, inner)]);
-  for (int i = 1; i < 11; ++i)
-    s = __fadd_rn(s, __fmul_rn(t.k11[i], (float)r[tap_src<kBorder, false>(
-                                             q.x + i - 5, g.W, inner)]));
-  mh[q.b * g.HW + q.p] = s;
-}
-
-// Foreground pixels get `on` (255 for the mean11 stage, 1 for pre).
-template <int kBorder>
-__global__ void k_mean_v_threshold(Geom g, Taps t, int ct, uint8_t on,
-                                   const float* mh, const uint8_t* blurred,
-                                   uint8_t* bin) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const float* m = mh + q.b * g.HW;
-  bool inner = q.y >= 5 && q.y < g.H - 5;
-  float s = __fmul_rn(
-      t.k11[0], m[(long long)tap_src<kBorder, false>(q.y - 5, g.H, inner) *
-                      g.W + q.x]);
-  for (int i = 1; i < 11; ++i)
-    s = __fadd_rn(s, __fmul_rn(t.k11[i],
-                               m[(long long)tap_src<kBorder, false>(
-                                     q.y + i - 5, g.H, inner) * g.W + q.x]));
-  long long o = q.b * g.HW + q.p;
-  bin[o] = (int)blurred[o] <= __float2int_rn(s) - ct ? on : 0;
-}
+// (the passes up to the threshold, with their Border and pair template
+// parameters, are in common.cuh, shared with fused_detect.cu)
 
 // ------------------------------------------------ mxu_conv on tensor cores
 
@@ -298,7 +212,8 @@ template <int kBorder, bool kPair>
 int launch_blur(const Frames& f, const Geom& g, dim3 grid, const Taps& t,
                 int32_t* acc, uint8_t* blurred, cudaStream_t st) {
   dim3 blk(kTileW, kTileH);
-  k_gray_blur_h<kBorder, kPair><<<grid, blk, 0, st>>>(f, g, t, acc);
+  k_gray_blur_h<kBorder, kPair, false><<<grid, blk, 0, st>>>(f, g, t, nullptr,
+                                                           acc);
   HD_CHECK();
   k_blur_v<kBorder, kPair><<<grid, blk, 0, st>>>(g, t, acc, blurred);
   HD_CHECK();

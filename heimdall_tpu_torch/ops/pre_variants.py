@@ -15,7 +15,9 @@ run them.
   mean11 as two banded matrix products).  All but mxu_conv equal the label
   kernel's "pre" exactly; mxu_conv rounds its mean otherwise, so its
   threshold may flip where the mean lies near a half-integer.
-* ``mxu_mean``: mxu_conv's f32 mean11 alone (the two products).
+* ``mxu_mean``: mxu_conv's f32 mean11 alone (the two products);
+  ``flip_reach`` bounds where mxu_conv's "pre" may differ from its plain
+  version's.
 
 Frames are BGR planes [B, 3, H, W] uint8 with H, W >= 6.  On a CUDA tensor
 each wrapper launches csrc/pre_variants.cu (hd_pre_variant, hd_mxu_mean) and
@@ -108,6 +110,15 @@ def mxu_mean_reference(blurred: torch.Tensor) -> torch.Tensor:
     x = blurred.to(torch.float32)
     rows = torch.matmul(x, band_matrix(W, k11, x.device))
     return torch.matmul(band_matrix(H, k11, x.device).T, rows)
+
+
+def flip_reach(mean: torch.Tensor, tol: float) -> torch.Tensor:
+    """Where the "pre" planes of two means that lie within tol of ``mean``
+    may differ: within 4 pixels (the open's and the close's four 3x3 passes)
+    of a pixel whose mean lies within tol of a half-integer, where rint may
+    go either way.  mean float32 [B, H, W] -> bool [B, H, W]."""
+    near = ((mean - mean.floor() - 0.5).abs() <= tol).to(torch.float32)
+    return torch.nn.functional.max_pool2d(near[:, None], 9, 1, 4)[:, 0] > 0
 
 
 def _threshold_morph(blurred, mf, contrast_threshold, stage):

@@ -12,7 +12,9 @@ tests/test_torch_split.py's interpret-mode harness on its 16 frames of
   bodies exactly, and the four variants equal the port's "pre" stage.
 * mxu_conv: the plain version's f32 mean (float32 matrix products) is
   within 1e-3 of JAX's f32 dot_general on the CPU; its threshold differs
-  from JAX's only where JAX's mean lies within 1e-3 of a half-integer.
+  from JAX's only where JAX's mean lies within 1e-3 of a half-integer, and
+  its pre plane only within flip_reach of such a pixel (flip_reach itself
+  is tested on a made-up mean).
 
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_probes_cuda.py and chip_smoke.py.  JAX outputs are
@@ -211,8 +213,39 @@ def test_mxu_conv_mean_within_tolerance_of_dot_general():
     flips = binary(got) != binary(want)
     assert not (flips & ~near_half).any()
     pre = pv.pre_variant_reference(x, CT, "mxu_conv").numpy()
+    reach = pv.flip_reach(torch.from_numpy(want), MEAN_TOL).numpy()
+    assert not ((pre != _jax("s3", "mxu_conv")) & ~reach).any()
     if not flips.any():
         _assert_frames_equal(_jax("s3", "mxu_conv"), pre)
+
+
+@pytest.mark.parametrize("case", ["one_pixel", "rounded_hole"])
+def test_flip_reach_bounds_where_pre_planes_differ(case):
+    """flip_reach is the 9x9 window (the open's and the close's four 3x3
+    passes) around each mean within tol of a half-integer, and two means
+    within tol of each other give pre planes that differ only inside it."""
+    if case == "one_pixel":
+        mean = torch.full((1, 20, 30), 7.25)
+        mean[0, 2, 10] = 7.5
+        want = torch.zeros((1, 20, 30), dtype=torch.bool)
+        want[0, :7, 6:15] = True
+        assert torch.equal(pv.flip_reach(mean, MEAN_TOL), want)
+        return
+    # all foreground, but for a 5x5 block whose means lie 1e-4 either side
+    # of the half-integer that decides it: a hole in one plane only
+    blurred = sk.label_kernel_reference(_x(), CT, "blur5")
+    edge = blurred.to(torch.float32) + CT - 0.5
+    mean = edge + 0.75
+    other = mean.clone()
+    block = (slice(None), slice(10, 15), slice(20, 25))
+    mean[block] = edge[block] + 1e-4
+    other[block] = edge[block] - 1e-4
+    plane = (pv._threshold_morph(blurred, m, CT, "pre") for m in (mean, other))
+    differ = next(plane) != next(plane)
+    assert int(differ.sum()) == 25 * blurred.shape[0]
+    reach = pv.flip_reach(mean, MEAN_TOL)
+    assert int(reach.sum()) == 13 * 13 * blurred.shape[0]
+    assert not (differ & ~reach).any()
 
 
 def test_band_matrix_matches_profiler_construction():

@@ -83,7 +83,8 @@ def test_exact_pre_variants_match_plain_version_and_pre(card, size, ct):
 def test_mxu_conv_mean_within_tolerance(card, size):
     """mxu_conv's mean against the float32 product: within 1e-3; the
     threshold differs only where the mean lies within 1e-3 of a
-    half-integer, and the pre plane's flips are few."""
+    half-integer, and the pre plane only within the morphology's reach of
+    such a pixel."""
     x = _frames(*size).to(card)
     blurred = sk.label_kernel(x, CT, "blur5")
     got = pv.mxu_mean(blurred)
@@ -93,11 +94,11 @@ def test_mxu_conv_mean_within_tolerance(card, size):
     near_half = ((want - want.floor() - 0.5).abs() <= MEAN_TOL)
     flips = torch.round(got) != torch.round(want)
     assert not bool((flips & ~near_half).any())
-    pre_flips = int((pv.pre_variant(x, CT, "mxu_conv")
-                     != pv.pre_variant_reference(x, CT, "mxu_conv")).sum())
+    differ = (pv.pre_variant(x, CT, "mxu_conv")
+              != pv.pre_variant_reference(x, CT, "mxu_conv"))
     print(f"mxu_conv {size}: {int(flips.sum())} mean roundings and "
-          f"{pre_flips} pre pixels differ from the float32 product")
-    assert pre_flips <= 9 * int(near_half.sum())
+          f"{int(differ.sum())} pre pixels differ from the float32 product")
+    assert not bool((differ & ~pv.flip_reach(want, MEAN_TOL)).any())
 
 
 @pytest.mark.cuda
