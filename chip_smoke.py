@@ -40,6 +40,14 @@ Phases (each prints a line; any failure exits non-zero without a result):
         "fill"),
         and the stats kernel on a label plane whose labels need not name a
         root;
+     f. the labeling probes at 640x480 on 3e's frames: the fifteen CCL
+        variants (sweeps and run tables at R = 12, 10, 8, 6) and the four
+        joint variants against their plain versions, every fixpoint also
+        against the label kernel's "ccl" stage (and the joint filled mask
+        against its "fill" stage), fixed2 and the run tables' per-frame
+        fits flags against their plain versions; and the run-table check
+        (scripts/check_runtable.py's 7 masks at R = 12 and 8: sweeps ==
+        run tables == the plain labels, the overflow mask not fitting);
   4. drive the detector's main paths, each with every kernel's launch count
      set to 0 just before and read just after:
      a. ContaminationDetector.run_device at 640x480x3 channel-major, batch
@@ -74,6 +82,14 @@ Phases (each prints a line; any failure exits non-zero without a result):
         bound, and the tensor-core products beside the PyTorch call that
         computes the same (torch.matmul of the banded matrices, torch.cumsum
         of the run starts), with their launch counts;
+     f. the labeling probes path, with the labeling probes' launch counts
+        set to 0 just before and read just after: the port's check_runtable
+        (no timing), profile_ccl_variants and profile_joint_variants (batch
+        256, 10 iterations; every variant's us/frame and launches, the
+        frames on the run tables at each R, the frames fixed2 leaves short,
+        the full detect classic against joint with equal gates); then each
+        probe's plain version and bound, and the run-table check's masks
+        timed as one batch;
   6. JSON lines listing every kernel with its check and times;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
@@ -1066,6 +1082,168 @@ def probe_phases(dev, smi, cases, t_roll, roll_launches):
     return entries
 
 
+def check_label_probes(name, x, ct):
+    """Phase 3f on one case: every CCL variant and every joint variant
+    against its plain version and (fixpoints) the label kernel's "ccl" and
+    "fill" stages, and the run tables' fits flags against their plain
+    versions; returns the largest error (0 or the run fails)."""
+    import torch
+    from heimdall_tpu_torch.ops import ccl_sweeps as cs
+    from heimdall_tpu_torch.ops import joint_label as jl
+    from heimdall_tpu_torch.ops import split_kernels as sk
+    errs = {}
+    labels, filled = sk.label_kernel(x, ct), sk.label_kernel(x, ct, "fill")
+    for v in cs.VARIANTS:
+        got = cs.ccl_variant(x, ct, v)
+        errs[f"ccl_{v}"] = max_abs_err((got,),
+                                       (cs.ccl_mask_reference(filled, v),))
+        if v != "fixed2":
+            errs[f"ccl_{v}_vs_union_find"] = max_abs_err((got,), (labels,))
+    fits = {}
+    for r in sorted(set(cs.RUNTABLE_VARIANTS.values()), reverse=True):
+        got = cs.ccl_runtable(filled, r)
+        errs[f"runtable{r}_fits"] = max_abs_err(
+            got, cs.runtable_reference(filled, r))
+        fits[r] = int(got[1].sum())
+    for v in jl.VARIANTS:
+        got = jl.joint_label(x, ct, v)
+        errs[f"joint_{v}"] = max_abs_err(got, jl.joint_label_reference(x, ct,
+                                                                       v))
+        errs[f"joint_{v}_vs_union_find"] = max_abs_err(got, (labels, filled))
+    torch.cuda.synchronize()
+    phase(f"check label probes {name} (contrast {ct}): frames on the run "
+          f"tables by R {fits} of {x.shape[0]}; max_abs_err {errs}")
+    if any(errs.values()):
+        fail(f"a labeling probe differs from its plain version or from the "
+             f"label kernel on {name}")
+    return max(errs.values())
+
+
+def label_probe_phases(dev, smi, cases):
+    """Phases 3f and 5f: the labeling probes (sweep and run-table CCL,
+    joint fixpoint) against their plain versions on phase 3e's frames and
+    the run-table check, then the labeling probes path (the port's
+    check_runtable, profile_ccl_variants and profile_joint_variants) with
+    their launch counts set to 0 just before and read just after; returns
+    their entries of the kernels line."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import ccl_sweeps as cs
+    from heimdall_tpu_torch.ops import joint_label as jl
+    from heimdall_tpu_torch.scripts import (check_runtable,
+                                            profile_ccl_variants,
+                                            profile_joint_variants)
+
+    # -- 3f. labeling probes against their plain versions -------------------
+    uniform = torch.full((2, 3, 480, 640), 128, dtype=torch.uint8, device=dev)
+    adv = next(n for n in cases if n.startswith("adversarial_"))
+    err = 0
+    for name, x, ct in (
+            ("bench8_channel_major", cases["bench8_channel_major"][0],
+             CONTRAST),
+            (adv, cases[adv][0], CONTRAST),
+            ("bench2_477x631", cases["bench2_477x631"][0], CONTRAST),
+            ("uniform_no_foreground", uniform, CONTRAST),
+            ("uniform_full_foreground", uniform, -CONTRAST)):
+        err = max(err, check_label_probes(name, x, ct))
+
+    # -- 5f. the labeling probes path ----------------------------------------
+    torch.cuda.synchronize()
+    for w in (cs.ccl_mask, jl.joint_mask):
+        w.launches = 0
+        w.variant_launches.clear()
+    failures = check_runtable.main([])
+    torch.cuda.synchronize()
+    s7_launches = cs.ccl_mask.launches
+    if failures or s7_launches != 28:
+        fail(f"check_runtable: {failures} failures, {s7_launches} launches "
+             f"(7 masks x 2 R x 2 labelings: 28)")
+    t_ccl, short, fits = profile_ccl_variants.main([str(BATCH), "10"])
+    t_joint = profile_joint_variants.main([str(BATCH), "10"])
+    torch.cuda.synchronize()
+    launches = {"ccl_variants": cs.ccl_mask.launches - s7_launches,
+                "joint_label": jl.joint_mask.launches,
+                "check_runtable": s7_launches}
+    phase(f"labeling probes path: check_runtable + profile_ccl_variants + "
+          f"profile_joint_variants launched {launches}; by variant "
+          f"{dict(cs.ccl_mask.variant_launches)} "
+          f"{dict(jl.joint_mask.variant_launches)}")
+    if not all(launches.values()) or not all(
+            cs.ccl_mask.variant_launches[v] for v in cs.VARIANTS) or not all(
+            jl.joint_mask.variant_launches[v] for v in jl.VARIANTS):
+        fail("the labeling probes path did not launch every variant")
+    if not all(v > 0 for v in (*t_ccl.values(), *t_joint.values())):
+        fail("the labeling probes path's timings are wrong")
+    phase(f"{smi}: ccl 'cur' {t_ccl['cur']:.3f}, runtable "
+          f"{t_ccl['runtable']:.3f} us/frame against the union-find labels "
+          f"{t_ccl['union_find']:.3f} (fill + labels, batch {BATCH}); frames "
+          f"on the run tables by R {fits} of {BATCH}; fixed2 leaves {short} "
+          f"short; joint {t_joint['rowFull_col5']:.3f} against classic "
+          f"{t_joint['classic']:.3f} and the union-find "
+          f"{t_joint['union_find']:.3f}; full detect classic "
+          f"{t_joint['detect_classic']:.3f} against joint "
+          f"{t_joint['detect_joint']:.3f} us/frame (accepted equal)")
+
+    # -- 5f. plain versions and bounds ---------------------------------------
+    x = torch.from_numpy(np.ascontiguousarray(
+        scene.make_frames(BATCH, seed=0).transpose(0, 3, 1, 2))).to(dev)
+    px = BATCH * 480 * 640
+    masks = torch.from_numpy(np.stack(list(
+        scene.check_runtable_masks().values()))).to(dev)
+    mpx = masks.numel()
+    cs.ccl_runtable(masks)
+    torch.cuda.synchronize()
+    s7_ms = cuda_ms(lambda: cs.ccl_runtable(masks), 10)
+    runs = {    # name: (plain version, us/frame or ms, bytes, variants)
+        "ccl_variants": (lambda: cs.ccl_variant_reference(x, CONTRAST),
+                         t_ccl["cur"] * BATCH / 1e3, px * (3 + 4),
+                         "cur"),
+        "joint_label": (lambda: jl.joint_label_reference(x, CONTRAST),
+                        t_joint["rowFull_col5"] * BATCH / 1e3,
+                        px * (3 + 4 + 1), "rowFull_col5"),
+        "check_runtable": (lambda: cs.runtable_reference(masks),
+                           s7_ms, mpx * (1 + 4) + masks.shape[0] * 4,
+                           "runtable (R = 12) on the 7 masks in one batch"),
+    }
+    replaces = {"ccl_variants": "scripts/profile_ccl_variants.py:348",
+                "joint_label": "scripts/profile_joint_variants.py:98",
+                "check_runtable": "scripts/check_runtable.py:42"}
+    sources = {"ccl_variants": "ccl_sweeps.cu", "joint_label": "joint_label.cu",
+               "check_runtable": "ccl_sweeps.cu"}
+    entries = []
+    for name, (fn, ms, moved, ms_of) in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(fn, 1)
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "heimdall_tpu_torch/csrc/" + sources[name],
+            "replaces": replaces[name], "equal": err == 0,
+            "launches": launches[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a CCL",
+            "ms_of": ms_of, "batch": BATCH, "frame": "640x480x3"}
+        if name == "ccl_variants":
+            entry.update(variants={v: u * BATCH / 1e3
+                                   for v, u in t_ccl.items()},
+                         runtable_fits=fits, fixed2_short=short)
+        elif name == "joint_label":
+            entry.update(variants={v: u * BATCH / 1e3
+                                   for v, u in t_joint.items()})
+        else:
+            entry.update(batch=masks.shape[0], frame="96x128 mask",
+                         also_source="heimdall_tpu_torch/ops/ccl_sweeps.py")
+        entries.append(entry)
+        n = entry["batch"]
+        phase(f"{smi}: {name} ({ms_of}) {ms / n * 1e3:.3f} us/frame "
+              f"(batch {n}); plain version {plain_ms / n * 1e3:.1f} us/frame;"
+              f" bound {entry['bound_ms'] / n * 1e3:.3f} us/frame")
+    return entries
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1242,6 +1420,9 @@ def main(argv):
     # -- 3e, 5e: the preprocess and hole-fill probes -------------------------
     probes = probe_phases(dev, smi, cases, t_roll, roll_launches)
 
+    # -- 3f, 5f: the labeling probes ----------------------------------------
+    labeling = label_probe_phases(dev, smi, cases)
+
     # -- 6. kernels lines -----------------------------------------------------
     csrc = "heimdall_tpu_torch/csrc/"
     tiled = {    # name: (source, the TPU kernel or XLA code it replaces)
@@ -1306,7 +1487,8 @@ def main(argv):
         "library_note": "no single PyTorch call computes it",
         "batch": BATCH, "frame": "640x480x3",
     }] + [entry(n) for n in ("band_ccl", "flood_fill", "banded_stats",
-                             "bbox_sums", *runtable)] + split + probes
+                             "bbox_sums", *runtable)] + split + probes + \
+        labeling
     print(json.dumps({"path_kernels": [entry("merge_bands"),
                                        entry("preprocess")]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

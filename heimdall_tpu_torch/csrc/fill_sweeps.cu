@@ -37,8 +37,8 @@
 //          column ladder runs over H + 16 rows (or none).
 // All nine give one function, which is also hd_label's "fill" stage.
 //
-// Design: the run ids take one launch per orientation (k_run_ids, one block
-// per 16 lines).  Then one block per frame iterates the sweeps and the
+// Design: the run ids take one launch per orientation (common.cuh's
+// k_run_ids, one block per 16 lines, shared with the CCL probes).  Then one block per frame iterates the sweeps and the
 // certificate with no host sync (k_sweep_fill): the exterior and background
 // planes live as bits in shared memory (2 x (H + 16) x W / 8 bytes), each
 // warp scans one row or column at a time through a line buffer in shared
@@ -57,123 +57,9 @@
 
 namespace {
 
-constexpr int kPen = 1 << 30;       // the TPU code's _PEN
-constexpr int kGuardRows = 8;
 constexpr int kFillWarps = 16;      // k_sweep_fill: one block per frame
-constexpr int kMaxPerLane = 32;     // lines of at most 32 x 32 = 1024 px
-constexpr int kPackWarps = 8;       // k_run_ids: 16 lines per block
 
-enum Pack { kPackMxu = 0, kPackLadder = 1 };
-enum Scan { kScanMasked = 0, kScanIota = 1 };
 enum Grow { kGrowNew = 0, kGrowOld = 1 };
-
-// The guarded plane: the frame's H rows below G guard rows and above G
-// more (G = 0 or kGuardRows), Wp 32-bit words per row of bits.
-struct Plane {
-  int H, W, G, Hg, Wp;
-};
-
-Plane plane_of(int H, int W, int guard) {
-  int G = guard ? kGuardRows : 0;
-  return Plane{H, W, G, H + 2 * G, (W + 31) / 32};
-}
-
-// Background of the guarded plane: guard rows are background.
-__device__ __forceinline__ int bg_at(const Plane& pl, const uint8_t* mask,
-                                     int y, int x) {
-  int yf = y - pl.G;
-  return yf < 0 || yf >= pl.H ? 1 : !mask[(long long)yf * pl.W + x];
-}
-
-// ------------------------------------------------------------ run ids
-
-__device__ __forceinline__ uint32_t bf16_one(bool v) {
-  return v ? 0x3F80u : 0u;
-}
-
-// d += a * b over one 16 x 8 x 16 tile, bf16 in, f32 accumulate.
-// Fragments (g = lane / 4, t = lane % 4; two bf16 per register, the lower
-// index in the low half): a0 (row g, cols 2t, 2t + 1), a1 (g + 8, 2t ..),
-// a2 (g, 2t + 8 ..), a3 (g + 8, 2t + 8 ..); b0 (rows 2t, 2t + 1, col g),
-// b1 (rows 2t + 8, 2t + 9, col g); d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8,
-// 2t), d3 (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Run ids of the background runs along the lines of the guarded plane:
-// out[line][j] = 2 * (number of run starts at positions <= j), the packed
-// keys' run term (_run_pack with big = 2).  kCols: the lines are the
-// columns (length Hg, out [B, W, Hg]); else the rows (length W, out
-// [B, Hg, W]).  One block per 16 lines of one frame: the start flags go to
-// shared memory as bf16, then out = starts x U (U[k][j] = k <= j) on the
-// tensor cores, each warp taking 8-wide column tiles j and only the k tiles
-// at or below them.
-template <bool kCols, int kPack>
-__global__ void k_run_ids(Plane pl, const uint8_t* mask, int16_t* out) {
-  extern __shared__ uint32_t s_start[];     // [16][stride / 2] bf16 pairs
-  int nlines = kCols ? pl.W : pl.Hg, L = kCols ? pl.Hg : pl.W;
-  int Lp = (L + 15) & ~15, stride = Lp + 8;  // in bf16; +8 spreads banks
-  int line0 = blockIdx.x * 16, b = blockIdx.y;
-  const uint8_t* m = mask + (long long)b * pl.H * pl.W;
-  uint16_t* s16 = reinterpret_cast<uint16_t*>(s_start);
-  for (int i = threadIdx.x; i < 16 * Lp; i += blockDim.x) {
-    // kCols: neighbouring threads take neighbouring columns of one row
-    int r = kCols ? i & 15 : i / Lp, k = kCols ? i >> 4 : i - r * Lp;
-    int line = line0 + r;
-    bool start = false;
-    if (line < nlines && k < L) {
-      auto at = [&](int kk) {
-        return kCols ? bg_at(pl, m, kk, line) : bg_at(pl, m, line, kk);
-      };
-      int prev;
-      if (kPack == kPackMxu) {
-        prev = k > 0 ? at(k - 1) : 0;          // clamped read, fill 0
-      } else {
-        int w = (k - 1) >> 31;                 // -1 where the read wraps
-        prev = max(at(k - 1 + (w & L)) - (w & kPen), 0);
-      }
-      start = at(k) && !prev;
-    }
-    s16[r * stride + k] = (uint16_t)bf16_one(start);
-  }
-  __syncthreads();
-
-  int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  int half = stride / 2;                     // 32-bit words per line
-  for (int nt = threadIdx.x >> 5; nt * 8 < L; nt += kPackWarps) {
-    int j = nt * 8 + gid;                    // this lane's column of U
-    float d[4] = {0.f, 0.f, 0.f, 0.f};
-    // the k tiles below the last one lie wholly at or below the tile's
-    // columns: U is all ones there
-    int kt_last = (nt * 8 + 7) >> 4;
-    for (int kt = 0; kt <= kt_last; ++kt) {
-      int w0 = kt * 8 + tig;                 // word of (k0 + 2t, k0 + 2t + 1)
-      uint32_t a[4] = {s_start[gid * half + w0],
-                       s_start[(gid + 8) * half + w0],
-                       s_start[gid * half + w0 + 4],
-                       s_start[(gid + 8) * half + w0 + 4]};
-      int k = kt * 16 + 2 * tig;
-      uint32_t b0 = 0x3F803F80u, b1 = 0x3F803F80u;
-      if (kt == kt_last) {
-        b0 = bf16_one(k <= j) | bf16_one(k + 1 <= j) << 16;
-        b1 = bf16_one(k + 8 <= j) | bf16_one(k + 9 <= j) << 16;
-      }
-      mma_bf16(d, a, b0, b1);
-    }
-    for (int i = 0; i < 4; ++i) {
-      int line = line0 + gid + (i >> 1) * 8, c = nt * 8 + 2 * tig + (i & 1);
-      if (line < nlines && c < L)
-        out[((long long)b * nlines + line) * L + c] = (int16_t)(2 * (int)d[i]);
-    }
-  }
-}
 
 // ------------------------------------------------------------ sweeps
 
@@ -203,61 +89,6 @@ __device__ __forceinline__ int grow4(const Plane& pl, const uint32_t* eb,
     g = max(row, max(up, dn));
   }
   return g & bit(bgb, Wp, y, x);
-}
-
-// In-place doubling max-scan of one warp's line v (position 32 * j + lane
-// in v[j], n positions) over `steps` steps of shifts 1, 2, 4, ...: from
-// lower positions, or with kBack from higher ones.  The line goes through
-// the warp's buffer `line` at every step.
-template <int kScan, bool kBack>
-__device__ __forceinline__ void max_scan(int (&v)[kMaxPerLane], int* line,
-                                         int n, int steps, int lane) {
-  for (int s = 0; s < steps; ++s) {
-    int d = 1 << s;
-#pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      int x = 32 * j + lane;
-      if (x < n) line[x] = v[j];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      int x = 32 * j + lane;
-      if (x >= n) continue;
-      int src = kBack ? x + d : x - d, u;
-      if (kScan == kScanIota) {
-        u = (kBack ? src < n : src >= 0) ? line[src] : -kPen;
-      } else {
-        int w = (kBack ? n - 1 - src : src) >> 31;   // -1 where it wraps
-        u = line[kBack ? src - (w & n) : src + (w & n)] - (w & kPen);
-      }
-      v[j] = max(v[j], u);
-    }
-    __syncwarp();
-  }
-}
-
-// The OR over each background run of a warp's line: v holds grow4 & bg, rb
-// the run ids (2 * run number).  Leaves f in v (0/1 on background).
-template <int kScan>
-__device__ __forceinline__ void run_or(int (&v)[kMaxPerLane],
-                                       const int (&rb)[kMaxPerLane],
-                                       int* line, int n, int steps,
-                                       int lane) {
-#pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) v[j] += rb[j];
-  max_scan<kScan, false>(v, line, n, steps, lane);
-#pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) v[j] -= 2 * rb[j];
-  max_scan<kScan, true>(v, line, n, steps, lane);
-#pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) v[j] += rb[j];
-}
-
-int ceil_log2(int n) {
-  int s = 0;
-  while ((1 << s) < n) ++s;
-  return s > 0 ? s : 1;
 }
 
 // One block per frame: the sweeps to the certificate, then filled u8
@@ -317,7 +148,7 @@ __global__ void __launch_bounds__(kFillWarps * 32, 1)
       }
       __syncthreads();     // every grow of the round has read the exterior
       if (act) {
-        run_or<kScan>(v, rb, line, pl.W, row_steps, lane);
+        run_max<kScan>(v, rb, line, pl.W, row_steps, lane);
 #pragma unroll
         for (int j = 0; j < kMaxPerLane; ++j) {
           int x = 32 * j + lane;
@@ -345,7 +176,7 @@ __global__ void __launch_bounds__(kFillWarps * 32, 1)
       }
       __syncthreads();
       if (act) {
-        run_or<kScan>(v, rb, line, pl.Hg, col_steps, lane);
+        run_max<kScan>(v, rb, line, pl.Hg, col_steps, lane);
 #pragma unroll
         for (int j = 0; j < kMaxPerLane; ++j) {
           int y = 32 * j + lane;
@@ -398,21 +229,6 @@ int launch_sweep(const Plane& pl, int B, const uint8_t* mask,
   return 0;
 }
 
-template <bool kCols, int kPack>
-int launch_run_ids(const Plane& pl, int B, const uint8_t* mask, int16_t* out,
-                   cudaStream_t st) {
-  int nlines = kCols ? pl.W : pl.Hg, L = kCols ? pl.Hg : pl.W;
-  size_t smem = (size_t)16 * (((L + 15) & ~15) + 8) * 2;
-  auto kernel = k_run_ids<kCols, kPack>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((nlines + 15) / 16, B), kPackWarps * 32, smem, st>>>(
-      pl, mask, out);
-  HD_CHECK();
-  return 0;
-}
-
 }  // namespace
 
 // Run ids of the background of mask u8 [B, H, W] (1 = foreground), with
@@ -429,11 +245,10 @@ extern "C" int hd_run_ids(const uint8_t* mask, int B, int H, int W,
   if (pl.W > 32 * kMaxPerLane || pl.Hg > 32 * kMaxPerLane)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = pack ? launch_run_ids<false, kPackLadder>(pl, B, mask, rb_r, st)
-                 : launch_run_ids<false, kPackMxu>(pl, B, mask, rb_r, st);
-  if (err) return err;
-  return pack ? launch_run_ids<true, kPackLadder>(pl, B, mask, rb_t, st)
-              : launch_run_ids<true, kPackMxu>(pl, B, mask, rb_t, st);
+  return pack ? launch_run_ids_rc<kPackLadder, kRunsBg>(pl, B, mask, 2, rb_r,
+                                                        rb_t, st)
+              : launch_run_ids_rc<kPackMxu, kRunsBg>(pl, B, mask, 2, rb_r,
+                                                     rb_t, st);
 }
 
 // The sweep fill of mask u8 [B, H, W] (1 = foreground) with hd_run_ids'

@@ -145,12 +145,18 @@ class ContaminationDetector(DefectDetector):
     CPU alike; all give the fixpoint results the JAX defaults give.
 
     ``device`` defaults to CUDA; construction raises when no card is
-    present unless ``device="cpu"`` is passed.
+    present unless ``device="cpu"`` is passed.  A ``ccl_scan_steps`` of 0
+    or less raises ValueError, as in the JAX detector.
     """
 
     def __init__(self, name: str = "contamination_detector",
                  config: Dict[str, Any] = None, device=None):
         super().__init__(name, config)
+        scan_steps = self.config.get("ccl_scan_steps", 5)
+        if scan_steps is not None and scan_steps < 1:
+            # the JAX detector's check: None (full-width scans) is its "off"
+            raise ValueError(
+                f"ccl_scan_steps must be None or >= 1, got {scan_steps}")
         self.device = resolve_device(device)
         self.min_contaminant_size = self.config.get("min_contaminant_size", 10)
         self.max_contaminant_size = self.config.get("max_contaminant_size", 3000)

@@ -65,6 +65,15 @@ SIGNATURES = {
         "hd_run_ids": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
         "hd_sweep_fill": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     },
+    "ccl_sweeps": {
+        "hd_sweep_ccl": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P, _P, _P],
+        "hd_runtable_ccl": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "joint_label": {
+        "hd_joint_label": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _P],
+    },
     "stats_tiled": {
         "hd_banded_stats": [_P, _I, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P,
                             _P, _P, _P, _P, _P, _P],

@@ -112,3 +112,48 @@ def non_root_labels(labels):
         lab[roots[3]] = roots[0]
         lab[lab == roots[4]] = roots[5]
     return out
+
+
+def check_runtable_masks(h=96, w=128):
+    """The masks of the run-table check (a copy of the cases of
+    scripts/check_runtable.py), u8 [h, w] by name: a hollow rectangle with a
+    disc and a speck (the bench scene's structure), a diagonal chain of
+    corner-touching squares, a spiral, random discs (RandomState(3)), a row
+    band of 20 runs (more runs than any table holds: the frame falls back),
+    an empty and a full mask."""
+    rng = np.random.RandomState(3)
+    yy, xx = np.mgrid[0:h, 0:w]
+    cases = {}
+    m = np.zeros((h, w), np.uint8)
+    m[10:80, 20:22] = 1
+    m[10:80, 100:102] = 1
+    m[10:12, 20:102] = 1
+    m[78:80, 20:102] = 1
+    m |= ((yy - 50) ** 2 + (xx - 60) ** 2 <= 15 ** 2).astype(np.uint8)
+    m |= ((yy - 30) ** 2 + (xx - 40) ** 2 <= 4 ** 2).astype(np.uint8)
+    cases["rect+disc+speck"] = m
+    m = np.zeros((h, w), np.uint8)
+    for i in range(30):
+        m[10 + 2 * i: 12 + 2 * i, 10 + 2 * i: 12 + 2 * i] = 1
+    cases["diag chain"] = m
+    m = np.zeros((h, w), np.uint8)
+    t = np.linspace(0, 5 * np.pi, 3000)
+    r = 2 + t * 2.0
+    sy = np.clip((48 + r * np.sin(t)).astype(int), 0, h - 1)
+    sx = np.clip((64 + r * np.cos(t)).astype(int), 0, w - 1)
+    m[sy, sx] = 1
+    m[np.clip(sy + 1, 0, h - 1), sx] = 1
+    cases["spiral"] = m
+    m = np.zeros((h, w), np.uint8)
+    for _ in range(10):
+        cy, cx = rng.randint(3, h - 3), rng.randint(3, w - 3)
+        rr = rng.randint(1, 9)
+        m |= ((yy - cy) ** 2 + (xx - cx) ** 2 <= rr * rr).astype(np.uint8)
+    cases["random"] = m
+    m = np.zeros((h, w), np.uint8)
+    for k in range(20):
+        m[40:44, 4 + 6 * k: 7 + 6 * k] = 1
+    cases["overflow->fallback"] = m
+    cases["empty"] = np.zeros((h, w), np.uint8)
+    cases["full"] = np.ones((h, w), np.uint8)
+    return cases

@@ -13,7 +13,7 @@ from heimdall_tpu.detectors.contamination_detector import (
 
 import heimdall_tpu_torch
 from heimdall_tpu_torch.detectors.contamination_detector import (
-    ContaminationDetector, config_from_reference)
+    TPU_TUNING_KEYS, ContaminationDetector, config_from_reference)
 from heimdall_tpu_torch.ops import fused_kernels
 
 
@@ -138,6 +138,26 @@ def test_config_from_reference():
                  "exact_geometry"):
         assert getattr(port, attr) == getattr(ref, attr), attr
     _assert_outputs(ref.run_device(FRAMES), port.run_device(FRAMES))
+
+
+@pytest.mark.parametrize("steps", [0, -1, None, 5])
+def test_ccl_scan_steps_checked_as_in_jax(steps):
+    """ccl_scan_steps of 0 or less raises the JAX detector's ValueError,
+    with its message; None and values >= 1 are accepted (and ignored)."""
+    cfg = dict(CFG, ccl_scan_steps=steps)
+    if steps is not None and steps < 1:
+        with pytest.raises(ValueError) as want:
+            JaxDetector(config=cfg)
+        with pytest.raises(ValueError) as got:
+            ContaminationDetector(config=cfg, device="cpu")
+        assert str(got.value) == str(want.value)
+        return
+    JaxDetector(config=cfg)
+    port = ContaminationDetector(config=cfg, device="cpu")
+    assert "ccl_scan_steps" in TPU_TUNING_KEYS
+    assert "ccl_scan_steps" not in config_from_reference(cfg)
+    table, _, _ = port.run_device(FRAMES[:1])
+    assert table.n_blobs.shape == (1,)
 
 
 def test_default_device_is_cuda_and_never_falls_back():
