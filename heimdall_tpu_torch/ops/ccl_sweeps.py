@@ -35,13 +35,14 @@ frames, then ``ccl_mask``.
 """
 
 import collections
-import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from heimdall_tpu_torch.ops import _launch
-from heimdall_tpu_torch.ops.fill_sweeps import GUARD_ROWS, MAX_LINE, _shift
+from heimdall_tpu_torch.ops.fill_sweeps import (GUARD_ROWS, MAX_LINE,
+                                                 SMEM_BYTES, ladder_steps,
+                                                 run_count, run_min, shift)
 from heimdall_tpu_torch.ops.split_kernels import (check_frames, label_kernel,
                                                   label_kernel_reference)
 
@@ -76,64 +77,38 @@ RUNTABLE_VARIANTS = {"runtable": 12, "runtable8": 8, "runtable6": 6,
 VARIANTS = tuple(SWEEP_VARIANTS) + tuple(RUNTABLE_VARIANTS)
 MAX_RUNS = 16            # run-table slots: one warp per slot
 BIGC = 1 << 20           # the run tables' "no run"
-_PEN = 1 << 30           # the ladders' edge fill
-_SMEM_BYTES = 232448     # one block's shared memory on an H100
-_WARPS = 16
-
-
-def _steps(n: int) -> int:
-    return max(1, math.ceil(math.log2(n)))
 
 
 def packed_big(sentinel: int) -> int:
     """The run ids' factor in the packed keys: a power of two above every
     value (pallas_kernels.py:358-362)."""
-    return 1 << _steps(sentinel + 2)
-
-
-def run_count(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Number of runs of x (nonzero) that start at or before each position
-    along dim, int32 (1-based on a run; 0 before the first)."""
-    x = x != 0
-    start = x & ~_shift(x, 1, dim, False)
-    return start.cumsum(dim, dtype=torch.int32)
-
-
-def _min_scan(v, dim, steps, backward):
-    for s in range(steps):
-        v = torch.minimum(v, _shift(v, -(1 << s) if backward else 1 << s,
-                                    dim, _PEN))
-    return v
-
-
-def run_min(v: torch.Tensor, rb: torch.Tensor, dim: int,
-            steps: int) -> torch.Tensor:
-    """The min over each run along dim within 2^steps - 1 positions each
-    way, by min-scans of packed keys: v - rb forward, v + rb backward (rb:
-    run ids times a step above every value's spread)."""
-    v = _min_scan(v - rb, dim, steps, False) + rb
-    return _min_scan(v + rb, dim, steps, True) - rb
+    return 1 << ladder_steps(sentinel + 2)
 
 
 def nb8(lab: torch.Tensor, sentinel: int) -> torch.Tensor:
     """3x3 min (self included); neighbours outside the frame do not count."""
-    row = torch.minimum(lab, torch.minimum(_shift(lab, 1, -1, sentinel),
-                                           _shift(lab, -1, -1, sentinel)))
-    return torch.minimum(row, torch.minimum(_shift(row, 1, -2, sentinel),
-                                            _shift(row, -1, -2, sentinel)))
+    row = torch.minimum(lab, torch.minimum(shift(lab, 1, -1, sentinel),
+                                           shift(lab, -1, -1, sentinel)))
+    return torch.minimum(row, torch.minimum(shift(row, 1, -2, sentinel),
+                                            shift(row, -1, -2, sentinel)))
+
+
+def sweep_phase_fits(W: int, lines: int) -> bool:
+    """Whether common.cuh's sweep_phase fits one block's shared memory:
+    a line buffer per warp (16 warps) or a tile of 33 x lines ints."""
+    return 4 * max(16 * W, 33 * lines) <= SMEM_BYTES
 
 
 def _check_mask_plane(H, W, rmax=None):
     Hg = H + 2 * GUARD_ROWS
     big = packed_big(H * W)
-    if (W > MAX_LINE or Hg > MAX_LINE
-            or 4 * max(_WARPS * W, 33 * Hg) > _SMEM_BYTES
+    if (W > MAX_LINE or Hg > MAX_LINE or not sweep_phase_fits(W, Hg)
             or (max(W, Hg) // 2 + 2) * big + H * W >= 1 << 30):
         raise ValueError(f"the CCL probes take masks of at most {MAX_LINE} "
                          f"columns and {MAX_LINE - 2 * GUARD_ROWS} rows, got "
                          f"{H}x{W}")
     if rmax is not None and not (1 <= rmax <= MAX_RUNS
-                                 and 5 * rmax * H * 4 <= _SMEM_BYTES
+                                 and 5 * rmax * H * 4 <= SMEM_BYTES
                                  and (H + 2) * big + H * W < 1 << 30):
         raise ValueError(f"rmax must be in [1, {MAX_RUNS}] with 5 x rmax x "
                          f"H ints in shared memory, got {rmax} at H={H}")
@@ -142,8 +117,8 @@ def _check_mask_plane(H, W, rmax=None):
 def _sweep_steps(cfg: Sweep, H: int, W: int):
     """(row steps, column steps, whole-row steps, whole-column steps) of a
     sweep variant, as hd_sweep_ccl takes them."""
-    full_r = _steps(W)
-    full_c = _steps(H + (2 * GUARD_ROWS if cfg.guard else 0))
+    full_r = ladder_steps(W)
+    full_c = ladder_steps(H + (2 * GUARD_ROWS if cfg.guard else 0))
     return (full_r if cfg.ss_r == "full" else min(cfg.ss, full_r),
             min(cfg.ss, full_c), full_r, full_c)
 
@@ -199,8 +174,8 @@ def _runtable_labels(fg: torch.Tensor, runid: torch.Tensor,
     S = H * W
     big = packed_big(S)
     i32 = torch.int32
-    start = fg & ~_shift(fg, 1, -1, False)
-    end = fg & ~_shift(fg, -1, -1, False)
+    start = fg & ~shift(fg, 1, -1, False)
+    end = fg & ~shift(fg, -1, -1, False)
     sx = torch.full((F, rmax, H), BIGC, dtype=i32, device=fg.device)
     ex = torch.full_like(sx, -BIGC)
     lab = torch.full_like(sx, S)
@@ -212,18 +187,18 @@ def _runtable_labels(fg: torch.Tensor, runid: torch.Tensor,
     ex[f, runid[f, y, x].long() - 1, y] = x.to(i32)
     # chain ids: an entry starts a chain unless it 8-overlaps the same
     # slot's entry of the row above
-    chained = ((sx - 1 <= _shift(ex, 1, -1, -BIGC))
-               & (ex + 1 >= _shift(sx, 1, -1, BIGC)))
+    chained = ((sx - 1 <= shift(ex, 1, -1, -BIGC))
+               & (ex + 1 >= shift(sx, 1, -1, BIGC)))
     pack = (~chained).cumsum(-1, dtype=i32) * big
-    steps = _steps(H)
+    steps = ladder_steps(H)
     while True:
         acc = lab
         for k in range(rmax):
             for d in (1, -1):
-                ov = ((sx - 1 <= _shift(ex[:, k:k + 1], d, -1, -BIGC))
-                      & (ex + 1 >= _shift(sx[:, k:k + 1], d, -1, BIGC)))
+                ov = ((sx - 1 <= shift(ex[:, k:k + 1], d, -1, -BIGC))
+                      & (ex + 1 >= shift(sx[:, k:k + 1], d, -1, BIGC)))
                 acc = torch.minimum(acc, torch.where(
-                    ov, _shift(lab[:, k:k + 1], d, -1, S), S))
+                    ov, shift(lab[:, k:k + 1], d, -1, S), S))
         new = run_min(acc, pack, -1, steps)
         more = bool((new < lab).any())
         lab = new

@@ -51,11 +51,11 @@ VARIANTS = {
 }
 GUARD_ROWS = 8
 MAX_LINE = 1024          # a row or a guarded column of at most 1024 px
-_SMEM_BYTES = 232448     # one block's shared memory on an H100
+SMEM_BYTES = 232448      # one block's shared memory on an H100
 _PEN = 1 << 30           # the ladder's edge fill
 
 
-def _shift(v: torch.Tensor, d: int, dim: int, fill) -> torch.Tensor:
+def shift(v: torch.Tensor, d: int, dim: int, fill) -> torch.Tensor:
     """out[i] = v[i - d] along dim (d may be negative), fill where i - d
     leaves the axis."""
     n = v.shape[dim]
@@ -67,35 +67,52 @@ def _shift(v: torch.Tensor, d: int, dim: int, fill) -> torch.Tensor:
     return torch.cat([v.narrow(dim, -d, n + d), pad], dim)
 
 
-def _max_scan(v, dim, steps, backward):
+def ladder_steps(n: int) -> int:
+    """Steps of a doubling ladder that reaches across a line of n."""
+    return max(1, math.ceil(math.log2(n)))
+
+
+def _min_scan(v, dim, steps, backward):
     for s in range(steps):
-        v = torch.maximum(v, _shift(v, -(1 << s) if backward else 1 << s,
-                                    dim, -_PEN))
+        v = torch.minimum(v, shift(v, -(1 << s) if backward else 1 << s,
+                                   dim, _PEN))
     return v
 
 
+def run_min(v: torch.Tensor, rb: torch.Tensor, dim: int,
+            steps: int) -> torch.Tensor:
+    """The min over each run along dim within 2^steps - 1 positions each
+    way, by doubling min-scans of packed keys: v - rb forward, v + rb
+    backward (rb: run ids times a step above every value's spread, so no
+    run's keys reach another's)."""
+    v = _min_scan(v - rb, dim, steps, False) + rb
+    return _min_scan(v + rb, dim, steps, True) - rb
+
+
+def run_count(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Number of runs of x (nonzero) that start at or before each position
+    along dim, int32 (1-based on a run; 0 before the first)."""
+    x = x != 0
+    start = x & ~shift(x, 1, dim, False)
+    return start.cumsum(dim, dtype=torch.int32)
+
+
 def _run_or(f, rb, dim, steps):
-    """The OR over each background run (f in {0, 1}) by max-scans of packed
-    keys: forward over f + rb, backward over f - rb."""
-    f = _max_scan(f + rb, dim, steps, False) - rb
-    return _max_scan(f - rb, dim, steps, True) + rb
+    """The OR over each background run (f in {0, 1}): the max by packed
+    keys, f + rb forward and f - rb backward, as run_min of -f."""
+    return -run_min(-f, rb, dim, steps)
 
 
 def _grow4(e, bg):
     g = e
     for d, dim in ((1, -2), (-1, -2), (1, -1), (-1, -1)):
-        g = g | _shift(e, d, dim, 0)
+        g = g | shift(e, d, dim, 0)
     return g & bg
 
 
 def _run_ids(bg: torch.Tensor, dim: int) -> torch.Tensor:
     """2 * (number of run starts of bg up to each position along dim)."""
-    start = bg & (1 - _shift(bg, 1, dim, 0))
-    return 2 * start.cumsum(dim, dtype=torch.int32)
-
-
-def _steps(n: int) -> int:
-    return max(1, math.ceil(math.log2(n)))
+    return 2 * run_count(bg, dim)
 
 
 def sweep_fill_reference(mask: torch.Tensor) -> torch.Tensor:
@@ -109,7 +126,7 @@ def sweep_fill_reference(mask: torch.Tensor) -> torch.Tensor:
     border[0] = border[-1] = 1
     border[:, 0] = border[:, -1] = 1
     rb_r, rb_t = _run_ids(bg, -1), _run_ids(bg, -2)
-    row_steps, col_steps = _steps(W), min(_steps(H), 5)
+    row_steps, col_steps = ladder_steps(W), min(ladder_steps(H), 5)
     e = bg * border
     while True:
         e = _run_or(_grow4(e, bg), rb_r, -1, row_steps) & bg
@@ -146,7 +163,7 @@ def _check_plane(H, W):
     Hg = H + 2 * GUARD_ROWS
     words = -(-W // 32)
     if (W > MAX_LINE or Hg > MAX_LINE
-            or 8 * Hg * words + 16 * 4 * max(W, Hg) > _SMEM_BYTES):
+            or 8 * Hg * words + 16 * 4 * max(W, Hg) > SMEM_BYTES):
         raise ValueError(f"the sweep fill takes frames of at most "
                          f"{MAX_LINE} columns and {MAX_LINE - 2 * GUARD_ROWS}"
                          f" rows, got {H}x{W}")

@@ -33,9 +33,10 @@ import torch
 
 from heimdall_tpu_torch.ops import _launch
 from heimdall_tpu_torch.ops.blobs import table_from_sums
-from heimdall_tpu_torch.ops.ccl_sweeps import (_shift, _steps, ccl_mask,
-                                               packed_big, run_min)
-from heimdall_tpu_torch.ops.fill_sweeps import MAX_LINE, fill_sweeps
+from heimdall_tpu_torch.ops.ccl_sweeps import (ccl_mask, packed_big,
+                                               sweep_phase_fits)
+from heimdall_tpu_torch.ops.fill_sweeps import (MAX_LINE, fill_sweeps,
+                                                ladder_steps, run_min, shift)
 from heimdall_tpu_torch.ops.fused_kernels import gate
 from heimdall_tpu_torch.ops.split_kernels import (check_frames, label_kernel,
                                                   label_kernel_reference,
@@ -50,14 +51,12 @@ VARIANTS = {
 OFFSET = 1 << 19
 CPEN = 1 << 26           # class penalty: above every value, 2^26 + 2^30 < 2^31
 _PEN = 1 << 30           # a neighbour outside the frame
-_SMEM_BYTES = 232448
-_WARPS = 16
 
 
 def class_run_count(cls: torch.Tensor, dim: int) -> torch.Tensor:
     """Number of class runs (maximal stretches of one class) that start at
     or before each position along dim, int32; position 0 starts one."""
-    start = cls != _shift(cls, 1, dim, -1)
+    start = cls != shift(cls, 1, dim, -1)
     return start.cumsum(dim, dtype=torch.int32)
 
 
@@ -65,7 +64,7 @@ def _check_plane(H, W):
     inf0 = OFFSET + H * W
     if (H > MAX_LINE or W > MAX_LINE or H * W >= OFFSET
             or max(W, H) * packed_big(inf0) + inf0 >= 1 << 30
-            or 4 * max(_WARPS * W, 33 * H) > _SMEM_BYTES):
+            or not sweep_phase_fits(W, H)):
         raise ValueError(f"the joint probe takes masks of fewer than 2^19 "
                          f"px and at most {MAX_LINE} px a side, got {H}x{W}")
 
@@ -86,15 +85,15 @@ def joint_mask_reference(mask: torch.Tensor, variant: str = "rowFull_col5"):
     border[:, 0] = border[:, -1] = True
     v = torch.where(fg, lin, torch.where(border, 0, inf0)).to(torch.int32)
     rb = {-1: class_run_count(c, -1) * big, -2: class_run_count(c, -2) * big}
-    steps = {-1: _steps(W) if ss_row is None else min(ss_row, _steps(W)),
-             -2: min(ss_col, _steps(H))}
+    steps = {-1: min(ss_row or W, ladder_steps(W)),
+             -2: min(ss_col, ladder_steps(H))}
 
     def lane3(x):
-        return torch.minimum(x, torch.minimum(_shift(x, 1, -1, _PEN),
-                                              _shift(x, -1, -1, _PEN)))
+        return torch.minimum(x, torch.minimum(shift(x, 1, -1, _PEN),
+                                              shift(x, -1, -1, _PEN)))
 
     def vert(x):
-        return torch.minimum(_shift(x, 1, -2, _PEN), _shift(x, -1, -2, _PEN))
+        return torch.minimum(shift(x, 1, -2, _PEN), shift(x, -1, -2, _PEN))
 
     def exchange(v, feedback):
         vf = v + (1 - c) * CPEN

@@ -12,6 +12,7 @@ nested rings with a blob in the innermost hole, blobs cut by the edges) and
 a uniform frame; the masks are the run-table check's (a row of 20 runs
 overflows every R) and the adversarial masks, whose noise overflows R = 6:
 a batch of them takes the tables on some frames and falls back on others.
+The plain versions run on the card too.
 """
 
 import numpy as np
@@ -82,13 +83,14 @@ def test_ccl_variants_match_plain_version_and_union_find(card, size, ct):
 @pytest.mark.parametrize("size", [(96, 128), (480, 640)])
 @pytest.mark.parametrize("rmax", [12, 10, 8, 6])
 def test_runtable_fits_and_fallback(card, size, rmax):
-    masks = _masks(*size)
-    got, fits = cs.ccl_runtable(masks.to(card), rmax)
+    masks = _masks(*size).to(card)
+    got, fits = cs.ccl_runtable(masks, rmax)
     torch.cuda.synchronize()
     want, want_fits = cs.runtable_reference(masks, rmax)
-    assert torch.equal(fits.cpu(), want_fits)
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(fits, want_fits)
+    assert torch.equal(got, want)
     assert torch.equal(want, connected_components(masks > 0, 8))
+    want_fits = want_fits.cpu()
     # the overflow mask and the noise never fit; the empty mask always does
     names = list(scene.check_runtable_masks(*size)) + ["noise", "spiral",
                                                        "rings", "edges"]
@@ -100,11 +102,11 @@ def test_runtable_fits_and_fallback(card, size, rmax):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", list(cs.SWEEP_VARIANTS))
 def test_sweep_ccl_on_masks(card, variant):
-    masks = _masks(480, 640)
-    got = cs.ccl_mask(masks.to(card), variant)
+    masks = _masks(480, 640).to(card)
+    got = cs.ccl_mask(masks, variant)
     torch.cuda.synchronize()
     want = cs.sweep_ccl_reference(masks, variant)
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, want)
     if variant != "fixed2":
         assert torch.equal(want, connected_components(masks > 0, 8))
 
@@ -130,13 +132,16 @@ def test_joint_variants_match_plain_version_and_union_find(card, size, ct):
 def test_joint_on_masks(card):
     """Nested islands (the rings' innermost blob), spirals and the run-table
     check's masks: labels and filled mask of the fill-then-label order."""
-    masks = _masks(480, 640)
+    masks = _masks(480, 640).to(card)
     filled = fill_holes(masks > 0)
+    labels = connected_components(filled, 8)
     for variant in jl.VARIANTS:
-        got = jl.joint_mask(masks.to(card), variant)
+        got = jl.joint_mask(masks, variant)
         torch.cuda.synchronize()
-        assert torch.equal(got[1].cpu(), filled.to(torch.uint8))
-        assert torch.equal(got[0].cpu(), connected_components(filled, 8))
+        assert torch.equal(got[1], filled.to(torch.uint8))
+        assert torch.equal(got[0], labels)
+        for a, b in zip(got, jl.joint_mask_reference(masks, variant)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

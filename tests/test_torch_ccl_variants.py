@@ -224,6 +224,17 @@ def _filled():
     return torch.from_numpy(_jax_filled().astype(np.uint8))
 
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain versions run thousands of small ops: with one intra-op
+    thread each, none waits on threads that the other test workers keep
+    off the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 def _assert_frames_equal(want, got):
     for i, name in enumerate(NAMES):
         np.testing.assert_array_equal(got[i], want[i], err_msg=name)
@@ -290,36 +301,48 @@ def test_runtable_falls_back_per_frame(rmax):
 MASKS = scene.check_runtable_masks()
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_run_pair(rmax):
-    """scripts/check_runtable.py's run_pair kernel over its seven masks (a:
-    _ccl_sweeps, b: ccl_runtable), one grid step per mask."""
-    masks = np.stack(list(MASKS.values())).astype(np.int32)
+def _pallas_masks(kernel, masks, n_out):
+    """pallas_call of kernel(mask_ref, *out_refs) over int32 masks [n, h,
+    w], one grid step per mask, in interpret mode, as
+    scripts/check_runtable.py's run_pair launches its kernel: n_out int32
+    planes [n, h, w] as numpy arrays."""
     n, h, w = masks.shape
+    outs = pl.pallas_call(
+        kernel, grid=(n,),
+        in_specs=[pl.BlockSpec((1, h, w), lambda i: (i, 0, 0))],
+        out_specs=[pl.BlockSpec((1, h, w), lambda i: (i, 0, 0))] * n_out,
+        out_shape=[jax.ShapeDtypeStruct((n, h, w), jnp.int32)] * n_out,
+        interpret=True)(jnp.asarray(masks))
+    return tuple(np.asarray(o) for o in outs)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run_pair():
+    """scripts/check_runtable.py's run_pair kernel over its seven masks, at
+    R = 12 and 8 in one kernel: (a: _ccl_sweeps, {R: b, ccl_runtable})."""
+    masks = np.stack(list(MASKS.values())).astype(np.int32)
+    _, h, w = masks.shape
     sentinel = h * w
 
-    def kernel(fg_ref, a_ref, b_ref):
+    def kernel(fg_ref, a_ref, b12_ref, b8_ref):
         f = fg_ref[0]
         row, col = _label_planes(h, w)
         lab0 = jnp.where(f > 0, row * w + col, sentinel)
         a_ref[0] = pk._ccl_sweeps(lab0, f, sentinel, 2, adaptive=True,
                                   scan_steps=5)
-        b_ref[0] = ccl_runtable(pk, jnp, jax, pltpu, lab0, f, sentinel,
-                                Rmax=rmax)
+        for rmax, ref in ((12, b12_ref), (8, b8_ref)):
+            ref[0] = ccl_runtable(pk, jnp, jax, pltpu, lab0, f, sentinel,
+                                  Rmax=rmax)
 
-    a, b = pl.pallas_call(
-        kernel, grid=(n,),
-        in_specs=[pl.BlockSpec((1, h, w), lambda i: (i, 0, 0))],
-        out_specs=[pl.BlockSpec((1, h, w), lambda i: (i, 0, 0))] * 2,
-        out_shape=[jax.ShapeDtypeStruct((n, h, w), jnp.int32)] * 2,
-        interpret=True)(jnp.asarray(masks))
-    return np.asarray(a), np.asarray(b)
+    a, b12, b8 = _pallas_masks(kernel, masks, 3)
+    return a, {12: b12, 8: b8}
 
 
 @pytest.mark.parametrize("rmax", [12, 8])
 def test_check_runtable_masks_match_run_pair(rmax):
     masks = torch.from_numpy(np.stack(list(MASKS.values())))
-    a, b = _jax_run_pair(rmax)
+    a, b = _jax_run_pair()
+    b = b[rmax]
     want = connected_components(masks > 0, 8).numpy()
     labels, fits = cs.runtable_reference(masks, rmax)
     for i, name in enumerate(MASKS):
