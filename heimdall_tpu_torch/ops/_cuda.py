@@ -74,6 +74,9 @@ SIGNATURES = {
         "hd_joint_label": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                            _P],
     },
+    "primitives": {
+        "hd_primitive_steps": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    },
     "stats_tiled": {
         "hd_banded_stats": [_P, _I, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P,
                             _P, _P, _P, _P, _P, _P],

@@ -20,6 +20,13 @@ def card() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
+def require_card():
+    """Exits with an error where there is no CUDA device."""
+    if not torch.cuda.is_available():
+        raise SystemExit("the profilers time the card: no CUDA device "
+                         "(torch.cuda.is_available() is false)")
+
+
 def batch_and_iters(argv, usage: str):
     """(batch, iters) from ``[batch] [iters]`` (defaults 256 and 10)."""
     if len(argv) > 2 or any(not a.isdigit() for a in argv):
@@ -32,9 +39,7 @@ def batch_and_iters(argv, usage: str):
 def bench_on_card(batch: int) -> torch.Tensor:
     """``batch`` 640x480 bench frames (heimdall_tpu_torch/scene.py, seed 0)
     as BGR planes [batch, 3, 480, 640] uint8 on the card."""
-    if not torch.cuda.is_available():
-        raise SystemExit("the profilers time the card: no CUDA device "
-                         "(torch.cuda.is_available() is false)")
+    require_card()
     frames = scene.make_frames(batch)
     return torch.from_numpy(
         np.ascontiguousarray(frames.transpose(0, 3, 1, 2))).cuda()
