@@ -48,6 +48,12 @@ Phases (each prints a line; any failure exits non-zero without a result):
         fits flags against their plain versions; and the run-table check
         (scripts/check_runtable.py's 7 masks at R = 12 and 8: sweeps ==
         run tables == the plain labels, the overflow mask not fitting);
+     g. the primitive microbench's 27 variants (scripts/microbench_vpu.py's
+        steps, 480x640 planes, 960x640 for seg_min_step) against their
+        plain versions, whole plane, at N = 1, 4 and 36, on the script's
+        planes (batch 256) and on 16 planes of a second seed in [-60, 60);
+        each plain version and the cumsum variants' torch.cumsum step are
+        timed there (N = 36 against N = 4);
   4. drive the detector's main paths, each with every kernel's launch count
      set to 0 just before and read just after:
      a. ContaminationDetector.run_device at 640x480x3 channel-major, batch
@@ -90,6 +96,12 @@ Phases (each prints a line; any failure exits non-zero without a result):
         the full detect classic against joint with equal gates); then each
         probe's plain version and bound, and the run-table check's masks
         timed as one batch;
+     g. the primitive microbench path, with its launch count set to 0 just
+        before and read just after: the port's microbench_vpu (every
+        variant at N = 4 and 36, one warm-up and 6 timed calls each: 378
+        launches); then each variant's us/op/frame beside its plain
+        version's, its bound (operations) and, for the cumsum variants,
+        the torch.cumsum step's;
   6. JSON lines listing every kernel with its check and times;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
@@ -128,6 +140,24 @@ MEAN_FLOPS_PER_PX = 44
 MXU_FLOPS_PER_PX = (3 * 2 + 4 * 3) * 16 * 8 * 8 * 2 // (16 * 8)
 # mxu_conv's mean against the float32 product
 MEAN_TOL = 1e-3
+# The primitive microbench: integer operations per pixel of a frame per step
+# of each primitive (seg_min_step: per pixel pair), counted from the
+# script's bodies: a shifted read's index test and select, each min, max,
+# or, and, add and compare, each penalty add (the TPU's precomputed masks);
+# a roll or a transpose moves data and counts nothing.  The bound divides
+# them by the SMs' dispatch rate at the card's clocks.max.sm: 132 SMs x 4
+# warp instructions (128 lanes) a clock, one instruction per operation;
+# no instruction mix dispatches faster (min, max and logic have only the 64
+# INT32 lanes, adds also the FMA pipe as IMAD).
+PRIM_OPS = {
+    "min_scan_step": 3, "max_scan_step": 3, "or_roll": 1, "nbmin8": 12,
+    "add": 1, "select": 3, "transpose_pair": 1, "seg_min_step": 8,
+    "mxu_cumsum": 4, "cumsum_ladder": 21, "masked_min_step": 2,
+    "masked_ladder5": 10, "nbmin_guard": 6, "nbmin_masked_sub": 10,
+    "or_and_mask": 2, "max_ladder_full": 20, "sublane_mask_add": 2}
+H100_SMS = 132
+DISPATCH_LANES_PER_SM = 128
+BF16_FLOPS_PER_S = 989e12
 
 
 def phase(msg):
@@ -1244,6 +1274,134 @@ def label_probe_phases(dev, smi, cases):
     return entries
 
 
+def primitive_phases(dev, smi):
+    """Phases 3g and 5g: the primitive microbench's variants against their
+    plain versions (whole plane, N = 1, 4 and 36) on the script's planes and
+    a second seed, timing the plain versions and the cumsum variants'
+    torch.cumsum step on the script's planes by the same differencing; then
+    the microbench path (the port's microbench_vpu) with its launch count
+    set to 0 just before and read just after; returns its entries of the
+    kernels line."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch.ops import primitives as pr
+    from heimdall_tpu_torch.scripts import microbench_vpu as mb
+
+    def step_ms(fn, x):
+        """ms of one step of fn on x: (t(N_HI) - t(N_LO)) / (N_HI - N_LO),
+        each t of one call between CUDA events after fn(x, 1)."""
+        t = {}
+        fn(x, 1)
+        for n in (mb.N_LO, mb.N_HI):
+            torch.cuda.synchronize()
+            t[n] = cuda_ms(lambda: fn(x, n), 1)
+        return (t[mb.N_HI] - t[mb.N_LO]) / (mb.N_HI - mb.N_LO)
+
+    library = {    # one PyTorch call computing the step, where there is one
+        "mxu_cumsum": lambda v: torch.cumsum(v & 1, -1, dtype=v.dtype) & 63,
+        "cumsum_ladder": lambda v: torch.cumsum(v & 1, -1, dtype=v.dtype)}
+
+    def repeat(step):
+        def fn(x, n):
+            for _ in range(n):
+                x = step(x)
+            return x
+        return fn
+
+    # -- 3g. every variant against its plain version -------------------------
+    errs, plain_ms, lib_ms = {}, {}, {}
+    rng = np.random.RandomState(1)
+    for name, dtype, planes in pr.inputs():
+        second = rng.randint(-60, 60, (16,) + planes.shape[1:])
+        key = f"{name}/{dtype}"
+        errs[key] = 0
+        for x in (planes, second.astype(dtype)):
+            x = torch.from_numpy(x).to(dev)
+            for iters in (1, 4, 36):
+                got = pr.primitive_steps(x, name, iters, x.shape[1])
+                want = pr.primitive_steps_reference(x, name, iters,
+                                                    x.shape[1])
+                torch.cuda.synchronize()
+                errs[key] = max(errs[key], max_abs_err((got,), (want,)))
+            del got, want
+        x = torch.from_numpy(planes).to(dev)
+        plain_ms[key] = step_ms(repeat(lambda v: pr.step_reference(name, v)),
+                                x)
+        if name in ("add", "transpose_pair"):    # plain steps of one call
+            lib_ms[key] = plain_ms[key]
+        elif name in library:
+            lib_ms[key] = step_ms(repeat(library[name]), x)
+        del x
+    phase(f"check primitives (27 variants, whole plane, N = 1, 4, 36, the "
+          f"script's planes and seed 1): max_abs_err {errs}")
+    if any(errs.values()):
+        fail("a primitive microbench kernel differs from its plain version")
+
+    # -- 5g. the microbench path ----------------------------------------------
+    torch.cuda.synchronize()
+    pr.primitive_steps.launches = 0
+    pr.primitive_steps.variant_launches.clear()
+    results = mb.main([])
+    torch.cuda.synchronize()
+    launches = pr.primitive_steps.launches
+    by_variant = dict(pr.primitive_steps.variant_launches)
+    phase(f"primitive microbench path: microbench_vpu launched "
+          f"primitive_steps {launches} times; by variant {by_variant}")
+    want_launches = 2 * (1 + mb.REPS)
+    if (launches != len(pr.VARIANTS) * want_launches
+            or set(by_variant.values()) != {want_launches}
+            or len(by_variant) != len(pr.VARIANTS)):
+        fail(f"the microbench path did not launch every variant "
+             f"{want_launches} times")
+    if len(results) != len(pr.VARIANTS) or not all(
+            np.isfinite(r["us_per_op"]) and r["us_per_op"] > 0
+            for r in results):
+        fail(f"the microbench's results are wrong: {results}")
+
+    # -- 5g. bounds, plain versions and library calls --------------------------
+    subs = {n: sub for n, _, sub, _ in pr.VARIANTS}
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    int_ops_per_s = H100_SMS * DISPATCH_LANES_PER_SM * mhz * 1e6
+    px = mb.H * mb.W * mb.B
+    entries = []
+    for r in results:
+        name, dtype = r["op"], r["dtype"]
+        key = f"{name}/{dtype}"
+        bound_ms = PRIM_OPS[name] * px / int_ops_per_s * 1e3
+        if name == "mxu_cumsum":      # the triangle's useful multiply-adds
+            bound_ms = max(bound_ms, 2 * mb.B * mb.H * mb.W * (mb.W + 1) / 2
+                           / BF16_FLOPS_PER_S * 1e3)
+        ms = r["us_per_op"] * mb.B / 1e3
+        entries.append({
+            "name": f"primitive_{name}_{dtype}", "route": "cuda",
+            "source": "heimdall_tpu_torch/csrc/primitives.cu",
+            "replaces": "scripts/microbench_vpu.py:280",
+            "equal": errs[key] == 0, "launches": by_variant[key],
+            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms[key],
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "library_ms": lib_ms.get(key),
+            "library_note": {
+                "mxu_cumsum": "torch.cumsum(v & 1) & 63 step",
+                "cumsum_ladder": "torch.cumsum(v & 1) step",
+                "add": "the plain step v + 1 is one PyTorch call",
+                "transpose_pair": "the plain step v.clamp_max(63) is one "
+                                  "PyTorch call"}.get(
+                name, "no single PyTorch call computes the step"),
+            "us_per_op": r["us_per_op"],
+            "ms_of": "one step of the batch, (t(36) - t(4)) / 32",
+            "batch": mb.B, "frame": f"{subs[name]}x{mb.W} {dtype}",
+            "clocks_max_sm_mhz": mhz})
+        lib = f"; library call {lib_ms[key] / mb.B * 1e3:.4f}" \
+            if key in lib_ms else ""
+        phase(f"{smi}: primitive {name} {dtype} {r['us_per_op']:.4f} "
+              f"us/op/frame; plain version {plain_ms[key] / mb.B * 1e3:.4f}; "
+              f"bound {bound_ms / mb.B * 1e3:.4f} (operations){lib}")
+    return entries
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1423,6 +1581,9 @@ def main(argv):
     # -- 3f, 5f: the labeling probes ----------------------------------------
     labeling = label_probe_phases(dev, smi, cases)
 
+    # -- 3g, 5g: the primitive microbench ----------------------------------
+    primitives = primitive_phases(dev, smi)
+
     # -- 6. kernels lines -----------------------------------------------------
     csrc = "heimdall_tpu_torch/csrc/"
     tiled = {    # name: (source, the TPU kernel or XLA code it replaces)
@@ -1488,7 +1649,7 @@ def main(argv):
         "batch": BATCH, "frame": "640x480x3",
     }] + [entry(n) for n in ("band_ccl", "flood_fill", "banded_stats",
                              "bbox_sums", *runtable)] + split + probes + \
-        labeling
+        labeling + primitives
     print(json.dumps({"path_kernels": [entry("merge_bands"),
                                        entry("preprocess")]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,9 @@
 //   row, its values in registers at x = 32 * j + lane, shifted reads
 //   through the warp's line buffer in shared memory, as the port's sweep
 //   kernels read (common.cuh: sweep_phase, max_scan's masked and iota
-//   reads);
+//   reads), and the ladders' rungs in a loop that is not unrolled, as
+//   max_scan's (unrolled over compile-time shifts, the compiler hoists
+//   every rung's indices out of the step loop, into 255 registers);
 // * mxu_cumsum: 16 rows per block in shared memory, the triangular product
 //   on the tensor cores (mma_bf16, the triangle's fragments from indices,
 //   the k tiles above the diagonal skipped, as k_run_ids);
@@ -127,12 +129,11 @@ __device__ __forceinline__ void lane_pass(int (&v)[kPer], T* line, int W,
 
 // One ladder rung: v = max (kMax) or min (else) of v and its roll by
 // d > 0 plus p where the read wrapped.  The roll is by e = d mod W, and
-// every position takes p when d >= W (planes narrower than the shift):
-// both are set once per kernel, as the TPU builds its masks once.
+// every position takes p when d >= W (planes narrower than the shift).
 template <bool kMax, typename T>
 __device__ __forceinline__ void pen_rung(int (&v)[kPer], T* line, int W,
                                          int lane, int d, int p) {
-  int e = d % W, all = d >= W ? p : 0;
+  int e = d < W ? d : d % W, all = d < W ? 0 : p;
   lane_pass(v, line, W, lane, [&](int a, int x) {
     int s = x - e, w = s >> 31;                // -1 where the read wraps
     int u = wadd((int)line[s + (w & W)], (w & p) | all);
@@ -178,24 +179,24 @@ __device__ __forceinline__ void row_step(int (&v)[kPer], int (&f)[kPer],
   } else if constexpr (kS == kCumsumLadder) {
 #pragma unroll
     for (int j = 0; j < kPer; ++j) v[j] &= 1;
-#pragma unroll
-    for (int k = 0; k < 10; ++k)
+#pragma unroll 1
+    for (int d = 1; d < 1024; d *= 2)
       lane_pass(v, line, W, lane, [&](int a, int x) {
-        return wadd(a, sh_at(line, x, 1 << k, W, 0));
+        int s = x - d;
+        return wadd(a, s >= 0 ? (int)line[s] : 0);
       });
   } else if constexpr (kS == kMaskedMin) {
     pen_rung<false>(v, line, W, lane, 1, kPen);
   } else if constexpr (kS == kMaskedLadder5) {
-#pragma unroll
-    for (int k = 0; k < 5; ++k) pen_rung<false>(v, line, W, lane, 1 << k, kPen);
+#pragma unroll 1
+    for (int d = 1; d < 32; d *= 2) pen_rung<false>(v, line, W, lane, d, kPen);
   } else if constexpr (kS == kOrAndMask) {
     lane_pass(v, line, W, lane, [&](int a, int x) {
       return a | sh_at(line, x, 1, W, 0);
     });
   } else if constexpr (kS == kMaxLadderFull) {
-#pragma unroll
-    for (int k = 0; k < 10; ++k)
-      pen_rung<true>(v, line, W, lane, 1 << k, kFloor);
+#pragma unroll 1
+    for (int d = 1; d < 1024; d *= 2) pen_rung<true>(v, line, W, lane, d, kFloor);
   }
 }
 
@@ -361,7 +362,7 @@ __global__ void __launch_bounds__(kCrossThreads)
   if (n > 0 && (c > 0 || kWrapRows))
     up = cluster.map_shared_rank(s, c > 0 ? c - 1 : last) +
          (c > 0 ? R : n_last) * W;
-  if (n > 0 && (c < last || kWrapRows))
+  if (kS != kSublaneMaskAdd && n > 0 && (c < last || kWrapRows))
     down = cluster.map_shared_rank(s, c < last ? c + 1 : 0) + W;
   __syncthreads();
 #pragma unroll 1

@@ -142,7 +142,7 @@ _STEP = {
     "add": lambda v: v + 1,
     "select": lambda v: torch.where(v > 0, v, v + 1),
     # transpose, min, transpose back
-    "transpose_pair": lambda v: torch.minimum(v, torch.full_like(v, 63)),
+    "transpose_pair": lambda v: v.clamp_max(63),
     "seg_min_step": _seg_min_step,
     # the triangular product on the TPU's MXU: exact (counts < 2^24)
     "mxu_cumsum": lambda v: torch.cumsum(v & 1, _L, dtype=v.dtype) & 63,

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from heimdall_tpu_torch.ops import _cuda
+from heimdall_tpu_torch.ops import _cuda, _launch
 from heimdall_tpu_torch.ops import primitives as pr
 
 IDS = [f"{n}-{d}" for n, d, _, _ in pr.VARIANTS]
@@ -68,7 +68,7 @@ def test_refused_launch_raises(card):
         out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
-        pr._launch.raise_on(err, "primitive_steps")
+        _launch.raise_on(err, "primitive_steps")
 
 
 @pytest.mark.cuda
