@@ -11,10 +11,10 @@
 // hd_flood_fill: filled = mask | (background not 4-connected to the frame
 // border).  The JAX package floods bands to local fixpoints and repeats whole
 // rounds until one changes nothing, which needs a host-visible flag per
-// round.  Here the exterior comes from one background union-find over the
-// whole frame (parents start at the pixel's same-class run start within its
-// warp, one ballot; atomicMin hooking), then each root that touches the
-// border marks its tree: 4 launches, no rounds, no host sync.
+// round.  Here a block union-find answers it in 3 launches with no rounds
+// and no host sync, whatever the depth of a maze in the mask: tiles labelled
+// in shared memory, then only their perimeter components merged through a
+// small per-frame table (see "hole fill" below).
 //
 // hd_band_ccl: 8- (or 4-) connected labels within each band of `band` rows
 // (links never cross a band's first row), as global linear indices whose
@@ -42,9 +42,10 @@
 // What bounds them on an H100 SXM: bytes.  The fill reads the mask and
 // writes the filled plane (2 B/px), the labeling reads the mask and writes
 // int32 labels (5 B/px), the merge reads and writes labels (8 B/px): about
-// 0.6, 3.1 and 5.0 us per 1920x1080 frame at 3.35 TB/s.  This first design
-// passes through global scratch (parents, reach flags) that stays partly in
-// the 50 MB L2, and does not approach those bounds.
+// 0.6, 3.1 and 5.0 us per 1920x1080 frame at 3.35 TB/s.  The fill reads the
+// mask twice (tile pass and write pass), so its design floor is 3 B/px; its
+// table stays in the 50 MB L2.  The labeling and the merge pass through
+// label planes in device memory and do not approach their bounds.
 
 #include "common.cuh"
 
@@ -53,26 +54,245 @@ namespace {
 constexpr int kItems = 8;   // consecutive pixels per thread in root scans
 
 // ------------------------------------------------------------- hole fill
+//
+// A block union-find cut down to the fill's one question (Allegretti,
+// Bolelli and Grana, IEEE TPDS 2020; Playne and Hawick, IEEE TPDS 2018):
+// does a background component touch the frame border?  One block takes a
+// tile of kFillTH x kFillTW pixels.  It labels the tile's background,
+// 4-connected, with a union-find in shared memory (parents seeded with
+// warp run starts, atomicMin hooking, then compression).  A component that
+// does not touch the tile's perimeter is a hole.  Each component that does
+// gets one entry in a per-frame table in device memory, indexed by tile and
+// perimeter position (kFillP slots a tile): its representative is the
+// component's least perimeter position, the other perimeter pixels point at
+// it, and a component with a pixel on the frame border hooks its
+// representative under entry 0, the frame border itself.  The merge kernel
+// unites the entries of background pixels 4-adjacent across tile edges
+// with the same atomicMin union-find on the table; a component reaches the
+// border iff its root is entry 0, so no flag needs carrying.  The write
+// kernel labels its tile again (cheaper than a label plane in device
+// memory) and writes filled = mask | !(root == 0).  Three launches; the
+// table is about 0.65 MB a 1920x1080 frame and stays in L2.
 
-__global__ void k_flood_init(Geom g, const uint8_t* mask, int32_t* parent,
-                             uint8_t* reach) {
-  for_each_tile(g, [&](Pix q) {
-    bool bg = q.in && !mask[q.b * g.HW + q.p];
-    int start = run_start(bg, q);
-    if (!q.in) return;
-    parent[q.b * g.HW + q.p] = start;
-    reach[q.b * g.HW + q.p] = 0;
+constexpr int kFillTH = 32, kFillTW = 128;
+constexpr int kFillPx = kFillTH * kFillTW;
+constexpr int kFillP = 2 * kFillTW + 2 * kFillTH;   // perimeter slots
+constexpr int kFillThreads = 256;
+constexpr int kNoRep = 0x7fffffff;
+
+struct FillGeom {
+  int H, W, tx, ty;      // tiles across and down
+  long long E;           // table entries a frame: 1 + tx * ty * kFillP
+  const int* active;
+};
+
+inline FillGeom fill_geom(int H, int W, const int* active) {
+  FillGeom g{H, W, (W + kFillTW - 1) / kFillTW, (H + kFillTH - 1) / kFillTH,
+             0, active};
+  g.E = 1 + (long long)g.tx * g.ty * kFillP;
+  return g;
+}
+
+// Perimeter slot of tile pixel (ly, lx) in a tile of th x tw, or -1 inside.
+__device__ __forceinline__ int perim_pos(int ly, int lx, int th, int tw) {
+  if (ly == 0) return lx;
+  if (ly == th - 1) return kFillTW + lx;
+  if (lx == 0) return 2 * kFillTW + ly;
+  if (lx == tw - 1) return 2 * kFillTW + kFillTH + ly;
+  return -1;
+}
+
+// Tile pixel of perimeter slot pos in a tile of th x tw, or false if the
+// slot names no pixel of this tile.
+__device__ __forceinline__ bool perim_pixel(int pos, int th, int tw, int* ly,
+                                            int* lx) {
+  if (pos < kFillTW) {
+    *ly = 0, *lx = pos;
+    return pos < tw;
+  }
+  if (pos < 2 * kFillTW) {
+    *ly = th - 1, *lx = pos - kFillTW;
+    return th > 1 && *lx < tw;
+  }
+  int side = (pos - 2 * kFillTW) / kFillTH;
+  *ly = (pos - 2 * kFillTW) % kFillTH;
+  *lx = side == 0 ? 0 : tw - 1;
+  return *ly > 0 && *ly < th - 1 && (side == 0 || tw > 1);
+}
+
+struct FillSmem {
+  int parent[kFillPx];   // tile-local union-find over tile indices
+  int rep[kFillPx];      // at a root: least perimeter slot of its component
+  uint8_t bg[kFillPx];   // 1 = background pixel of the tile
+  uint8_t flag[kFillPx]; // at a root: touches the frame border / reaches it
+};
+
+// The tile's background labeling: after it, s.parent[i] is the root of
+// background pixel i, s.rep[root] the component's least perimeter slot
+// (kNoRep: a hole) and s.flag[root] whether it has a pixel on the frame
+// border.  Pixels outside the frame count as foreground.  Every thread of
+// the block calls it.
+__device__ void fill_label_tile(const FillGeom& g, const uint8_t* m, int y0,
+                                int x0, int th, int tw, FillSmem& s) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int ly = warp; ly < kFillTH; ly += kFillThreads / 32) {
+    const uint8_t* row = m + (long long)(y0 + ly) * g.W + x0;
+    for (int c = 0; c < kFillTW; c += 32) {
+      int lx = c + lane, i = ly * kFillTW + lx;
+      bool b = ly < th && lx < tw && !row[lx];
+      unsigned bits = __ballot_sync(kFull, b);
+      unsigned starts = (bits ^ (bits << 1)) | 1u;
+      int start = 31 - __clz(starts & ((2u << lane) - 1u));
+      s.bg[i] = b;
+      s.parent[i] = i - (lane - start);
+      s.rep[i] = kNoRep;
+      s.flag[i] = 0;
+    }
+  }
+  __syncthreads();
+  for (int ly = warp; ly < th; ly += kFillThreads / 32) {
+    for (int lx = lane; lx < tw; lx += 32) {
+      int i = ly * kFillTW + lx;
+      if (!s.bg[i]) continue;
+      bool left = lx > 0 && s.bg[i - 1];
+      if (left && lane == 0) unite(s.parent, i, i - 1);
+      if (ly > 0 && s.bg[i - kFillTW] && !(left && s.bg[i - kFillTW - 1]))
+        unite(s.parent, i, i - kFillTW);
+    }
+  }
+  __syncthreads();
+  for (int ly = warp; ly < th; ly += kFillThreads / 32)
+    for (int lx = lane; lx < tw; lx += 32) {
+      int i = ly * kFillTW + lx;
+      if (s.bg[i]) s.parent[i] = find_root(s.parent, i);
+    }
+  __syncthreads();
+  for (int ly = warp; ly < th; ly += kFillThreads / 32)
+    for (int lx = lane; lx < tw; lx += 32) {
+      int i = ly * kFillTW + lx;
+      int pos = perim_pos(ly, lx, th, tw);
+      if (pos < 0 || !s.bg[i]) continue;
+      int r = s.parent[i];
+      atomicMin(&s.rep[r], pos);
+      int y = y0 + ly, x = x0 + lx;
+      if (y == 0 || x == 0 || y == g.H - 1 || x == g.W - 1) s.flag[r] = 1;
+    }
+  __syncthreads();
+}
+
+// Calls body(frame, tile row, tile column, frame's mask, table) for every
+// tile this block covers: its own tile, or with `active` tile rows
+// blockIdx.y, then steps of gridDim.y, of frames not skipped.
+template <typename Body>
+__device__ __forceinline__ void for_each_fill_tile(const FillGeom& g,
+                                                   Body body) {
+  int b = blockIdx.z;
+  if (g.active != nullptr && g.active[b] == 0) return;
+  for (int t = blockIdx.y; t < g.ty; t += gridDim.y) body(b, t, blockIdx.x);
+}
+
+inline dim3 fill_grid(const FillGeom& g, int B) {
+  int rows = g.ty;
+  if (g.active != nullptr && rows > kSkipTileRows) rows = kSkipTileRows;
+  return dim3(g.tx, rows, B);
+}
+
+// Launch 1: each tile's perimeter entries of the frame's table.
+__global__ void __launch_bounds__(kFillThreads)
+k_fill_tiles(FillGeom g, const uint8_t* mask, int32_t* table) {
+  __shared__ FillSmem s;
+  for_each_fill_tile(g, [&](int b, int ty, int tx) {
+    int y0 = ty * kFillTH, x0 = tx * kFillTW;
+    int th = min(kFillTH, g.H - y0), tw = min(kFillTW, g.W - x0);
+    int32_t* T = table + b * g.E;
+    fill_label_tile(g, mask + b * (long long)g.H * g.W, y0, x0, th, tw, s);
+    int base = 1 + (ty * g.tx + tx) * kFillP;
+    if (ty == 0 && tx == 0 && threadIdx.x == 0) T[0] = 0;
+    for (int pos = threadIdx.x; pos < kFillP; pos += kFillThreads) {
+      int ly, lx;
+      if (!perim_pixel(pos, th, tw, &ly, &lx)) continue;
+      int i = ly * kFillTW + lx;
+      if (!s.bg[i]) continue;
+      int r = s.parent[i], rep = s.rep[r];
+      T[base + pos] = pos != rep ? base + rep : (s.flag[r] ? 0 : base + pos);
+    }
+    __syncthreads();
   });
 }
 
-// (k_link_bg and k_compress_mark of common.cuh run between these two.)
-__global__ void k_flood_fill(Geom g, const uint8_t* mask,
-                             const int32_t* parent, const uint8_t* reach,
-                             uint8_t* filled) {
-  for_each_tile(g, [&](Pix q) {
-    if (!q.in) return;
-    long long o = q.b * g.HW + q.p;
-    filled[o] = mask[o] || !reach[q.b * g.HW + parent[o]];
+// Table entry of background pixel (y, x) on its tile's perimeter.
+__device__ __forceinline__ int fill_entry(const FillGeom& g, int y, int x) {
+  int ty = y / kFillTH, tx = x / kFillTW;
+  int th = min(kFillTH, g.H - ty * kFillTH), tw = min(kFillTW, g.W - tx * kFillTW);
+  return 1 + (ty * g.tx + tx) * kFillP +
+         perim_pos(y - ty * kFillTH, x - tx * kFillTW, th, tw);
+}
+
+// Launch 2: one thread per pair of pixels 4-adjacent across a tile edge
+// (first the horizontal edges, column by column, then the vertical ones,
+// row by row); a pair whose predecessor along the edge is also a background
+// pair is already joined through it.
+__global__ void k_fill_merge(FillGeom g, long long pairs, const uint8_t* mask,
+                             int32_t* table) {
+  int b = blockIdx.y;
+  if (g.active != nullptr && g.active[b] == 0) return;
+  const uint8_t* m = mask + b * (long long)g.H * g.W;
+  int32_t* T = table + b * g.E;
+  long long nh = (long long)(g.ty - 1) * g.W;
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       k < pairs; k += (long long)gridDim.x * blockDim.x) {
+    int ya, xa, yb, xb;
+    bool along;          // the predecessor pair exists and lies in the same tiles
+    if (k < nh) {
+      yb = (int)(k / g.W + 1) * kFillTH, xb = (int)(k % g.W);
+      ya = yb - 1, xa = xb;
+      along = xb % kFillTW != 0;
+    } else {
+      long long j = k - nh;
+      yb = (int)(j % g.H), xb = (int)(j / g.H + 1) * kFillTW;
+      ya = yb, xa = xb - 1;
+      along = yb % kFillTH != 0;
+    }
+    long long pa = (long long)ya * g.W + xa, pb = (long long)yb * g.W + xb;
+    if (m[pa] || m[pb]) continue;
+    if (along) {
+      long long step = k < nh ? 1 : g.W;
+      if (!m[pa - step] && !m[pb - step]) continue;
+    }
+    unite(T, fill_entry(g, ya, xa), fill_entry(g, yb, xb));
+  }
+}
+
+// Launch 3: per tile, the labeling again, each perimeter component's root
+// in the merged table, then filled = mask | !(reaches the border).
+__global__ void __launch_bounds__(kFillThreads)
+k_fill_write(FillGeom g, const uint8_t* mask, const int32_t* table,
+             uint8_t* filled) {
+  __shared__ FillSmem s;
+  for_each_fill_tile(g, [&](int b, int ty, int tx) {
+    int y0 = ty * kFillTH, x0 = tx * kFillTW;
+    int th = min(kFillTH, g.H - y0), tw = min(kFillTW, g.W - x0);
+    long long off = b * (long long)g.H * g.W;
+    const int32_t* T = table + b * g.E;
+    fill_label_tile(g, mask + off, y0, x0, th, tw, s);
+    int base = 1 + (ty * g.tx + tx) * kFillP;
+    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int ly = warp; ly < th; ly += kFillThreads / 32)
+      for (int lx = lane; lx < tw; lx += 32) {
+        int i = ly * kFillTW + lx;
+        if (!s.bg[i] || s.parent[i] != i) continue;
+        int rep = s.rep[i];
+        s.flag[i] = rep != kNoRep && find_root(T, base + rep) == 0;
+      }
+    __syncthreads();
+    for (int ly = warp; ly < th; ly += kFillThreads / 32) {
+      uint8_t* out = filled + off + (long long)(y0 + ly) * g.W + x0;
+      for (int lx = lane; lx < tw; lx += 32) {
+        int i = ly * kFillTW + lx;
+        out[lx] = !s.bg[i] || !s.flag[s.parent[i]];
+      }
+    }
+    __syncthreads();
   });
 }
 
@@ -269,23 +489,31 @@ __global__ void k_incidence(Geom g, int K, int cap, const int32_t* labels,
 
 }  // namespace
 
-// mask u8 [B, H, W] (0/1) -> filled u8 [B, H, W] (0/1).  Scratch: parent
-// int32 [B, H, W], reach u8 [B, H, W].  active: null, or int32 [B] (frames
-// with 0 are skipped).  Returns the first CUDA error.
+// Entries of hd_flood_fill's table per frame.
+extern "C" int hd_flood_entries(int H, int W) {
+  return (int)fill_geom(H, W, nullptr).E;
+}
+
+// mask u8 [B, H, W] (nonzero = foreground) -> filled u8 [B, H, W] (0/1).
+// Scratch: table int32 [B, hd_flood_entries(H, W)].  active: null, or
+// int32 [B] (frames with 0 are skipped).  Returns the first CUDA error.
 extern "C" int hd_flood_fill(const uint8_t* mask, int B, int H, int W,
-                             const int* active, int32_t* parent,
-                             uint8_t* reach, uint8_t* filled, void* stream) {
+                             const int* active, int32_t* table,
+                             uint8_t* filled, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  Geom g{H, W, (long long)H * W, H, 1, active};
-  dim3 blk(kTileW, kTileH);
-  dim3 grid = tile_grid(g, B);
-  k_flood_init<<<grid, blk, 0, st>>>(g, mask, parent, reach);
+  FillGeom g = fill_geom(H, W, active);
+  dim3 grid = fill_grid(g, B);
+  k_fill_tiles<<<grid, kFillThreads, 0, st>>>(g, mask, table);
   HD_CHECK();
-  k_link_bg<<<grid, blk, 0, st>>>(g, mask, parent);
-  HD_CHECK();
-  k_compress_mark<<<grid, blk, 0, st>>>(g, mask, parent, reach);
-  HD_CHECK();
-  k_flood_fill<<<grid, blk, 0, st>>>(g, mask, parent, reach, filled);
+  long long pairs = (long long)(g.ty - 1) * W + (long long)(g.tx - 1) * H;
+  if (pairs > 0) {
+    long long blocks = (pairs + 255) / 256;
+    if (active != nullptr && blocks > 16) blocks = 16;
+    k_fill_merge<<<dim3((unsigned)blocks, B), 256, 0, st>>>(g, pairs, mask,
+                                                            table);
+    HD_CHECK();
+  }
+  k_fill_write<<<grid, kFillThreads, 0, st>>>(g, mask, table, filled);
   HD_CHECK();
   return 0;
 }

@@ -35,8 +35,12 @@
 // __fmul_rn/__fadd_rn (never contracted to FMA; the file is also built with
 // -fmad=false), and rounded half to even with __float2int_rn.
 //
-// hd_preprocess (at the end of the file) runs the preprocess stages alone
-// for frames of any size, for the band-tiled route; hd_label and
+// hd_preprocess runs the preprocess stages alone for frames of any size,
+// for the 2 MP routes, as one launch over shared-memory tiles (see "the
+// one-pass preprocess" below; it replaces the eight global passes there, and
+// its bound is the mean's 44 uncontracted float operations a pixel on the
+// SMs' 128 FP32 lanes, above its 3 (Mono8) or 5 (BGR) bytes a pixel);
+// hd_label and
 // hd_stats_from_labels are the two-kernel split of the same passes (the
 // profiling path, heimdall_tpu_torch/ops/split_kernels.py).
 
@@ -419,6 +423,241 @@ int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
   return 0;
 }
 
+// ------------------------------------------------- the one-pass preprocess
+//
+// hd_preprocess: one launch, one block per output tile of kPreTY x kPreTX
+// pixels of a frame.  The block loads the tile with an 11-pixel halo (2 for
+// the blur, 5 for the mean, 1 for each of the four 3x3 passes), clipped to
+// the frame, into shared memory once, computing gray as it loads; every
+// stage then computes exactly the region its successor reads, shrinking by
+// its reach, and only the frame read and the gray and binary writes touch
+// device memory.  Borders are taken in frame coordinates (reflect-101 for
+// the blur, replicate for the mean) and mapped into the tile's buffers: a
+// reflected or clamped index moves at most 2 or 5 pixels inward, which the
+// halo holds, so a stage only ever computes in-frame positions.  The
+// horizontal passes give each lane a row and a run of kRun outputs whose
+// taps stay in registers (one shared load per output and a few more per
+// run); the vertical passes give each lane a column and a run of kRun rows
+// the same way.  The blur sums exact integers; the mean keeps its strict
+// tap order (row pass, then column pass over the unrounded row sums,
+// __fmul_rn/__fadd_rn, rounded half to even).  The threshold is ballotted
+// into words of 32 pixels, and the open and close run on those words (erode
+// = AND of the shifted words, dilate = OR), with positions outside the
+// frame holding each pass's neutral value, so no out-of-frame neighbour
+// wins.
+
+constexpr int kPreTY = 64, kPreTX = 128, kPreThreads = 256, kRun = 8;
+// Regions, as (rows, columns) and their origin relative to the tile's:
+constexpr int kRA = kPreTY + 22, kCA = kPreTX + 22;  // gray        (-11, -11)
+constexpr int kCB = kPreTX + 18;                     // blur rows   (-11, -9)
+constexpr int kRC = kPreTY + 18;                     // blurred     (-9, -9)
+constexpr int kCD = kPreTX + 8, kSD = kCD + 1;       // mean rows   (-9, -4)
+constexpr int kRE = kPreTY + 8;                      // binary bits (-4, -4)
+constexpr int kNW = (kCD + 31) / 32;                 // words per bit row
+constexpr int kOffB = kRA * kCA;                     // u16 blur rows after gray
+constexpr int kOffC = (kOffB + kRA * kCB * 2 > kRC * kSD * 4)
+                          ? kOffB + kRA * kCB * 2 : kRC * kSD * 4;
+constexpr int kOffE = kOffC + kRC * kCB;
+constexpr int kPreSmem = kOffE + 2 * kRE * kNW * 4;
+static_assert(kOffB % 2 == 0 && kOffC % 4 == 0 && kOffE % 4 == 0,
+              "shared buffers misaligned");
+
+__device__ __forceinline__ bool inside(int i, int n) {
+  return i >= 0 && i < n;
+}
+
+__global__ void __launch_bounds__(kPreThreads)
+k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
+             uint8_t* binary) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* A = smem;                                       // gray
+  uint16_t* Bh = reinterpret_cast<uint16_t*>(smem + kOffB);  // blur rows
+  float* D = reinterpret_cast<float*>(smem);               // mean rows (over A, B)
+  uint8_t* C = smem + kOffC;                               // blurred
+  uint32_t* E = reinterpret_cast<uint32_t*>(smem + kOffE); // 2 bit planes
+  const int b = blockIdx.z, y0 = blockIdx.y * kPreTY, x0 = blockIdx.x * kPreTX;
+  const int ty = min(kPreTY, H - y0), tx = min(kPreTX, W - x0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = kPreThreads / 32;
+  const long long HW = (long long)H * W, obase = b * HW;
+
+  // 1. gray of the tile and its halo; the tile's own gray goes out.
+  for (int r = warp; r < kRA; r += warps) {
+    int gy = y0 - 11 + r;
+    if (!inside(gy, H)) continue;
+    for (int c = lane; c < kCA; c += 32) {
+      int gx = x0 - 11 + c;
+      if (!inside(gx, W)) continue;
+      long long p = (long long)gy * W + gx;
+      int v = gray_at(f, b, p);
+      A[r * kCA + c] = (uint8_t)v;
+      if (inside(r - 11, ty) && inside(c - 11, tx)) gray_out[obase + p] = v;
+    }
+  }
+  __syncthreads();
+
+  // 2. the blur's row pass (lane = row, a run of kRun columns).
+  {
+    constexpr int runs = (kCB + kRun - 1) / kRun, groups = (kRA + 31) / 32;
+    for (int task = warp; task < runs * groups; task += warps) {
+      int r = task / runs * 32 + lane, c0 = task % runs * kRun;
+      int gy = y0 - 11 + r, gx0 = x0 - 9 + c0;
+      if (r >= kRA || !inside(gy, H)) continue;
+      int v[kRun + 4];
+#pragma unroll
+      for (int k = 0; k < kRun + 4; ++k) {
+        int src = reflect101(gx0 + k - 2, W) - (x0 - 11);
+        v[k] = inside(src, kCA) ? A[r * kCA + src] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        int c = c0 + j;
+        if (c >= kCB || !inside(gx0 + j, W)) continue;
+        int s = 0;
+#pragma unroll
+        for (int i = 0; i < 5; ++i) s += t.q8[i] * v[j + i];
+        Bh[r * kCB + c] = (uint16_t)s;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. the blur's column pass (lane = column, a run of kRun rows).
+  {
+    constexpr int runs = (kRC + kRun - 1) / kRun, groups = (kCB + 31) / 32;
+    for (int task = warp; task < runs * groups; task += warps) {
+      int c = task / runs * 32 + lane, r0 = task % runs * kRun;
+      int gx = x0 - 9 + c, gy0 = y0 - 9 + r0;
+      if (c >= kCB || !inside(gx, W)) continue;
+      int v[kRun + 4];
+#pragma unroll
+      for (int k = 0; k < kRun + 4; ++k) {
+        int src = reflect101(gy0 + k - 2, H) - (y0 - 11);
+        v[k] = inside(src, kRA) ? Bh[src * kCB + c] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        int r = r0 + j;
+        if (r >= kRC || !inside(gy0 + j, H)) continue;
+        int s = 0;
+#pragma unroll
+        for (int i = 0; i < 5; ++i) s += t.q8[i] * v[j + i];
+        C[r * kCB + c] = (uint8_t)clampi((s + (1 << 15)) >> 16, 0, 255);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. the mean's row pass (lane = row, a run of kRun columns), over the
+  //    gray and blur-row buffers, which are no longer read.
+  {
+    constexpr int runs = (kCD + kRun - 1) / kRun, groups = (kRC + 31) / 32;
+    for (int task = warp; task < runs * groups; task += warps) {
+      int r = task / runs * 32 + lane, c0 = task % runs * kRun;
+      int gy = y0 - 9 + r, gx0 = x0 - 4 + c0;
+      if (r >= kRC || !inside(gy, H)) continue;
+      float v[kRun + 10];
+#pragma unroll
+      for (int k = 0; k < kRun + 10; ++k) {
+        int src = clampi(gx0 + k - 5, 0, W - 1) - (x0 - 9);
+        v[k] = inside(src, kCB) ? (float)C[r * kCB + src] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        int c = c0 + j;
+        if (c >= kCD || !inside(gx0 + j, W)) continue;
+        float s = __fmul_rn(t.k11[0], v[j]);
+#pragma unroll
+        for (int i = 1; i < 11; ++i)
+          s = __fadd_rn(s, __fmul_rn(t.k11[i], v[j + i]));
+        D[r * kSD + c] = s;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 5. the mean's column pass and the INV threshold (lane = column, a run
+  //    of kRun rows), ballotted into bit words; outside the frame a bit is 1,
+  //    the erode's neutral value.
+  {
+    constexpr int runs = (kRE + kRun - 1) / kRun;
+    for (int task = warp; task < runs * kNW; task += warps) {
+      int g = task / runs, r0 = task % runs * kRun, c = g * 32 + lane;
+      int gx = x0 - 4 + c, gy0 = y0 - 4 + r0;
+      bool col = c < kCD && inside(gx, W);
+      float v[kRun + 10];
+#pragma unroll
+      for (int k = 0; k < kRun + 10; ++k) {
+        int src = clampi(gy0 + k - 5, 0, H - 1) - (y0 - 9);
+        v[k] = col && inside(src, kRC) ? D[src * kSD + c] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        int r = r0 + j;
+        if (r >= kRE) break;                 // uniform over the warp
+        bool bit = true;
+        if (col && inside(gy0 + j, H)) {
+          float s = __fmul_rn(t.k11[0], v[j]);
+#pragma unroll
+          for (int i = 1; i < 11; ++i)
+            s = __fadd_rn(s, __fmul_rn(t.k11[i], v[j + i]));
+          bit = (int)C[(r + 5) * kCB + c + 5] <= __float2int_rn(s) - ct;
+        }
+        unsigned word = __ballot_sync(kFull, bit);
+        if (lane == 0) E[r * kNW + g] = word;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 6. open (erode, dilate) and close (dilate, erode) on the bit words; after
+  //    each pass the positions outside the frame take the next pass's
+  //    neutral value (1 before an erode, 0 before a dilate).
+#pragma unroll
+  for (int pass = 0; pass < 4; ++pass) {
+    const bool erode = pass == 0 || pass == 3;
+    const uint32_t fill = erode ? kFull : 0u;
+    const uint32_t next_neutral = pass == 2 ? kFull : 0u;
+    const uint32_t* in = E + (pass & 1) * kRE * kNW;
+    uint32_t* out = E + ((pass + 1) & 1) * kRE * kNW;
+    for (int k = threadIdx.x; k < kRE * kNW; k += kPreThreads) {
+      int r = k / kNW, w = k % kNW;
+      uint32_t acc = fill;
+      for (int dy = -1; dy <= 1; ++dy) {
+        int rr = r + dy;
+        uint32_t x = fill, prev = fill, next = fill;
+        if (inside(rr, kRE)) {
+          x = in[rr * kNW + w];
+          if (w > 0) prev = in[rr * kNW + w - 1];
+          if (w < kNW - 1) next = in[rr * kNW + w + 1];
+        }
+        uint32_t left = (x << 1) | (prev >> 31);
+        uint32_t right = (x >> 1) | (next << 31);
+        uint32_t h = erode ? (x & left & right) : (x | left | right);
+        acc = erode ? (acc & h) : (acc | h);
+      }
+      // in-frame columns of this word, and whether its row is in the frame
+      int gx = x0 - 4 + w * 32, gy = y0 - 4 + r;
+      uint32_t cols = 0;
+      if (inside(gy, H)) {
+        int lo = max(0, -gx), hi = min(32, min(W - gx, kCD - w * 32));
+        if (hi > lo)
+          cols = (hi - lo == 32 ? kFull : ((1u << (hi - lo)) - 1u)) << lo;
+      }
+      out[k] = (acc & cols) | (next_neutral & ~cols);
+    }
+    __syncthreads();
+  }
+
+  // 7. the tile's binary plane (0/1) goes out.
+  for (int r = warp; r < ty; r += warps)
+    for (int c = lane; c < tx; c += 32) {
+      int cc = c + 4;
+      uint32_t word = E[(r + 4) * kNW + cc / 32];
+      binary[obase + (long long)(y0 + r) * W + x0 + c] = (word >> (cc % 32)) & 1u;
+    }
+}
+
 }  // namespace
 
 // Runs the whole detect on `stream`.  Scratch planes are [B, H, W]:
@@ -448,24 +687,24 @@ extern "C" int hd_fused_detect(
 extern "C" int hd_fused_detect_launches() { return 17; }
 
 // The preprocess stages of hd_fused_detect alone, for frames of any size
-// (the band-tiled route of heimdall_tpu_torch/ops/ccl_tiled.py takes over
-// from the closed mask): gray u8 [B, H, W] and the closed binary plane
-// binary u8 [B, H, W] (0/1).  Scratch: work int32 [B, H, W] (also used as
-// float32), plane1/plane2 u8 [B, H, W].  Returns the first CUDA error.
-extern "C" int hd_preprocess(
-    const uint8_t* frames, int B, int H, int W, int C, long long cstride,
-    long long pstride, int ct, const int* q8, const float* k11,
-    uint8_t* gray, uint8_t* plane1, uint8_t* plane2, int32_t* work,
-    uint8_t* binary, void* stream) {
+// (the 2 MP routes take over from the closed mask): gray u8 [B, H, W] and
+// the closed binary plane binary u8 [B, H, W] (0/1), in one launch
+// (k_preprocess, above).  H, W >= 3.  Returns the first CUDA error.
+extern "C" int hd_preprocess(const uint8_t* frames, int B, int H, int W,
+                             int C, long long cstride, long long pstride,
+                             int ct, const int* q8, const float* k11,
+                             uint8_t* gray, uint8_t* binary, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  Geom g{H, W, (long long)H * W, H, 1};
-  Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
-  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, kCcl, gray, plane1,
-                                   plane2, work, st);
-  if (err) return err;
-  dim3 blk(kTileW, kTileH);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  k_morph<<<grid, blk, 0, st>>>(g, plane1, binary, 1);   // close: erode
+  Taps t;
+  memcpy(t.q8, q8, sizeof(t.q8));
+  memcpy(t.k11, k11, sizeof(t.k11));
+  Frames f{frames, C, (long long)C * H * W, cstride, pstride};
+  cudaError_t e = cudaFuncSetAttribute(
+      k_preprocess, cudaFuncAttributeMaxDynamicSharedMemorySize, kPreSmem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((W + kPreTX - 1) / kPreTX, (H + kPreTY - 1) / kPreTY, B);
+  k_preprocess<<<grid, kPreThreads, kPreSmem, st>>>(f, H, W, t, ct, gray,
+                                                    binary);
   HD_CHECK();
   return 0;
 }

@@ -34,7 +34,7 @@ SIGNATURES = {
                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
         "hd_fused_detect_launches": [],
         "hd_preprocess": [_P, _I, _I, _I, _I, _LL, _LL, _I, _P, _P, _P, _P,
-                          _P, _P, _P, _P],
+                          _P],
         "hd_label": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
         "hd_label_launches": [_I],
         "hd_stats_from_labels": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
@@ -42,7 +42,8 @@ SIGNATURES = {
         "hd_stats_from_labels_launches": [],
     },
     "ccl_tiled": {
-        "hd_flood_fill": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+        "hd_flood_fill": [_P, _I, _I, _I, _P, _P, _P, _P],
+        "hd_flood_entries": [_I, _I],
         "hd_band_ccl": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "hd_merge_bands": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P],

@@ -19,7 +19,9 @@ Three wrappers carry the work, each launching the hand-written kernels of
 running its plain PyTorch version on a CPU tensor:
 
 * ``flood_fill`` (TPU kernel B5b and its round loop): the filled mask, by
-  one background union-find over the frame — no rounds, no host sync;
+  a block union-find — tiles labelled in shared memory, their perimeter
+  components merged in a small per-frame table (no plane of scratch), no
+  rounds, no host sync;
 * ``band_ccl`` (B5a): labels within bands of ``band`` rows, with global
   indices, and each band's first ``roots_cap`` roots and root count;
 * ``merge_bands`` (the XLA merge between the TPU kernels): joins the bands
@@ -67,11 +69,12 @@ def flood_fill(mask: torch.Tensor, active=None, out=None) -> torch.Tensor:
     check_cuda(mask, "mask", (torch.bool, torch.uint8))
     check_cuda(filled, "out", (torch.bool,), (B, H, W))
     flags, act = active_ptr(active, B)
-    parent, reach = alloc(mask.device, ((B, H, W), torch.int32),
-                          ((B, H, W), torch.uint8))
-    raise_on(_cuda.library("ccl_tiled").hd_flood_fill(
-        mask.data_ptr(), B, H, W, act, parent.data_ptr(), reach.data_ptr(),
-        filled.data_ptr(), stream(mask)), "flood_fill")
+    lib = _cuda.library("ccl_tiled")
+    table, = alloc(mask.device, ((B, lib.hd_flood_entries(H, W)),
+                                 torch.int32))
+    raise_on(lib.hd_flood_fill(mask.data_ptr(), B, H, W, act,
+                               table.data_ptr(), filled.data_ptr(),
+                               stream(mask)), "flood_fill")
     flood_fill.launches += 1
     return filled
 

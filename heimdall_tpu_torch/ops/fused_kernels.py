@@ -76,7 +76,9 @@ def preprocess_stage(gray: torch.Tensor, contrast_threshold,
     """Blur, INV threshold, open and close of a gray batch, up to ``stage``:
     "blur5" (the Q8 blur, u8), "mean11" (the threshold of the f32 mean11,
     u8 0/255) or "pre" (the opened and closed mask, u8 1 = foreground)."""
-    blurred = gaussian_blur(gray, 5, 0)
+    # one channel: gaussian_blur takes a last axis of 1, 3 or 4 for colour,
+    # which a gray batch of that width is not
+    blurred = gaussian_blur(gray[..., None], 5, 0)[..., 0]
     if stage == "blur5":
         return blurred
     binary = adaptive_threshold(blurred, 255, "gaussian", "binary_inv", 11,
@@ -108,8 +110,9 @@ def preprocess(frames: torch.Tensor, contrast_threshold,
     """The fused kernel's preprocess stages alone, for frames of any size:
     (gray u8 [B,H,W], closed binary u8 [B,H,W], 1 = foreground).
 
-    On a CUDA tensor this launches hd_preprocess of csrc/fused_detect.cu
-    (and raises if it cannot); on a CPU tensor it runs the plain version.
+    On a CUDA tensor this launches hd_preprocess of csrc/fused_detect.cu,
+    one pass over shared-memory tiles with no scratch plane (and raises if
+    it cannot); on a CPU tensor it runs the plain version.
     ``preprocess.launches`` counts kernel launches."""
     if frames.device.type == "cpu":
         return preprocess_reference(frames, contrast_threshold, channel_major)
@@ -122,16 +125,12 @@ def preprocess(frames: torch.Tensor, contrast_threshold,
         raise ValueError("frames must be contiguous")
     if not (3 <= H and 3 <= W and 1 <= B <= 65535 and H * W < 2**31):
         raise ValueError(f"unsupported shape B={B} H={H} W={W}")
-    u8 = torch.uint8
-    gray, plane1, plane2, binary = (
-        torch.empty((B, H, W), dtype=u8, device=frames.device)
-        for _ in range(4))
-    work = torch.empty((B, H, W), dtype=torch.int32, device=frames.device)
+    gray, binary = (torch.empty((B, H, W), dtype=torch.uint8,
+                                device=frames.device) for _ in range(2))
     q8, k11 = kernel_taps()
     err = _cuda.library("fused_detect").hd_preprocess(
         frames.data_ptr(), B, H, W, C, cstride, pstride,
-        int(contrast_threshold), q8, k11, gray.data_ptr(), plane1.data_ptr(),
-        plane2.data_ptr(), work.data_ptr(), binary.data_ptr(),
+        int(contrast_threshold), q8, k11, gray.data_ptr(), binary.data_ptr(),
         torch.cuda.current_stream(frames.device).cuda_stream)
     if err:
         raise RuntimeError(

@@ -157,3 +157,117 @@ def check_runtable_masks(h=96, w=128):
     cases["empty"] = np.zeros((h, w), np.uint8)
     cases["full"] = np.ones((h, w), np.uint8)
     return cases
+
+
+# The hole-fill kernel's tile (rows, columns); the one-pass preprocess's
+# tiles (64 x 128) have their corners among these.
+FILL_TILE = (32, 128)
+# Frame sizes that cut tiles or are smaller than a tile or the preprocess's
+# 11-pixel halo.
+TILE_CASE_SIZES = ((3, 3), (3, 1920), (1080, 3), (13, 17), (1037, 1531))
+
+
+def _spiral_corridor(h, w, open_to_border):
+    """All foreground but a one-pixel background corridor that winds from
+    (1, 1) inward in a square spiral, walls one pixel thick; with
+    open_to_border it starts at the frame's left edge."""
+    m = np.ones((h, w), bool)
+    if h < 3 or w < 3:
+        return m
+    y, x = 1, 1
+    m[y, x] = False
+    dirs = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    d, turns = 0, 0
+    while turns < 4:
+        dy, dx = dirs[d]
+        ny, nx = y + 2 * dy, x + 2 * dx
+        if 1 <= ny <= h - 2 and 1 <= nx <= w - 2 and m[ny, nx]:
+            m[y + dy, x + dx] = m[ny, nx] = False
+            y, x, turns = ny, nx, 0
+        else:
+            d, turns = (d + 1) % 4, turns + 1
+    if open_to_border:
+        m[1, 0] = False
+    return m
+
+
+def _snake_corridor(h, w, tile, open_to_border):
+    """All foreground but a one-pixel background corridor that runs along
+    every horizontal tile edge (rows Y - 1 and Y), stepping from one side of
+    the edge to the other at every tile column edge X, through the corner
+    (Y - 1, X - 1), (Y - 1, X), (Y, X); the edges are joined in a serpentine
+    at columns 1 and w - 2.  With open_to_border it starts at the frame's
+    left edge."""
+    th, tw = tile
+    m = np.ones((h, w), bool)
+    if h < 3 or w < 3:
+        return m
+    edges = [y for y in range(th, h - 1, th)] or [h // 2]
+    prev_end = None
+    for k, Y in enumerate(edges):
+        row = Y - 1 if Y >= 1 else Y
+        xs = range(1, w - 1) if k % 2 == 0 else range(w - 2, 0, -1)
+        start = xs[0]
+        if prev_end is not None:        # the serpentine's vertical connector
+            m[prev_end[0]:row + 1, start] = False
+        for x in xs:
+            m[row, x] = False
+            if x % tw == 0 and x not in (1, w - 2) and Y < h - 1:
+                nxt = row + 1 if row == Y - 1 else row - 1
+                m[nxt, x] = False
+                row = nxt
+        prev_end = (row, xs[-1])
+    if open_to_border:
+        m[edges[0] - 1 if edges[0] >= 1 else edges[0], 0] = False
+    return m
+
+
+def _diagonal_corners(h, w, tile):
+    """All foreground but, at every interior tile corner (Y, X), the two
+    background pixels (Y - 1, X - 1) and (Y, X), which touch only
+    diagonally; at the first row of corners the first of the two is joined
+    to the top edge by a corridor up column X - 1, so the second must stay
+    a hole under 4-connectivity."""
+    th, tw = tile
+    m = np.ones((h, w), bool)
+    for Y in range(th, h - 1, th):
+        for X in range(tw, w - 1, tw):
+            m[Y - 1, X - 1] = m[Y, X] = False
+            if Y == th:
+                m[:Y, X - 1] = False
+    return m
+
+
+def tile_case_masks(h, w, seed=0, tile=FILL_TILE):
+    """Masks that attack the tiles of the hole fill, bool [h, w] by name
+    (True = foreground): a background spiral corridor, closed and open to
+    the border; a one-pixel corridor snaking across every tile edge and
+    corner, closed and open; background pixels meeting at tile corners only
+    diagonally; all foreground; all background; and uniform noise."""
+    rng = np.random.RandomState(seed)
+    return {
+        "spiral_closed": _spiral_corridor(h, w, False),
+        "spiral_open": _spiral_corridor(h, w, True),
+        "snake_closed": _snake_corridor(h, w, tile, False),
+        "snake_open": _snake_corridor(h, w, tile, True),
+        "diagonal_corners": _diagonal_corners(h, w, tile),
+        "all_fg": np.ones((h, w), bool),
+        "all_bg": np.zeros((h, w), bool),
+        "noise": rng.rand(h, w) < 0.5,
+    }
+
+
+def tile_case_frames(h, w, seed=0, tile=FILL_TILE):
+    """BGR frames u8 [h, w, 3] that attack the preprocess's tiles, by name:
+    uniform noise (the threshold flips most often), a uniform gray frame
+    (all background at contrast 15, all foreground at contrast -15), and
+    the spiral, snake and corner masks of tile_case_masks drawn dark on
+    light."""
+    rng = np.random.RandomState(seed)
+    masks = tile_case_masks(h, w, seed, tile)
+    names = ("spiral_open", "snake_closed", "diagonal_corners")
+    drawn = mask_frames([masks[n] for n in names])
+    out = {"noise": rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
+           "uniform": np.full((h, w, 3), 128, np.uint8)}
+    out.update(zip(names, drawn))
+    return out

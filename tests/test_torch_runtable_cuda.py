@@ -146,3 +146,41 @@ def test_runtable_route_equals_band_route_at_2mp(card, form):
         assert torch.equal(getattr(tables[0], f), getattr(bands[0], f)), f
     for a, b in zip(tables[1:], bands[1:]):
         assert torch.equal(a, b)
+
+
+# The cases that attack the tiles (scene.tile_case_masks / tile_case_frames;
+# tests/test_torch_tile_cases.py holds the plain versions against JAX).
+TILE_SIZES = [(96, 160), (301, 517), *scene.TILE_CASE_SIZES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", TILE_SIZES)
+def test_route_tile_cases_equal_band_route(card, size):
+    """The run-table route with its per-frame fallback to the flood fill,
+    on every tile case, against the band route and the CPU path."""
+    masks = torch.from_numpy(np.stack(
+        list(scene.tile_case_masks(*size).values()))).to(card)
+    got = rt.fill_label_runtable_tiled(masks, 16, max_blobs=64, r_bg=8,
+                                       r_fg=7)
+    filled = ccl_tiled.fill_holes_tiled(masks, band=16)
+    _equal((filled,), (ccl_tiled.flood_reference(masks),))
+    want = ccl_tiled.connected_components_tiled(
+        filled, band=16, return_roots=64, band_slots=True)
+    _equal(got, (filled,) + want)
+    cpu = rt.fill_label_runtable_tiled(masks.cpu(), 16, max_blobs=64,
+                                       r_bg=8, r_fg=7)
+    _equal([t.cpu() for t in got], cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", TILE_SIZES)
+@pytest.mark.parametrize("form", ["bgr", "bgr_planes"])
+def test_preprocess_tiled_tile_cases(card, size, form):
+    frames = np.stack(list(scene.tile_case_frames(*size).values()))
+    cm = form == "bgr_planes"
+    x = torch.from_numpy(np.ascontiguousarray(
+        frames.transpose(0, 3, 1, 2) if cm else frames)).to(card)
+    for ct in (15, -15):
+        _equal(preprocess_tiled.contamination_preprocess_tiled(x, ct, cm, 8),
+               preprocess_tiled.contamination_preprocess_tiled_reference(
+                   x, ct, cm, 8))

@@ -90,3 +90,48 @@ def test_tiled_route_on_card_equals_cpu_path(card, form):
         assert torch.equal(getattr(gpu[0], f).cpu(), getattr(cpu[0], f)), f
     for a, b in zip(gpu[1:], cpu[1:]):
         assert torch.equal(a.cpu(), b)
+
+
+# The cases that attack the tiles (scene.tile_case_masks / tile_case_frames;
+# tests/test_torch_tile_cases.py holds the plain versions against JAX).
+TILE_SIZES = [(96, 160), (301, 517), *scene.TILE_CASE_SIZES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", TILE_SIZES)
+def test_flood_fill_tile_cases(card, size):
+    masks = np.stack(list(scene.tile_case_masks(*size).values()))
+    for x in (torch.from_numpy(masks).to(card),
+              torch.from_numpy(masks.astype(np.uint8) * 255).to(card)):
+        _equal((ccl_tiled.flood_fill(x),), (ccl_tiled.flood_reference(x),))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_flood_fill_leaves_skipped_frames_untouched(card):
+    masks = torch.from_numpy(np.stack(
+        list(scene.tile_case_masks(1037, 1531).values()))).to(card)
+    B = masks.shape[0]
+    active = torch.arange(B, device=card) % 3 != 1
+    sentinel = torch.from_numpy(
+        np.random.RandomState(7).rand(*masks.shape) < 0.5).to(card)
+    out = sentinel.clone()
+    ccl_tiled.flood_fill(masks, active=active, out=out)
+    torch.cuda.synchronize()
+    want = ccl_tiled.flood_reference(masks)
+    assert torch.equal(out[active], want[active])
+    assert torch.equal(out[~active], sentinel[~active])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", TILE_SIZES)
+@pytest.mark.parametrize("form", ["mono8", "bgr", "bgr_planes"])
+def test_preprocess_tile_cases(card, size, form):
+    frames = np.stack(list(scene.tile_case_frames(*size).values()))
+    x, cm = {"mono8": (frames[..., 1], False), "bgr": (frames, False),
+             "bgr_planes": (frames.transpose(0, 3, 1, 2), True)}[form]
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(card)
+    for ct in (15, -15):
+        _equal(fused_kernels.preprocess(x, ct, cm),
+               fused_kernels.preprocess_reference(x, ct, cm))
+    torch.cuda.synchronize()
