@@ -129,11 +129,14 @@ ODD_2MP = (1037, 1531)        # a height that is not a multiple of the band
 RT_BG, RT_FG = 8, 7           # the detector's run-table widths
 # Published peaks of one H100 SXM (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 # float operations per pixel of the f32 mean11: 11 multiplies and 10 adds
-# per pass, 2 passes (counted as 44)
+# per pass, 2 passes (counted as 44).  The kernels are built with
+# -fmad=false, so each __fmul_rn and __fadd_rn is one instruction on an
+# SM's 128 FP32 lanes: the bound divides them by 132 x 128 x clocks.max.sm
+# (fp32_ops_per_s), not by the 67 TFLOP/s peak, which counts an FMA as two.
 MEAN_FLOPS_PER_PX = 44
+FP32_LANES_PER_SM = 128
 # TF32 operations per pixel of mxu_conv's band products: per 16 x 8 tile of
 # out, 3 k tiles x 2 splits in the row pass and 4 x 3 in the column pass,
 # each 16 x 8 x 8 multiply-adds
@@ -193,6 +196,40 @@ def max_abs_err(got, want):
             err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
                                .abs().max()))
     return err
+
+
+def clocks_max_sm_mhz():
+    """The card's clocks.max.sm, as nvidia-smi reports it."""
+    if not hasattr(clocks_max_sm_mhz, "mhz"):
+        clocks_max_sm_mhz.mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], check=True,
+            capture_output=True, text=True).stdout.split()[0])
+    return clocks_max_sm_mhz.mhz
+
+
+def fp32_ops_per_s():
+    """Uncontracted float operations a second: one a lane and clock."""
+    return H100_SMS * FP32_LANES_PER_SM * clocks_max_sm_mhz() * 1e6
+
+
+def mean_ops_ms(px):
+    """The f32 mean11's operation bound in ms for px pixels."""
+    return px * MEAN_FLOPS_PER_PX / fp32_ops_per_s() * 1e3
+
+
+def host_ms(fn, iters=5):
+    """Mean host milliseconds until fn() returns, its work queued but not
+    waited for (each call starts on an idle card; no profiler)."""
+    import torch
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / iters * 1e3
 
 
 def cuda_ms_only(setup, fn, iters):
@@ -256,6 +293,62 @@ def check_tiled(name, x, channel_major, k, band, mask=None):
     return max(errs.values())
 
 
+def check_tile_cases(dev):
+    """Phase 3b's cases that attack the tiles: the hole fill and the
+    preprocess against their plain versions on scene.tile_case_masks and
+    tile_case_frames (contrast 15 and -15; Mono8, BGR and BGR planes) at
+    the frame sizes that cut tiles and at 1920x1080; and the fill of a
+    batch with active flags mixed, whose skipped frames must keep their
+    prefilled outputs.  Returns the largest error (0 or the run fails)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    err = 0
+    for h, w in scene.TILE_CASE_SIZES + ((H2, W2),):
+        masks = on(np.stack(list(scene.tile_case_masks(h, w).values())))
+        u8 = masks.to(torch.uint8) * 255
+        errs = {"flood_fill": max_abs_err((ct.flood_fill(masks),),
+                                          (ct.flood_reference(masks),)),
+                "flood_fill_u8": max_abs_err((ct.flood_fill(u8),),
+                                             (ct.flood_reference(u8),))}
+        frames = np.stack(list(scene.tile_case_frames(h, w).values()))
+        for form, (x, cm) in {
+                "mono8": (frames[..., 1], False), "bgr": (frames, False),
+                "bgr_planes": (frames.transpose(0, 3, 1, 2), True)}.items():
+            x = on(x)
+            for c in (CONTRAST, -CONTRAST):
+                errs[f"preprocess_{form}_{c}"] = max_abs_err(
+                    fk.preprocess(x, c, cm), fk.preprocess_reference(x, c,
+                                                                    cm))
+        torch.cuda.synchronize()
+        phase(f"check 2MP tile cases {h}x{w} ({len(masks)} masks, "
+              f"{len(frames)} frames): max_abs_err {errs}")
+        err = max(err, *errs.values())
+    masks = on(np.stack(list(scene.tile_case_masks(*ODD_2MP).values())))
+    active = torch.arange(len(masks), device=dev) % 3 != 1
+    sentinel = on(np.random.RandomState(7).rand(*masks.shape) < 0.5)
+    out = sentinel.clone()
+    ct.flood_fill(masks, active=active, out=out)
+    torch.cuda.synchronize()
+    skip_err = max(
+        max_abs_err((out[active],), (ct.flood_reference(masks)[active],)),
+        max_abs_err((out[~active],), (sentinel[~active],)))
+    phase(f"check 2MP tile cases: flood fill with active "
+          f"{active.tolist()}, skipped frames prefilled: max_abs_err "
+          f"{skip_err}")
+    err = max(err, skip_err)
+    if err:
+        fail("a redesigned kernel differs from its plain version on the "
+             "tile cases")
+    return err
+
+
 def tiled_phases(dev, smi, argv):
     """Phases 3b, 4b and 5 of the band-tiled 2 MP route; returns
     (largest check error, {kernel: launches}, {kernel: timings})."""
@@ -293,6 +386,7 @@ def tiled_phases(dev, smi, argv):
             ("adversarial_masks_k4", on(adv[..., 0]), False, 4, adv_masks),
             ("bench2_odd_mono8", on(odd[..., 2]), False, K, None)):
         err = max(err, check_tiled(name, x, cm, k, band, mask))
+    err = max(err, check_tile_cases(dev))
 
     # -- 4b. the 2 MP main path --------------------------------------------
     frames = scene.make_frames(BATCH_2MP, H2, W2, seed=2)
@@ -396,8 +490,7 @@ def tiled_phases(dev, smi, argv):
         torch.cuda.synchronize()
         plain_ms = cuda_ms(pfn, 1)
         bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = (px * MEAN_FLOPS_PER_PX / F32_FLOPS_PER_S * 1e3
-                  if name == "preprocess" else 0.0)
+        ops_ms = mean_ops_ms(px) if name == "preprocess" else 0.0
         timings[name] = dict(ms=ms, plain_ms=plain_ms,
                              bound_ms=max(bytes_ms, ops_ms),
                              bound_by="bytes" if bytes_ms >= ops_ms
@@ -405,7 +498,8 @@ def tiled_phases(dev, smi, argv):
         phase(f"{smi}: {name} {ms:.4f} ms per {TIME_BATCH_2MP} frames of "
               f"1920x1080 Mono8 ({ms / TIME_BATCH_2MP * 1e3:.3f} us/frame); "
               f"plain version {plain_ms:.2f} ms; bound "
-              f"{timings[name]['bound_ms']:.4f} ms ({moved[name]} bytes)")
+              f"{timings[name]['bound_ms']:.4f} ms (by "
+              f"{timings[name]['bound_by']}; {moved[name]} bytes)")
 
     det.run_device(x)
     torch.cuda.synchronize()
@@ -414,8 +508,12 @@ def tiled_phases(dev, smi, argv):
         det.run_device(x)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / 5
+    host = host_ms(lambda: det.run_device(x))
+    e2e = {"2mp_mono8": {"ms": dt * 1e3, "host_ms": host}}
     phase(f"{smi}: main path 2MP mono8 end to end {dt * 1e3:.3f} ms per "
-          f"batch of {BATCH_2MP} = {BATCH_2MP / dt:.1f} frames/s")
+          f"batch of {BATCH_2MP} = {BATCH_2MP / dt:.1f} frames/s; host "
+          f"time per run_device call (returned, before the sync) "
+          f"{host:.3f} ms")
 
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
@@ -432,7 +530,7 @@ def tiled_phases(dev, smi, argv):
             fh.write(f"{smi}\n3 x run_device, 1920x1080 Mono8, batch "
                      f"{BATCH_2MP}\n{text}\n")
         phase(f"profile: {out_dir}/tiled_2mp_profile.txt")
-    return err, launches, timings
+    return err, launches, timings, e2e
 
 
 def runtable_stages(x, channel_major, k, band, mask=None, plain=False):
@@ -547,6 +645,13 @@ def runtable_phases(dev, smi, argv):
             ("guards_mixed_batch", None, False, K, on(guards)),
             ("bench2_odd_bgr", on(odd), False, K, None)):
         err = max(err, check_runtable(name, x, cm, k, band, mask))
+    for h, w in scene.TILE_CASE_SIZES + ((H2, W2),):    # the tile cases
+        tm = np.stack(list(scene.tile_case_masks(h, w).values()))
+        tf = np.stack(list(scene.tile_case_frames(h, w).values()))
+        err = max(err, check_runtable(f"tile_case_masks_{h}x{w}", None,
+                                      False, K, band, on(tm)),
+                  check_runtable(f"tile_case_frames_{h}x{w}", on(tf), False,
+                                 K, band))
 
     # -- 4c. the BGR 2 MP main path ----------------------------------------
     frames = scene.make_frames(BATCH_2MP, H2, W2, seed=2)
@@ -647,8 +752,7 @@ def runtable_phases(dev, smi, argv):
         torch.cuda.synchronize()
         plain_ms = cuda_ms(pfn, 1)
         bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = (px * MEAN_FLOPS_PER_PX / F32_FLOPS_PER_S * 1e3
-                  if name == "preprocess_tiled" else 0.0)
+        ops_ms = mean_ops_ms(px) if name == "preprocess_tiled" else 0.0
         timings[name] = dict(ms=ms, plain_ms=plain_ms,
                              bound_ms=max(bytes_ms, ops_ms),
                              bound_by="bytes" if bytes_ms >= ops_ms
@@ -656,7 +760,7 @@ def runtable_phases(dev, smi, argv):
         phase(f"{smi}: {name} {ms:.4f} ms per {n} frames of 1920x1080 BGR "
               f"({ms / n * 1e3:.3f} us/frame); plain version "
               f"{plain_ms:.2f} ms; bound {timings[name]['bound_ms']:.4f} ms "
-              f"({moved[name]} bytes)")
+              f"(by {timings[name]['bound_by']}; {moved[name]} bytes)")
 
     def band_route(xe):
         return contamination_program(xe, CONTRAST, 10.0, 3000.0, 0.25,
@@ -679,16 +783,18 @@ def runtable_phases(dev, smi, argv):
     phase(f"mixed batch 2MP BGR: frames on the run tables {n_mixed}, on the "
           f"band route {BATCH_2MP - n_mixed}; table, confidence and gates "
           f"equal to the band route's")
-    for label, fn in (
-            ("bench, run tables (run_device)",
+    e2e = {}
+    for key, label, fn in (
+            ("2mp_bgr_runtable", "bench, run tables (run_device)",
              lambda: det.run_device(x, channel_major=True)),
-            ("bench, band route (tiled_runtable=False)",
+            ("2mp_bgr_bands", "bench, band route (tiled_runtable=False)",
              lambda: band_route(x)),
-            (f"mixed ({n_mixed} frames on the tables), run tables "
+            ("2mp_bgr_mixed_runtable",
+             f"mixed ({n_mixed} frames on the tables), run tables "
              f"(run_device)",
              lambda: det.run_device(mixed, channel_major=True)),
-            ("mixed, band route (tiled_runtable=False)",
-             lambda: band_route(mixed))):
+            ("2mp_bgr_mixed_bands", "mixed, band route (tiled_runtable="
+             "False)", lambda: band_route(mixed))):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -696,9 +802,12 @@ def runtable_phases(dev, smi, argv):
             fn()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / 5
+        host = host_ms(fn)
+        e2e[key] = {"ms": dt * 1e3, "host_ms": host}
         phase(f"{smi}: main path 2MP bgr_channel_major {label} end to end "
               f"{dt * 1e3:.3f} ms per batch of {BATCH_2MP} = "
-              f"{BATCH_2MP / dt:.1f} frames/s")
+              f"{BATCH_2MP / dt:.1f} frames/s; host time per call "
+              f"(returned, before the sync) {host:.3f} ms")
     del mixed
 
     if "--profile" in argv:
@@ -717,7 +826,7 @@ def runtable_phases(dev, smi, argv):
             fh.write(f"{smi}\n3 x run_device, 1920x1080 BGR channel-major, "
                      f"batch {BATCH_2MP}\n{text}\n")
         phase(f"profile: {out_dir}/tiled_2mp_bgr_profile.txt")
-    return err, {n: launches[n] for n in new}, timings
+    return err, {n: launches[n] for n in new}, timings, e2e
 
 
 def check_split(name, x, k, ct=CONTRAST):
@@ -851,7 +960,7 @@ def split_phases(dev, smi, cases):
         torch.cuda.synchronize()
         plain_ms = cuda_ms(fn, 1)
         bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = (px * MEAN_FLOPS_PER_PX / F32_FLOPS_PER_S * 1e3
+        ops_ms = (mean_ops_ms(px)
                   if name in ("mean11", "pre", "fill", "ccl") else 0.0)
         timings[name] = dict(
             ms=us[name] * BATCH / 1e3, plain_ms=plain_ms,
@@ -1058,8 +1167,8 @@ def probe_phases(dev, smi, cases, t_roll, roll_launches):
     variants = {"roll_stages": {s: t_roll[s] for s in pv.ROLL_STAGES},
                 "pre_variants": t_var, "fill_sweeps": t_fill}
     bytes_ms = px * 4 / HBM_BYTES_PER_S * 1e3      # frame in, plane out
-    ops_ms = max(px * MEAN_FLOPS_PER_PX / F32_FLOPS_PER_S,
-                 px * MXU_FLOPS_PER_PX / TF32_FLOPS_PER_S) * 1e3
+    ops_ms = max(mean_ops_ms(px),
+                 px * MXU_FLOPS_PER_PX / TF32_FLOPS_PER_S * 1e3)
     replaces = {
         "roll_stages": "scripts/profile_preprocess.py:100",
         "pre_variants": "scripts/profile_pre_variants.py:186",
@@ -1360,10 +1469,7 @@ def primitive_phases(dev, smi):
 
     # -- 5g. bounds, plain versions and library calls --------------------------
     subs = {n: sub for n, _, sub, _ in pr.VARIANTS}
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], check=True, capture_output=True,
-        text=True).stdout.split()[0])
+    mhz = clocks_max_sm_mhz()
     int_ops_per_s = H100_SMS * DISPATCH_LANES_PER_SM * mhz * 1e6
     px = mb.H * mb.W * mb.B
     entries = []
@@ -1537,18 +1643,21 @@ def main(argv):
         det.run_device(x, channel_major=True)
     torch.cuda.synchronize()
     e2e_s = (time.perf_counter() - t0) / 20
+    e2e_host = host_ms(e2e)
     launches_per_call = _cuda.library("fused_detect").hd_fused_detect_launches()
     in_bytes = x.numel()
     out_bytes = BATCH * (8 + 4 + 4) * K * 4 + BATCH * 4
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = BATCH * 480 * 640 * MEAN_FLOPS_PER_PX / F32_FLOPS_PER_S * 1e3
+    ops_ms = mean_ops_ms(BATCH * 480 * 640)
     bound_ms = max(bytes_ms, ops_ms)
     phase(f"{smi}: fused_detect {kern_ms:.4f} ms per batch of {BATCH} "
           f"({kern_ms / BATCH * 1e3:.3f} us/frame, {launches_per_call} "
           f"CUDA launches per call); plain version {plain_ms:.2f} ms "
           f"({plain_ms / BATCH * 1e3:.1f} us/frame); bound {bound_ms:.4f} ms "
           f"({bound_ms / BATCH * 1e3:.3f} us/frame); main path end to end "
-          f"{e2e_s * 1e3:.3f} ms = {BATCH / e2e_s:.1f} frames/s")
+          f"{e2e_s * 1e3:.3f} ms = {BATCH / e2e_s:.1f} frames/s; host time "
+          f"per run_device call (returned, before the sync) "
+          f"{e2e_host:.3f} ms")
 
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
@@ -1567,10 +1676,10 @@ def main(argv):
         phase(f"profile: {out_dir}/fused_detect_profile.txt")
 
     # -- 3b-5 for the band-tiled 2 MP route --------------------------------
-    err2, launches2, times2 = tiled_phases(dev, smi, argv)
+    err2, launches2, times2, e2e2 = tiled_phases(dev, smi, argv)
 
     # -- 3c-5 for the run-table 2 MP route ---------------------------------
-    err3, launches3, times3 = runtable_phases(dev, smi, argv)
+    err3, launches3, times3, e2e3 = runtable_phases(dev, smi, argv)
 
     # -- 3d, 5d: the split kernels and the profiling path --------------------
     split, t_roll, roll_launches = split_phases(dev, smi, cases)
@@ -1652,6 +1761,10 @@ def main(argv):
         labeling + primitives
     print(json.dumps({"path_kernels": [entry("merge_bands"),
                                        entry("preprocess")]}), flush=True)
+    print(json.dumps({"end_to_end": dict(
+        {"640x480x3": {"ms": e2e_s * 1e3, "host_ms": e2e_host}}, **e2e2,
+        **e2e3), "batch": {"640x480x3": BATCH, "2mp": BATCH_2MP},
+        "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

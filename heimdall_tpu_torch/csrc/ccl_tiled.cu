@@ -59,8 +59,9 @@ constexpr int kItems = 8;   // consecutive pixels per thread in root scans
 // Bolelli and Grana, IEEE TPDS 2020; Playne and Hawick, IEEE TPDS 2018):
 // does a background component touch the frame border?  One block takes a
 // tile of kFillTH x kFillTW pixels.  It labels the tile's background,
-// 4-connected, with a union-find in shared memory (parents seeded with
-// warp run starts, atomicMin hooking, then compression).  A component that
+// 4-connected, with a union-find in shared memory (parents seeded with the
+// starts of the rows' runs, one link up per run overlap, atomicMin hooking
+// with path halving).  A component that
 // does not touch the tile's perimeter is a hole.  Each component that does
 // gets one entry in a per-frame table in device memory, indexed by tile and
 // perimeter position (kFillP slots a tile): its representative is the
@@ -72,24 +73,30 @@ constexpr int kItems = 8;   // consecutive pixels per thread in root scans
 // border iff its root is entry 0, so no flag needs carrying.  The write
 // kernel labels its tile again (cheaper than a label plane in device
 // memory) and writes filled = mask | !(root == 0).  Three launches; the
-// table is about 0.65 MB a 1920x1080 frame and stays in L2.
+// table is about 0.65 MB a 1920x1080 frame and stays in L2.  Most tiles of
+// a real frame skip the labeling: a tile all background or all foreground
+// writes its entries directly, and the tile kernel records whether a tile
+// has a hole, so that the write kernel copies the mask of a tile with none
+// whose perimeter components all reach the border.
 
 constexpr int kFillTH = 32, kFillTW = 128;
 constexpr int kFillPx = kFillTH * kFillTW;
 constexpr int kFillP = 2 * kFillTW + 2 * kFillTH;   // perimeter slots
 constexpr int kFillThreads = 256;
 constexpr int kNoRep = 0x7fffffff;
+constexpr int kFillSlots = kFillP + 1;   // the perimeter, then "has a hole"
+constexpr int kNoEntry = -1;             // a slot of no background pixel
 
 struct FillGeom {
   int H, W, tx, ty;      // tiles across and down
-  long long E;           // table entries a frame: 1 + tx * ty * kFillP
+  long long E;           // table entries a frame: 1 + tx * ty * kFillSlots
   const int* active;
 };
 
 inline FillGeom fill_geom(int H, int W, const int* active) {
   FillGeom g{H, W, (W + kFillTW - 1) / kFillTW, (H + kFillTH - 1) / kFillTH,
              0, active};
-  g.E = 1 + (long long)g.tx * g.ty * kFillP;
+  g.E = 1 + (long long)g.tx * g.ty * kFillSlots;
   return g;
 }
 
@@ -102,82 +109,193 @@ __device__ __forceinline__ int perim_pos(int ly, int lx, int th, int tw) {
   return -1;
 }
 
-// Tile pixel of perimeter slot pos in a tile of th x tw, or false if the
-// slot names no pixel of this tile.
-__device__ __forceinline__ bool perim_pixel(int pos, int th, int tw, int* ly,
-                                            int* lx) {
-  if (pos < kFillTW) {
-    *ly = 0, *lx = pos;
-    return pos < tw;
-  }
-  if (pos < 2 * kFillTW) {
-    *ly = th - 1, *lx = pos - kFillTW;
-    return th > 1 && *lx < tw;
-  }
-  int side = (pos - 2 * kFillTW) / kFillTH;
-  *ly = (pos - 2 * kFillTW) % kFillTH;
-  *lx = side == 0 ? 0 : tw - 1;
-  return *ly > 0 && *ly < th - 1 && (side == 0 || tw > 1);
+// Whether perimeter slot pos names a pixel of a tile of th x tw.
+__device__ __forceinline__ bool perim_valid(int pos, int th, int tw) {
+  if (pos < kFillTW) return pos < tw;
+  if (pos < 2 * kFillTW) return th > 1 && pos - kFillTW < tw;
+  int ly = (pos - 2 * kFillTW) % kFillTH;
+  bool right = pos >= 2 * kFillTW + kFillTH;
+  return ly > 0 && ly < th - 1 && (!right || tw > 1);
 }
+
+// Root of x with path halving: each step re-parents x to its grandparent,
+// an ancestor, so finds running at once stay correct and shorten each
+// other's paths.
+__device__ __forceinline__ int find_halving(volatile int32_t* P, int x) {
+  while (true) {
+    int p = P[x];
+    if (p == x) return x;
+    int gp = P[p];
+    if (gp == p) return p;
+    P[x] = gp;
+    x = gp;
+  }
+}
+
+// unite (common.cuh) with path halving in its finds: a halving store
+// re-parents a non-root to an ancestor, and a hook meanwhile carries on
+// from the parent it replaced, so no link is lost.
+__device__ void unite_halving(int32_t* P, int a, int b) {
+  while (true) {
+    a = find_halving(P, a);
+    b = find_halving(P, b);
+    if (a == b) return;
+    if (a > b) {
+      int t = a;
+      a = b;
+      b = t;
+    }
+    int old = atomicMin(&P[b], a);
+    if (old == b) return;
+    b = old;
+  }
+}
+
+constexpr int kFillRows = kFillTH / (kFillThreads / 32);  // rows a warp
+constexpr int kFillCols = kFillTW / 32;                    // words a row
 
 struct FillSmem {
   int parent[kFillPx];   // tile-local union-find over tile indices
   int rep[kFillPx];      // at a root: least perimeter slot of its component
-  uint8_t bg[kFillPx];   // 1 = background pixel of the tile
   uint8_t flag[kFillPx]; // at a root: touches the frame border / reaches it
+  uint32_t bgw[kFillTH][kFillCols];   // background bits of each row
 };
 
-// The tile's background labeling: after it, s.parent[i] is the root of
-// background pixel i, s.rep[root] the component's least perimeter slot
-// (kNoRep: a hole) and s.flag[root] whether it has a pixel on the frame
-// border.  Pixels outside the frame count as foreground.  Every thread of
-// the block calls it.
-__device__ void fill_label_tile(const FillGeom& g, const uint8_t* m, int y0,
-                                int x0, int th, int tw, FillSmem& s) {
+// What a thread keeps of its kFillRows x kFillCols pixels (row warp + 8k,
+// column 32c + lane): background bits (bit k * kFillCols + c) and the
+// column where each pixel's run starts (byte c of start[k]).
+struct FillPixels {
+  int uniform;           // 1: every pixel of the tile is background, 2: none
+  uint32_t bg;
+  uint32_t start[kFillRows];
+  __device__ bool is_bg(int k, int c) const {
+    return bg >> (k * kFillCols + c) & 1u;
+  }
+  __device__ int run_start(int k, int c) const {
+    return start[k] >> (8 * c) & 255u;
+  }
+};
+
+// The tile's background labeling.  After it, for a background pixel (ly,
+// lx) of this thread, s.parent[ly * kFillTW + run start] is its root,
+// s.rep[root] the component's least perimeter slot (kNoRep: a hole) and
+// s.flag[root] whether it has a pixel on the frame border.  Pixels outside
+// the frame count as foreground.  A tile all background or all foreground
+// returns with px.uniform set, unlabelled.  Every thread of the block calls
+// it.
+__device__ FillPixels fill_label_tile(const FillGeom& g, const uint8_t* m,
+                                      int y0, int x0, int th, int tw,
+                                      FillSmem& s) {
+  constexpr int kWarps = kFillThreads / 32;
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int ly = warp; ly < kFillTH; ly += kFillThreads / 32) {
+  FillPixels px{0, 0u, {}};
+  // every load of the thread in flight at once, then the ballots
+  uint8_t v[kFillRows][kFillCols];
+#pragma unroll
+  for (int k = 0; k < kFillRows; ++k) {
+    int ly = warp + k * kWarps;
     const uint8_t* row = m + (long long)(y0 + ly) * g.W + x0;
-    for (int c = 0; c < kFillTW; c += 32) {
-      int lx = c + lane, i = ly * kFillTW + lx;
-      bool b = ly < th && lx < tw && !row[lx];
-      unsigned bits = __ballot_sync(kFull, b);
-      unsigned starts = (bits ^ (bits << 1)) | 1u;
-      int start = 31 - __clz(starts & ((2u << lane) - 1u));
-      s.bg[i] = b;
-      s.parent[i] = i - (lane - start);
+#pragma unroll
+    for (int c = 0; c < kFillCols; ++c) {
+      int lx = c * 32 + lane;
+      v[k][c] = ly < th && lx < tw ? row[lx] : 1;
+    }
+  }
+  bool any_bg = false, any_fg = false;
+#pragma unroll
+  for (int k = 0; k < kFillRows; ++k)
+#pragma unroll
+    for (int c = 0; c < kFillCols; ++c)
+      if (warp + k * kWarps < th && c * 32 + lane < tw) {
+        any_bg |= !v[k][c];
+        any_fg |= v[k][c] != 0;
+      }
+  any_bg = __syncthreads_or(any_bg);
+  any_fg = __syncthreads_or(any_fg);
+  if (!any_fg || !any_bg) {              // a uniform tile needs no labeling
+    px.uniform = any_bg ? 1 : 2;
+    return px;
+  }
+  // A warp holds whole rows: parents start at the start of the pixel's
+  // background run across the row, so no link is needed along a row.
+#pragma unroll
+  for (int k = 0; k < kFillRows; ++k) {
+    int ly = warp + k * kWarps;
+    uint32_t w[kFillCols], change[kFillCols];
+#pragma unroll
+    for (int c = 0; c < kFillCols; ++c) {
+      w[c] = __ballot_sync(kFull, !v[k][c]);
+      if (lane == c) s.bgw[ly][c] = w[c];
+    }
+#pragma unroll
+    for (int c = 0; c < kFillCols; ++c)   // bits where the class changes
+      change[c] = w[c] ^ ((w[c] << 1) | (c > 0 ? w[c - 1] >> 31 : ~w[0] & 1u));
+#pragma unroll
+    for (int c = 0; c < kFillCols; ++c) {
+      int lx = c * 32 + lane, i = ly * kFillTW + lx;
+      uint32_t upto = change[c] & ((2u << lane) - 1u);
+      int start = c * 32 + 31 - __clz(upto);
+      if (upto == 0) {                       // the run began in a word before
+#pragma unroll
+        for (int cc = c - 1; cc >= 0; --cc)
+          if (change[cc]) {
+            start = cc * 32 + 31 - __clz(change[cc]);
+            break;
+          }
+      }
+      px.bg |= (uint32_t)(!v[k][c]) << (k * kFillCols + c);
+      px.start[k] |= (uint32_t)start << (8 * c);
+      s.parent[i] = ly * kFillTW + start;
       s.rep[i] = kNoRep;
       s.flag[i] = 0;
     }
   }
   __syncthreads();
-  for (int ly = warp; ly < th; ly += kFillThreads / 32) {
-    for (int lx = lane; lx < tw; lx += 32) {
-      int i = ly * kFillTW + lx;
-      if (!s.bg[i]) continue;
-      bool left = lx > 0 && s.bg[i - 1];
-      if (left && lane == 0) unite(s.parent, i, i - 1);
-      if (ly > 0 && s.bg[i - kFillTW] && !(left && s.bg[i - kFillTW - 1]))
-        unite(s.parent, i, i - kFillTW);
+  // One link up per run overlap: from its first pixel, unless the pixels
+  // to the left and up-left are background (the left pixel shares the run
+  // and up-left links up-row through the run above).
+#pragma unroll
+  for (int k = 0; k < kFillRows; ++k) {
+    int ly = warp + k * kWarps;
+    if (ly == 0) continue;
+#pragma unroll
+    for (int c = 0; c < kFillCols; ++c) {
+      uint32_t w = s.bgw[ly][c], u = s.bgw[ly - 1][c];
+      uint32_t wl = (w << 1) | (c > 0 ? s.bgw[ly][c - 1] >> 31 : 0u);
+      uint32_t ul = (u << 1) | (c > 0 ? s.bgw[ly - 1][c - 1] >> 31 : 0u);
+      if ((w & u & ~(wl & ul)) >> lane & 1u) {
+        int i = ly * kFillTW + c * 32 + lane;
+        unite_halving(s.parent, i, i - kFillTW);
+      }
     }
   }
   __syncthreads();
-  for (int ly = warp; ly < th; ly += kFillThreads / 32)
-    for (int lx = lane; lx < tw; lx += 32) {
-      int i = ly * kFillTW + lx;
-      if (s.bg[i]) s.parent[i] = find_root(s.parent, i);
+  // The run starts take their roots (the unions halved the paths).
+#pragma unroll
+  for (int k = 0; k < kFillRows; ++k)
+#pragma unroll
+    for (int c = 0; c < kFillCols; ++c) {
+      int ly = warp + k * kWarps, lx = c * 32 + lane;
+      if (px.is_bg(k, c) && px.run_start(k, c) == lx) {
+        int i = ly * kFillTW + lx;
+        s.parent[i] = find_root(s.parent, i);
+      }
     }
   __syncthreads();
-  for (int ly = warp; ly < th; ly += kFillThreads / 32)
-    for (int lx = lane; lx < tw; lx += 32) {
-      int i = ly * kFillTW + lx;
+#pragma unroll
+  for (int k = 0; k < kFillRows; ++k)
+#pragma unroll
+    for (int c = 0; c < kFillCols; ++c) {
+      int ly = warp + k * kWarps, lx = c * 32 + lane;
       int pos = perim_pos(ly, lx, th, tw);
-      if (pos < 0 || !s.bg[i]) continue;
-      int r = s.parent[i];
+      if (!px.is_bg(k, c) || pos < 0) continue;
+      int r = s.parent[ly * kFillTW + px.run_start(k, c)];
       atomicMin(&s.rep[r], pos);
       int y = y0 + ly, x = x0 + lx;
       if (y == 0 || x == 0 || y == g.H - 1 || x == g.W - 1) s.flag[r] = 1;
     }
   __syncthreads();
+  return px;
 }
 
 // Calls body(frame, tile row, tile column, frame's mask, table) for every
@@ -198,25 +316,53 @@ inline dim3 fill_grid(const FillGeom& g, int B) {
 }
 
 // Launch 1: each tile's perimeter entries of the frame's table.
-__global__ void __launch_bounds__(kFillThreads)
+__global__ void __launch_bounds__(kFillThreads, 5)
 k_fill_tiles(FillGeom g, const uint8_t* mask, int32_t* table) {
   __shared__ FillSmem s;
   for_each_fill_tile(g, [&](int b, int ty, int tx) {
     int y0 = ty * kFillTH, x0 = tx * kFillTW;
     int th = min(kFillTH, g.H - y0), tw = min(kFillTW, g.W - x0);
     int32_t* T = table + b * g.E;
-    fill_label_tile(g, mask + b * (long long)g.H * g.W, y0, x0, th, tw, s);
-    int base = 1 + (ty * g.tx + tx) * kFillP;
+    FillPixels px =
+        fill_label_tile(g, mask + b * (long long)g.H * g.W, y0, x0, th, tw, s);
+    int base = 1 + (ty * g.tx + tx) * kFillSlots;
     if (ty == 0 && tx == 0 && threadIdx.x == 0) T[0] = 0;
-    for (int pos = threadIdx.x; pos < kFillP; pos += kFillThreads) {
-      int ly, lx;
-      if (!perim_pixel(pos, th, tw, &ly, &lx)) continue;
-      int i = ly * kFillTW + lx;
-      if (!s.bg[i]) continue;
-      int r = s.parent[i], rep = s.rep[r];
-      T[base + pos] = pos != rep ? base + rep : (s.flag[r] ? 0 : base + pos);
+    if (px.uniform) {
+      // all background: one component, its representative slot 0, which
+      // hooks under the border if the tile touches it; all foreground: no
+      // entry
+      bool border = y0 == 0 || x0 == 0 || y0 + th == g.H || x0 + tw == g.W;
+      for (int pos = threadIdx.x; pos < kFillSlots; pos += kFillThreads) {
+        int e = kNoEntry;
+        if (pos == kFillP)
+          e = 0;                             // no hole
+        else if (px.uniform == 1 && perim_valid(pos, th, tw))
+          e = pos > 0 ? base : (border ? 0 : base);
+        T[base + pos] = e;
+      }
+      __syncthreads();
+      return;
     }
+    for (int pos = threadIdx.x; pos < kFillP; pos += kFillThreads)
+      T[base + pos] = kNoEntry;
     __syncthreads();
+    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    bool hole = false;
+#pragma unroll
+    for (int k = 0; k < kFillRows; ++k)
+#pragma unroll
+      for (int c = 0; c < kFillCols; ++c) {
+        int ly = warp + k * (kFillThreads / 32), lx = c * 32 + lane;
+        if (!px.is_bg(k, c)) continue;
+        int r = s.parent[ly * kFillTW + px.run_start(k, c)], rep = s.rep[r];
+        hole |= rep == kNoRep;
+        int pos = perim_pos(ly, lx, th, tw);
+        if (pos < 0) continue;
+        T[base + pos] =
+            pos != rep ? base + rep : (s.flag[r] ? 0 : base + pos);
+      }
+    hole = __syncthreads_or(hole);
+    if (threadIdx.x == 0) T[base + kFillP] = hole;
   });
 }
 
@@ -224,7 +370,7 @@ k_fill_tiles(FillGeom g, const uint8_t* mask, int32_t* table) {
 __device__ __forceinline__ int fill_entry(const FillGeom& g, int y, int x) {
   int ty = y / kFillTH, tx = x / kFillTW;
   int th = min(kFillTH, g.H - ty * kFillTH), tw = min(kFillTW, g.W - tx * kFillTW);
-  return 1 + (ty * g.tx + tx) * kFillP +
+  return 1 + (ty * g.tx + tx) * kFillSlots +
          perim_pos(y - ty * kFillTH, x - tx * kFillTW, th, tw);
 }
 
@@ -259,37 +405,76 @@ __global__ void k_fill_merge(FillGeom g, long long pairs, const uint8_t* mask,
       long long step = k < nh ? 1 : g.W;
       if (!m[pa - step] && !m[pb - step]) continue;
     }
-    unite(T, fill_entry(g, ya, xa), fill_entry(g, yb, xb));
+    unite_halving(T, fill_entry(g, ya, xa), fill_entry(g, yb, xb));
   }
 }
 
 // Launch 3: per tile, the labeling again, each perimeter component's root
 // in the merged table, then filled = mask | !(reaches the border).
-__global__ void __launch_bounds__(kFillThreads)
-k_fill_write(FillGeom g, const uint8_t* mask, const int32_t* table,
+__global__ void __launch_bounds__(kFillThreads, 5)
+k_fill_write(FillGeom g, const uint8_t* mask, int32_t* table,
              uint8_t* filled) {
   __shared__ FillSmem s;
   for_each_fill_tile(g, [&](int b, int ty, int tx) {
     int y0 = ty * kFillTH, x0 = tx * kFillTW;
     int th = min(kFillTH, g.H - y0), tw = min(kFillTW, g.W - x0);
     long long off = b * (long long)g.H * g.W;
-    const int32_t* T = table + b * g.E;
-    fill_label_tile(g, mask + off, y0, x0, th, tw, s);
-    int base = 1 + (ty * g.tx + tx) * kFillP;
+    int32_t* T = table + b * g.E;
+    int base = 1 + (ty * g.tx + tx) * kFillSlots;
     int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int ly = warp; ly < th; ly += kFillThreads / 32)
-      for (int lx = lane; lx < tw; lx += 32) {
-        int i = ly * kFillTW + lx;
-        if (!s.bg[i] || s.parent[i] != i) continue;
-        int rep = s.rep[i];
-        s.flag[i] = rep != kNoRep && find_root(T, base + rep) == 0;
-      }
+    // A tile with no hole whose perimeter components all reach the border
+    // is its mask: no labeling.
+    bool label = threadIdx.x == 0 && T[base + kFillP] != 0;
+    for (int pos = threadIdx.x; pos < kFillP; pos += kFillThreads)
+      if (T[base + pos] != kNoEntry && find_halving(T, base + pos) != 0)
+        label = true;
+    if (!__syncthreads_or(label)) {
+      uint8_t v[kFillRows][kFillCols];       // all loads first, then stores
+#pragma unroll
+      for (int k = 0; k < kFillRows; ++k)
+#pragma unroll
+        for (int c = 0; c < kFillCols; ++c) {
+          int ly = warp + k * (kFillThreads / 32), lx = c * 32 + lane;
+          v[k][c] = ly < th && lx < tw
+                        ? mask[off + (long long)(y0 + ly) * g.W + x0 + lx] : 0;
+        }
+#pragma unroll
+      for (int k = 0; k < kFillRows; ++k)
+#pragma unroll
+        for (int c = 0; c < kFillCols; ++c) {
+          int ly = warp + k * (kFillThreads / 32), lx = c * 32 + lane;
+          if (ly < th && lx < tw)
+            filled[off + (long long)(y0 + ly) * g.W + x0 + lx] = v[k][c] != 0;
+        }
+      return;
+    }
+    FillPixels px = fill_label_tile(g, mask + off, y0, x0, th, tw, s);
+    if (px.uniform == 0) {
+#pragma unroll
+      for (int k = 0; k < kFillRows; ++k)
+#pragma unroll
+        for (int c = 0; c < kFillCols; ++c) {
+          int ly = warp + k * (kFillThreads / 32), lx = c * 32 + lane;
+          int i = ly * kFillTW + lx;
+          if (!px.is_bg(k, c) || px.run_start(k, c) != lx || s.parent[i] != i)
+            continue;                        // not a root
+          int rep = s.rep[i];
+          s.flag[i] = rep != kNoRep && find_halving(T, base + rep) == 0;
+        }
+    }
     __syncthreads();
-    for (int ly = warp; ly < th; ly += kFillThreads / 32) {
+#pragma unroll
+    for (int k = 0; k < kFillRows; ++k) {
+      int ly = warp + k * (kFillThreads / 32);
+      if (ly >= th) continue;
       uint8_t* out = filled + off + (long long)(y0 + ly) * g.W + x0;
-      for (int lx = lane; lx < tw; lx += 32) {
-        int i = ly * kFillTW + lx;
-        out[lx] = !s.bg[i] || !s.flag[s.parent[i]];
+#pragma unroll
+      for (int c = 0; c < kFillCols; ++c) {
+        int lx = c * 32 + lane;
+        if (lx >= tw) continue;
+        // a uniform tile here is background that does not reach the border
+        out[lx] = px.uniform != 0 || !px.is_bg(k, c) ||
+                  !s.flag[s.parent[ly * kFillTW + px.run_start(k, c)]];
       }
     }
     __syncthreads();
@@ -503,6 +688,12 @@ extern "C" int hd_flood_fill(const uint8_t* mask, int B, int H, int W,
   cudaStream_t st = (cudaStream_t)stream;
   FillGeom g = fill_geom(H, W, active);
   dim3 grid = fill_grid(g, B);
+  for (const void* k : {(const void*)k_fill_tiles, (const void*)k_fill_write}) {
+    cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+  }
   k_fill_tiles<<<grid, kFillThreads, 0, st>>>(g, mask, table);
   HD_CHECK();
   long long pairs = (long long)(g.ty - 1) * W + (long long)(g.tx - 1) * H;

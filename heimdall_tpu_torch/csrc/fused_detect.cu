@@ -446,7 +446,10 @@ int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
 // frame holding each pass's neutral value, so no out-of-frame neighbour
 // wins.
 
-constexpr int kPreTY = 64, kPreTX = 128, kPreThreads = 256, kRun = 8;
+constexpr int kPreTY = 64, kPreTX = 120, kPreThreads = 512, kRun = 8;
+// the threshold's run: its kRE / kRunV x kNW tasks split evenly over the
+// block's warps
+constexpr int kRunV = 9;
 // Regions, as (rows, columns) and their origin relative to the tile's:
 constexpr int kRA = kPreTY + 22, kCA = kPreTX + 22;  // gray        (-11, -11)
 constexpr int kCB = kPreTX + 18;                     // blur rows   (-11, -9)
@@ -466,10 +469,20 @@ __device__ __forceinline__ bool inside(int i, int n) {
   return i >= 0 && i < n;
 }
 
-__global__ void __launch_bounds__(kPreThreads)
-k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
-             uint8_t* binary) {
-  extern __shared__ __align__(16) uint8_t smem[];
+// inside(i, n), known true in a tile whose halo lies inside the frame
+template <bool kI>
+__device__ __forceinline__ bool in_frame(int i, int n) {
+  return kI || inside(i, n);
+}
+
+// One tile of k_preprocess.  kI: the tile and its halo lie inside the
+// frame, so no tap needs a border and no position a frame check.
+template <bool kI>
+__device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
+                                                const Taps& t, int ct,
+                                                uint8_t* gray_out,
+                                                uint8_t* binary,
+                                                uint8_t* smem, bool vec) {
   uint8_t* A = smem;                                       // gray
   uint16_t* Bh = reinterpret_cast<uint16_t*>(smem + kOffB);  // blur rows
   float* D = reinterpret_cast<float*>(smem);               // mean rows (over A, B)
@@ -481,38 +494,116 @@ k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
   const int warps = kPreThreads / 32;
   const long long HW = (long long)H * W, obase = b * HW;
 
-  // 1. gray of the tile and its halo; the tile's own gray goes out.
-  for (int r = warp; r < kRA; r += warps) {
-    int gy = y0 - 11 + r;
-    if (!inside(gy, H)) continue;
-    for (int c = lane; c < kCA; c += 32) {
-      int gx = x0 - 11 + c;
-      if (!inside(gx, W)) continue;
-      long long p = (long long)gy * W + gx;
-      int v = gray_at(f, b, p);
-      A[r * kCA + c] = (uint8_t)v;
-      if (inside(r - 11, ty) && inside(c - 11, tx)) gray_out[obase + p] = v;
+  // 1. gray of the tile and its halo; the tile's own gray goes out.  A
+  //    warp takes two rows at a time, all their loads in flight at once:
+  //    aligned 32-bit words of each plane where the tile is interior and
+  //    the planes' rows are word-aligned (vec), else bytes.
+  if (kI && vec) {
+    constexpr int kWords = (kCA + 1 + 3) / 4;   // columns -12 .. kCA - 11
+    constexpr int kPer = (kWords + 31) / 32, kRowsAtOnce = 2;
+    for (int r0 = warp * kRowsAtOnce; r0 < kRA; r0 += warps * kRowsAtOnce) {
+      uint32_t v[kRowsAtOnce][kPer][3];
+#pragma unroll
+      for (int rr = 0; rr < kRowsAtOnce; ++rr) {
+        int r = r0 + rr;
+        const uint8_t* row = f.data + b * f.fstride +
+                             (long long)(y0 - 11 + r) * W + x0 - 12;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          int w = lane + 32 * k;
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            v[rr][k][ch] = 0;
+            if (r < kRA && w < kWords && (ch == 0 || f.C == 3))
+              v[rr][k][ch] = *reinterpret_cast<const uint32_t*>(
+                  row + ch * f.cstride + 4 * w);
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRowsAtOnce; ++rr) {
+        int r = r0 + rr;
+        if (r >= kRA) break;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          int w = lane + 32 * k;
+          if (w >= kWords) continue;
+          uint32_t g4 = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            int c = 4 * w + j - 1;
+            int bb = v[rr][k][0] >> (8 * j) & 255;
+            int g = f.C == 3 ? (bb * 3735 + (v[rr][k][1] >> (8 * j) & 255) *
+                                19235 + (v[rr][k][2] >> (8 * j) & 255) * 9798 +
+                                (1 << 14)) >> 15
+                             : bb;
+            g4 |= (uint32_t)g << (8 * j);
+            if (c >= 0 && c < kCA) A[r * kCA + c] = (uint8_t)g;
+          }
+          // words 3 .. 3 + kPreTX / 4 hold the tile's own columns
+          if (inside(r - 11, kPreTY) && inside(w - 3, kPreTX / 4))
+            *reinterpret_cast<uint32_t*>(
+                gray_out + obase + (long long)(y0 - 11 + r) * W + x0 +
+                4 * (w - 3)) = g4;
+        }
+      }
+    }
+  } else {
+    constexpr int kPer = (kCA + 31) / 32, kRowsAtOnce = 2;
+    for (int r0 = warp * kRowsAtOnce; r0 < kRA; r0 += warps * kRowsAtOnce) {
+      int v[kRowsAtOnce][kPer];
+#pragma unroll
+      for (int rr = 0; rr < kRowsAtOnce; ++rr) {
+        int r = r0 + rr, gy = y0 - 11 + r;
+        bool row_in = r < kRA && in_frame<kI>(gy, H);
+        const uint8_t* row =
+            f.data + b * f.fstride + (long long)gy * W * f.pstride;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          int c = lane + 32 * k, gx = x0 - 11 + c;
+          v[rr][k] = 0;
+          if (!row_in || c >= kCA || !in_frame<kI>(gx, W)) continue;
+          const uint8_t* d = row + (long long)gx * f.pstride;
+          v[rr][k] = f.C == 3 ? (d[0] * 3735 + d[f.cstride] * 19235 +
+                                 d[2 * f.cstride] * 9798 + (1 << 14)) >> 15
+                              : d[0];
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRowsAtOnce; ++rr) {
+        int r = r0 + rr, gy = y0 - 11 + r;
+        if (r >= kRA || !in_frame<kI>(gy, H)) continue;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          int c = lane + 32 * k, gx = x0 - 11 + c;
+          if (c >= kCA || !in_frame<kI>(gx, W)) continue;
+          A[r * kCA + c] = (uint8_t)v[rr][k];
+          if (inside(r - 11, ty) && inside(c - 11, tx))
+            gray_out[obase + (long long)gy * W + gx] = v[rr][k];
+        }
+      }
     }
   }
   __syncthreads();
 
-  // 2. the blur's row pass (lane = row, a run of kRun columns).
+  // 2. the blur's row pass (a thread takes a row and a run of kRun
+  //    columns; neighbouring threads neighbouring rows).
   {
-    constexpr int runs = (kCB + kRun - 1) / kRun, groups = (kRA + 31) / 32;
-    for (int task = warp; task < runs * groups; task += warps) {
-      int r = task / runs * 32 + lane, c0 = task % runs * kRun;
+    constexpr int runs = (kCB + kRun - 1) / kRun;
+    for (int it = threadIdx.x; it < kRA * runs; it += kPreThreads) {
+      int r = it % kRA, c0 = it / kRA * kRun;
       int gy = y0 - 11 + r, gx0 = x0 - 9 + c0;
-      if (r >= kRA || !inside(gy, H)) continue;
+      if (!in_frame<kI>(gy, H)) continue;
       int v[kRun + 4];
 #pragma unroll
       for (int k = 0; k < kRun + 4; ++k) {
-        int src = reflect101(gx0 + k - 2, W) - (x0 - 11);
+        int src = (kI ? gx0 + k - 2 : reflect101(gx0 + k - 2, W)) - (x0 - 11);
         v[k] = inside(src, kCA) ? A[r * kCA + src] : 0;
       }
 #pragma unroll
       for (int j = 0; j < kRun; ++j) {
         int c = c0 + j;
-        if (c >= kCB || !inside(gx0 + j, W)) continue;
+        if (c >= kCB || !in_frame<kI>(gx0 + j, W)) continue;
         int s = 0;
 #pragma unroll
         for (int i = 0; i < 5; ++i) s += t.q8[i] * v[j + i];
@@ -522,23 +613,24 @@ k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
   }
   __syncthreads();
 
-  // 3. the blur's column pass (lane = column, a run of kRun rows).
+  // 3. the blur's column pass (a thread takes a column and a run of kRun
+  //    rows; neighbouring threads neighbouring columns).
   {
-    constexpr int runs = (kRC + kRun - 1) / kRun, groups = (kCB + 31) / 32;
-    for (int task = warp; task < runs * groups; task += warps) {
-      int c = task / runs * 32 + lane, r0 = task % runs * kRun;
+    constexpr int runs = (kRC + kRun - 1) / kRun;
+    for (int it = threadIdx.x; it < kCB * runs; it += kPreThreads) {
+      int c = it % kCB, r0 = it / kCB * kRun;
       int gx = x0 - 9 + c, gy0 = y0 - 9 + r0;
-      if (c >= kCB || !inside(gx, W)) continue;
+      if (!in_frame<kI>(gx, W)) continue;
       int v[kRun + 4];
 #pragma unroll
       for (int k = 0; k < kRun + 4; ++k) {
-        int src = reflect101(gy0 + k - 2, H) - (y0 - 11);
+        int src = (kI ? gy0 + k - 2 : reflect101(gy0 + k - 2, H)) - (y0 - 11);
         v[k] = inside(src, kRA) ? Bh[src * kCB + c] : 0;
       }
 #pragma unroll
       for (int j = 0; j < kRun; ++j) {
         int r = r0 + j;
-        if (r >= kRC || !inside(gy0 + j, H)) continue;
+        if (r >= kRC || !in_frame<kI>(gy0 + j, H)) continue;
         int s = 0;
 #pragma unroll
         for (int i = 0; i < 5; ++i) s += t.q8[i] * v[j + i];
@@ -548,24 +640,24 @@ k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
   }
   __syncthreads();
 
-  // 4. the mean's row pass (lane = row, a run of kRun columns), over the
-  //    gray and blur-row buffers, which are no longer read.
+  // 4. the mean's row pass (as the blur's), over the gray and blur-row
+  //    buffers, which are no longer read.
   {
-    constexpr int runs = (kCD + kRun - 1) / kRun, groups = (kRC + 31) / 32;
-    for (int task = warp; task < runs * groups; task += warps) {
-      int r = task / runs * 32 + lane, c0 = task % runs * kRun;
+    constexpr int runs = (kCD + kRun - 1) / kRun;
+    for (int it = threadIdx.x; it < kRC * runs; it += kPreThreads) {
+      int r = it % kRC, c0 = it / kRC * kRun;
       int gy = y0 - 9 + r, gx0 = x0 - 4 + c0;
-      if (r >= kRC || !inside(gy, H)) continue;
+      if (!in_frame<kI>(gy, H)) continue;
       float v[kRun + 10];
 #pragma unroll
       for (int k = 0; k < kRun + 10; ++k) {
-        int src = clampi(gx0 + k - 5, 0, W - 1) - (x0 - 9);
+        int src = (kI ? gx0 + k - 5 : clampi(gx0 + k - 5, 0, W - 1)) - (x0 - 9);
         v[k] = inside(src, kCB) ? (float)C[r * kCB + src] : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < kRun; ++j) {
         int c = c0 + j;
-        if (c >= kCD || !inside(gx0 + j, W)) continue;
+        if (c >= kCD || !in_frame<kI>(gx0 + j, W)) continue;
         float s = __fmul_rn(t.k11[0], v[j]);
 #pragma unroll
         for (int i = 1; i < 11; ++i)
@@ -580,23 +672,23 @@ k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
   //    of kRun rows), ballotted into bit words; outside the frame a bit is 1,
   //    the erode's neutral value.
   {
-    constexpr int runs = (kRE + kRun - 1) / kRun;
+    constexpr int runs = (kRE + kRunV - 1) / kRunV;
     for (int task = warp; task < runs * kNW; task += warps) {
-      int g = task / runs, r0 = task % runs * kRun, c = g * 32 + lane;
+      int g = task / runs, r0 = task % runs * kRunV, c = g * 32 + lane;
       int gx = x0 - 4 + c, gy0 = y0 - 4 + r0;
-      bool col = c < kCD && inside(gx, W);
-      float v[kRun + 10];
+      bool col = c < kCD && in_frame<kI>(gx, W);
+      float v[kRunV + 10];
 #pragma unroll
-      for (int k = 0; k < kRun + 10; ++k) {
-        int src = clampi(gy0 + k - 5, 0, H - 1) - (y0 - 9);
+      for (int k = 0; k < kRunV + 10; ++k) {
+        int src = (kI ? gy0 + k - 5 : clampi(gy0 + k - 5, 0, H - 1)) - (y0 - 9);
         v[k] = col && inside(src, kRC) ? D[src * kSD + c] : 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < kRun; ++j) {
+      for (int j = 0; j < kRunV; ++j) {
         int r = r0 + j;
         if (r >= kRE) break;                 // uniform over the warp
         bool bit = true;
-        if (col && inside(gy0 + j, H)) {
+        if (col && in_frame<kI>(gy0 + j, H)) {
           float s = __fmul_rn(t.k11[0], v[j]);
 #pragma unroll
           for (int i = 1; i < 11; ++i)
@@ -639,7 +731,7 @@ k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
       // in-frame columns of this word, and whether its row is in the frame
       int gx = x0 - 4 + w * 32, gy = y0 - 4 + r;
       uint32_t cols = 0;
-      if (inside(gy, H)) {
+      if (in_frame<kI>(gy, H)) {
         int lo = max(0, -gx), hi = min(32, min(W - gx, kCD - w * 32));
         if (hi > lo)
           cols = (hi - lo == 32 ? kFull : ((1u << (hi - lo)) - 1u)) << lo;
@@ -649,13 +741,35 @@ k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
     __syncthreads();
   }
 
-  // 7. the tile's binary plane (0/1) goes out.
+  // 7. the tile's binary plane (0/1) goes out, four pixels a store where
+  //    the tile is interior and the rows word-aligned.
+  if (kI && vec) {
+    for (int it = threadIdx.x; it < kPreTY * (kPreTX / 4); it += kPreThreads) {
+      int r = it / (kPreTX / 4), c = it % (kPreTX / 4) * 4, cc = c + 4;
+      uint32_t x = E[(r + 4) * kNW + cc / 32] >> (cc % 32) & 15u;  // 4 | cc
+      *reinterpret_cast<uint32_t*>(binary + obase + (long long)(y0 + r) * W +
+                                   x0 + c) =
+          (x & 1u) | (x & 2u) << 7 | (x & 4u) << 14 | (x & 8u) << 21;
+    }
+    return;
+  }
   for (int r = warp; r < ty; r += warps)
     for (int c = lane; c < tx; c += 32) {
       int cc = c + 4;
       uint32_t word = E[(r + 4) * kNW + cc / 32];
       binary[obase + (long long)(y0 + r) * W + x0 + c] = (word >> (cc % 32)) & 1u;
     }
+}
+
+__global__ void __launch_bounds__(kPreThreads, 3)
+k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
+             uint8_t* binary, bool vec) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int y0 = blockIdx.y * kPreTY, x0 = blockIdx.x * kPreTX;
+  if (y0 >= 11 && x0 >= 11 && y0 + kPreTY + 11 <= H && x0 + kPreTX + 11 <= W)
+    preprocess_tile<true>(f, H, W, t, ct, gray_out, binary, smem, vec);
+  else
+    preprocess_tile<false>(f, H, W, t, ct, gray_out, binary, smem, vec);
 }
 
 }  // namespace
@@ -701,10 +815,19 @@ extern "C" int hd_preprocess(const uint8_t* frames, int B, int H, int W,
   Frames f{frames, C, (long long)C * H * W, cstride, pstride};
   cudaError_t e = cudaFuncSetAttribute(
       k_preprocess, cudaFuncAttributeMaxDynamicSharedMemorySize, kPreSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k_preprocess,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((W + kPreTX - 1) / kPreTX, (H + kPreTY - 1) / kPreTY, B);
+  // planes whose rows start on 32-bit words (pixel stride 1, W and the
+  // plane offsets multiples of 4, aligned bases) take word loads and stores
+  bool vec = pstride == 1 && W % 4 == 0 && (uintptr_t)frames % 4 == 0 &&
+             (C == 1 || cstride % 4 == 0) && (uintptr_t)gray % 4 == 0 &&
+             (uintptr_t)binary % 4 == 0;
   k_preprocess<<<grid, kPreThreads, kPreSmem, st>>>(f, H, W, t, ct, gray,
-                                                    binary);
+                                                    binary, vec);
   HD_CHECK();
   return 0;
 }

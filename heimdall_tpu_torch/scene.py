@@ -159,9 +159,10 @@ def check_runtable_masks(h=96, w=128):
     return cases
 
 
-# The hole-fill kernel's tile (rows, columns); the one-pass preprocess's
-# tiles (64 x 128) have their corners among these.
+# The tiles (rows, columns) of the hole-fill kernel and of the one-pass
+# preprocess (csrc/ccl_tiled.cu, csrc/fused_detect.cu).
 FILL_TILE = (32, 128)
+PRE_TILE = (64, 120)
 # Frame sizes that cut tiles or are smaller than a tile or the preprocess's
 # 11-pixel halo.
 TILE_CASE_SIZES = ((3, 3), (3, 1920), (1080, 3), (13, 17), (1037, 1531))
@@ -257,7 +258,7 @@ def tile_case_masks(h, w, seed=0, tile=FILL_TILE):
     }
 
 
-def tile_case_frames(h, w, seed=0, tile=FILL_TILE):
+def tile_case_frames(h, w, seed=0, tile=PRE_TILE):
     """BGR frames u8 [h, w, 3] that attack the preprocess's tiles, by name:
     uniform noise (the threshold flips most often), a uniform gray frame
     (all background at contrast 15, all foreground at contrast -15), and
