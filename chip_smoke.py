@@ -18,14 +18,22 @@ Phases (each prints a line; any failure exits non-zero without a result):
      b. the band-tiled 2 MP kernels (preprocess, flood fill, band labels,
         band merge, banded stats, bbox sums) at 1920x1080: bench Mono8 and
         BGR frames, adversarial frames and masks with K = 64 and K = 4, and
-        a frame whose height is not a multiple of the band;
+        a frame whose height is not a multiple of the band; then the cases
+        that attack the redesigned kernels' tiles (scene.tile_case_masks /
+        tile_case_frames: spiral and snake corridors closed and open, pixels
+        meeting at tile corners diagonally, all foreground, all background,
+        noise, contrast 15 and -15) at 3x3, 3x1920, 1080x3, 13x17,
+        1037x1531 and 1920x1080, the flood fill and the preprocess (Mono8,
+        BGR, BGR planes) exact, and the fill of a batch with active flags
+        mixed, its skipped frames' prefilled outputs untouched;
      c. the run-table 2 MP kernels (the preprocess with background tables,
         run extraction, border flood, fill + extraction, run labels,
         writeback) at 1920x1080: bench BGR frames NHWC and channel-major,
         adversarial frames, adversarial masks with K = 4, a mixed batch of
         masks that fit, trip the foreground guard and trip both guards, and
-        odd-sized BGR frames; on each, the route with the detector's guards
-        (per frame, tables or bands) equals the band route exactly;
+        odd-sized BGR frames, and 3b's tile-case masks and frames at its
+        sizes; on each, the route with the detector's guards (per frame,
+        tables or bands) equals the band route exactly;
      d. the split kernels at 640x480 (the label kernel at every stage, the
         stats kernel on its labels): bench frames, adversarial frames with
         K = 64 and K = 4, 2 frames of 477x631, and a uniform frame with no
@@ -67,7 +75,11 @@ Phases (each prints a line; any failure exits non-zero without a result):
         run-table route), with the same checks; prints how many frames took
         the tables and how many the bands;
   5. times with CUDA events after warm-up: each kernel, its plain version
-     and its bound; the main paths end to end (frames already on the card):
+     and its bound, and which of bytes and operations sets it (the f32
+     mean's 44 operations a pixel at one a lane and clock on 132 SMs x 128
+     FP32 lanes at clocks.max.sm); the main paths end to end (frames already
+     on the card), each beside its host time per call (run_device's return,
+     before the sync, no profiler):
      640x480x3, 1920x1080 Mono8, and 1920x1080 BGR through the run tables
      and through the band route, on the bench batch and on a mixed batch
      whose every fourth frame is adversarial (most of those overflow the
@@ -102,7 +114,8 @@ Phases (each prints a line; any failure exits non-zero without a result):
         launches); then each variant's us/op/frame beside its plain
         version's, its bound (operations) and, for the cumsum variants,
         the torch.cumsum step's;
-  6. JSON lines listing every kernel with its check and times;
+  6. JSON lines: each route's end-to-end and host ms per call, and every
+     kernel with its check and times;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
 DIR/fused_detect_profile.txt, DIR/tiled_2mp_profile.txt (Mono8) and

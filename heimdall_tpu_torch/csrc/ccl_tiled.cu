@@ -369,7 +369,8 @@ k_fill_tiles(FillGeom g, const uint8_t* mask, int32_t* table) {
 // Table entry of background pixel (y, x) on its tile's perimeter.
 __device__ __forceinline__ int fill_entry(const FillGeom& g, int y, int x) {
   int ty = y / kFillTH, tx = x / kFillTW;
-  int th = min(kFillTH, g.H - ty * kFillTH), tw = min(kFillTW, g.W - tx * kFillTW);
+  int th = min(kFillTH, g.H - ty * kFillTH);
+  int tw = min(kFillTW, g.W - tx * kFillTW);
   return 1 + (ty * g.tx + tx) * kFillSlots +
          perim_pos(y - ty * kFillTH, x - tx * kFillTW, th, tw);
 }
@@ -388,7 +389,7 @@ __global__ void k_fill_merge(FillGeom g, long long pairs, const uint8_t* mask,
   for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        k < pairs; k += (long long)gridDim.x * blockDim.x) {
     int ya, xa, yb, xb;
-    bool along;          // the predecessor pair exists and lies in the same tiles
+    bool along;          // the predecessor pair lies in the same two tiles
     if (k < nh) {
       yb = (int)(k / g.W + 1) * kFillTH, xb = (int)(k % g.W);
       ya = yb - 1, xa = xb;

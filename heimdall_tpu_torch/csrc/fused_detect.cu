@@ -37,12 +37,11 @@
 //
 // hd_preprocess runs the preprocess stages alone for frames of any size,
 // for the 2 MP routes, as one launch over shared-memory tiles (see "the
-// one-pass preprocess" below; it replaces the eight global passes there, and
-// its bound is the mean's 44 uncontracted float operations a pixel on the
-// SMs' 128 FP32 lanes, above its 3 (Mono8) or 5 (BGR) bytes a pixel);
-// hd_label and
-// hd_stats_from_labels are the two-kernel split of the same passes (the
-// profiling path, heimdall_tpu_torch/ops/split_kernels.py).
+// one-pass preprocess" below): no plane of scratch, and its bound is the
+// mean's 44 uncontracted float operations a pixel on the SMs' 128 FP32
+// lanes, above its 3 (Mono8) or 5 (BGR) bytes a pixel.  hd_label and
+// hd_stats_from_labels are the two-kernel split of the eight-pass chain
+// (the profiling path, heimdall_tpu_torch/ops/split_kernels.py).
 
 #include <string.h>
 
@@ -434,17 +433,22 @@ int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
 // device memory.  Borders are taken in frame coordinates (reflect-101 for
 // the blur, replicate for the mean) and mapped into the tile's buffers: a
 // reflected or clamped index moves at most 2 or 5 pixels inward, which the
-// halo holds, so a stage only ever computes in-frame positions.  The
-// horizontal passes give each lane a row and a run of kRun outputs whose
-// taps stay in registers (one shared load per output and a few more per
-// run); the vertical passes give each lane a column and a run of kRun rows
-// the same way.  The blur sums exact integers; the mean keeps its strict
-// tap order (row pass, then column pass over the unrounded row sums,
-// __fmul_rn/__fadd_rn, rounded half to even).  The threshold is ballotted
-// into words of 32 pixels, and the open and close run on those words (erode
-// = AND of the shifted words, dilate = OR), with positions outside the
-// frame holding each pass's neutral value, so no out-of-frame neighbour
-// wins.
+// halo holds, so a stage only ever computes in-frame positions; a tile
+// whose halo lies inside the frame (most of them) takes a copy of the code
+// with no border arithmetic and no frame checks, and, for planar frames
+// with word-aligned rows, 32-bit loads and stores.  The horizontal passes
+// give each thread a row and a run of kRun outputs whose taps stay in
+// registers (one shared load per output and a few more per run); the
+// vertical passes a column and a run of rows the same way.  The block
+// takes 512 threads, three blocks an SM: the stencil phases are bound by
+// instruction issue and shared-memory latency, and the tile's load is not
+// overlapped with its compute.  The blur sums exact integers; the mean
+// keeps its strict tap order (row pass, then column pass over the
+// unrounded row sums, __fmul_rn/__fadd_rn, rounded half to even).  The
+// threshold is ballotted into words of 32 pixels, and the open and close run on
+// those words (erode = AND of the shifted words, dilate = OR), with positions
+// outside the frame holding each pass's neutral value, so no out-of-frame
+// neighbour wins.
 
 constexpr int kPreTY = 64, kPreTX = 120, kPreThreads = 512, kRun = 8;
 // the threshold's run: its kRE / kRunV x kNW tasks split evenly over the
@@ -485,7 +489,7 @@ __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
                                                 uint8_t* smem, bool vec) {
   uint8_t* A = smem;                                       // gray
   uint16_t* Bh = reinterpret_cast<uint16_t*>(smem + kOffB);  // blur rows
-  float* D = reinterpret_cast<float*>(smem);               // mean rows (over A, B)
+  float* D = reinterpret_cast<float*>(smem);          // mean rows, over A, B
   uint8_t* C = smem + kOffC;                               // blurred
   uint32_t* E = reinterpret_cast<uint32_t*>(smem + kOffE); // 2 bit planes
   const int b = blockIdx.z, y0 = blockIdx.y * kPreTY, x0 = blockIdx.x * kPreTX;
@@ -757,7 +761,8 @@ __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
     for (int c = lane; c < tx; c += 32) {
       int cc = c + 4;
       uint32_t word = E[(r + 4) * kNW + cc / 32];
-      binary[obase + (long long)(y0 + r) * W + x0 + c] = (word >> (cc % 32)) & 1u;
+      binary[obase + (long long)(y0 + r) * W + x0 + c] =
+          (word >> (cc % 32)) & 1u;
     }
 }
 

@@ -3,9 +3,10 @@ its closed binary (counterpart of heimdall_tpu/ops/preprocess_tiled.py,
 TPU kernel B2).
 
 The TPU kernel runs the preprocess in bands with a halo and emits the
-tables from the band still in VMEM.  Here the preprocess is the one copy in
-``csrc/fused_detect.cu`` (``hd_preprocess``, through
-ops/fused_kernels.py::preprocess, for frames of any size) and the tables
+tables from the band still in VMEM.  Here the preprocess is
+``hd_preprocess`` of ``csrc/fused_detect.cu`` (through
+ops/fused_kernels.py::preprocess, for frames of any size: one launch over
+shared-memory tiles with a halo) and the tables
 come from ``hd_run_extract`` of ``csrc/runtable_tiled.cu`` (through
 ops/runtable_tiled.py::run_extract) on the closed binary plane.  Planes are
 [B, H, W], unpadded.

@@ -4,7 +4,10 @@ JAX package).
 
 Each 640x480 BGR frame is a light background (220) with the bottle's
 rectangle outline (100), its base disc (80) and one to three dark
-contaminant discs drawn from a seeded RandomState.
+contaminant discs drawn from a seeded RandomState.  Beside it: the
+adversarial masks, the run-table check's masks, and the masks and frames
+that attack the 2 MP kernels' tiles (tile_case_masks, tile_case_frames),
+shared by the tests and chip_smoke.py.
 """
 
 import numpy as np
