@@ -176,24 +176,24 @@ struct FillPixels {
   }
 };
 
-// The tile's background labeling.  After it, for a background pixel (ly,
+// The background labeling of a tile whose mask bytes (fill_load) are v.
+// After it, for a background pixel (ly,
 // lx) of this thread, s.parent[ly * kFillTW + run start] is its root,
 // s.rep[root] the component's least perimeter slot (kNoRep: a hole) and
 // s.flag[root] whether it has a pixel on the frame border.  Pixels outside
 // the frame count as foreground.  A tile all background or all foreground
 // returns with px.uniform set, unlabelled.  Every thread of the block calls
 // it.
-__device__ FillPixels fill_label_tile(const FillGeom& g, const uint8_t* m,
-                                      int y0, int x0, int th, int tw,
-                                      FillSmem& s) {
-  constexpr int kWarps = kFillThreads / 32;
+// The mask bytes of this thread's pixels (row warp + 8k, column 32c +
+// lane), every load in flight at once; outside the tile 1 (foreground).
+using FillBytes = uint8_t[kFillRows][kFillCols];
+__device__ __forceinline__ void fill_load(const FillGeom& g, const uint8_t* m,
+                                          int y0, int x0, int th, int tw,
+                                          FillBytes& v) {
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  FillPixels px{0, 0u, {}};
-  // every load of the thread in flight at once, then the ballots
-  uint8_t v[kFillRows][kFillCols];
 #pragma unroll
   for (int k = 0; k < kFillRows; ++k) {
-    int ly = warp + k * kWarps;
+    int ly = warp + k * (kFillThreads / 32);
     const uint8_t* row = m + (long long)(y0 + ly) * g.W + x0;
 #pragma unroll
     for (int c = 0; c < kFillCols; ++c) {
@@ -201,6 +201,14 @@ __device__ FillPixels fill_label_tile(const FillGeom& g, const uint8_t* m,
       v[k][c] = ly < th && lx < tw ? row[lx] : 1;
     }
   }
+}
+
+__device__ FillPixels fill_label_tile(const FillGeom& g, const FillBytes& v,
+                                      int y0, int x0, int th, int tw,
+                                      FillSmem& s) {
+  constexpr int kWarps = kFillThreads / 32;
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  FillPixels px{0, 0u, {}};
   bool any_bg = false, any_fg = false;
 #pragma unroll
   for (int k = 0; k < kFillRows; ++k)
@@ -323,8 +331,9 @@ k_fill_tiles(FillGeom g, const uint8_t* mask, int32_t* table) {
     int y0 = ty * kFillTH, x0 = tx * kFillTW;
     int th = min(kFillTH, g.H - y0), tw = min(kFillTW, g.W - x0);
     int32_t* T = table + b * g.E;
-    FillPixels px =
-        fill_label_tile(g, mask + b * (long long)g.H * g.W, y0, x0, th, tw, s);
+    FillBytes v;
+    fill_load(g, mask + b * (long long)g.H * g.W, y0, x0, th, tw, v);
+    FillPixels px = fill_label_tile(g, v, y0, x0, th, tw, s);
     int base = 1 + (ty * g.tx + tx) * kFillSlots;
     if (ty == 0 && tx == 0 && threadIdx.x == 0) T[0] = 0;
     if (px.uniform) {
@@ -423,6 +432,8 @@ k_fill_write(FillGeom g, const uint8_t* mask, int32_t* table,
     int32_t* T = table + b * g.E;
     int base = 1 + (ty * g.tx + tx) * kFillSlots;
     int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    FillBytes v;                             // in flight during the finds
+    fill_load(g, mask + off, y0, x0, th, tw, v);
     // A tile with no hole whose perimeter components all reach the border
     // is its mask: no labeling.
     bool label = threadIdx.x == 0 && T[base + kFillP] != 0;
@@ -430,15 +441,6 @@ k_fill_write(FillGeom g, const uint8_t* mask, int32_t* table,
       if (T[base + pos] != kNoEntry && find_halving(T, base + pos) != 0)
         label = true;
     if (!__syncthreads_or(label)) {
-      uint8_t v[kFillRows][kFillCols];       // all loads first, then stores
-#pragma unroll
-      for (int k = 0; k < kFillRows; ++k)
-#pragma unroll
-        for (int c = 0; c < kFillCols; ++c) {
-          int ly = warp + k * (kFillThreads / 32), lx = c * 32 + lane;
-          v[k][c] = ly < th && lx < tw
-                        ? mask[off + (long long)(y0 + ly) * g.W + x0 + lx] : 0;
-        }
 #pragma unroll
       for (int k = 0; k < kFillRows; ++k)
 #pragma unroll
@@ -449,7 +451,7 @@ k_fill_write(FillGeom g, const uint8_t* mask, int32_t* table,
         }
       return;
     }
-    FillPixels px = fill_label_tile(g, mask + off, y0, x0, th, tw, s);
+    FillPixels px = fill_label_tile(g, v, y0, x0, th, tw, s);
     if (px.uniform == 0) {
 #pragma unroll
       for (int k = 0; k < kFillRows; ++k)
