@@ -440,7 +440,7 @@ int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
 // give each thread a row and a run of kRun outputs whose taps stay in
 // registers (one shared load per output and a few more per run); the
 // vertical passes a column and a run of rows the same way.  The block
-// takes 512 threads, three blocks an SM: the stencil phases are bound by
+// takes 384 threads, four blocks an SM: the stencil phases are bound by
 // instruction issue and shared-memory latency, and the tile's load is not
 // overlapped with its compute.  The blur sums exact integers; the mean
 // keeps its strict tap order (row pass, then column pass over the
@@ -450,7 +450,7 @@ int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
 // outside the frame holding each pass's neutral value, so no out-of-frame
 // neighbour wins.
 
-constexpr int kPreTY = 64, kPreTX = 120, kPreThreads = 512, kRun = 8;
+constexpr int kPreTY = 64, kPreTX = 120, kPreThreads = 384, kRun = 8;
 // the threshold's run: its kRE / kRunV x kNW tasks split evenly over the
 // block's warps
 constexpr int kRunV = 9;
@@ -766,7 +766,7 @@ __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
     }
 }
 
-__global__ void __launch_bounds__(kPreThreads, 3)
+__global__ void __launch_bounds__(kPreThreads, 4)
 k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
              uint8_t* binary, bool vec) {
   extern __shared__ __align__(16) uint8_t smem[];
