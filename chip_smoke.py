@@ -147,9 +147,8 @@ TF32_FLOPS_PER_S = 495e12
 # per pass, 2 passes (counted as 44).  The kernels are built with
 # -fmad=false, so each __fmul_rn and __fadd_rn is one instruction on an
 # SM's 128 FP32 lanes: the bound divides them by 132 x 128 x clocks.max.sm
-# (fp32_ops_per_s), not by the 67 TFLOP/s peak, which counts an FMA as two.
+# (mean_ops_ms), not by the 67 TFLOP/s peak, which counts an FMA as two.
 MEAN_FLOPS_PER_PX = 44
-FP32_LANES_PER_SM = 128
 # TF32 operations per pixel of mxu_conv's band products: per 16 x 8 tile of
 # out, 3 k tiles x 2 splits in the row pass and 4 x 3 in the column pass,
 # each 16 x 8 x 8 multiply-adds
@@ -221,14 +220,11 @@ def clocks_max_sm_mhz():
     return clocks_max_sm_mhz.mhz
 
 
-def fp32_ops_per_s():
-    """Uncontracted float operations a second: one a lane and clock."""
-    return H100_SMS * FP32_LANES_PER_SM * clocks_max_sm_mhz() * 1e6
-
-
 def mean_ops_ms(px):
-    """The f32 mean11's operation bound in ms for px pixels."""
-    return px * MEAN_FLOPS_PER_PX / fp32_ops_per_s() * 1e3
+    """The f32 mean11's operation bound in ms for px pixels: one
+    uncontracted float operation a lane and clock."""
+    return (px * MEAN_FLOPS_PER_PX / (H100_SMS * DISPATCH_LANES_PER_SM *
+                                      clocks_max_sm_mhz() * 1e6) * 1e3)
 
 
 def host_ms(fn, iters=5):

@@ -61,10 +61,11 @@ constexpr int kItems = 8;   // consecutive pixels per thread in root scans
 // tile of kFillTH x kFillTW pixels.  It labels the tile's background,
 // 4-connected, with a union-find in shared memory (parents seeded with the
 // starts of the rows' runs, one link up per run overlap, atomicMin hooking
-// with path halving).  A component that
-// does not touch the tile's perimeter is a hole.  Each component that does
-// gets one entry in a per-frame table in device memory, indexed by tile and
-// perimeter position (kFillP slots a tile): its representative is the
+// with path halving).  A component that does not touch the tile's
+// perimeter is a hole.  Each component that does gets one entry in a
+// per-frame table in device memory, indexed by tile and perimeter
+// position (kFillP slots a tile, then its has-a-hole flag; slots of no
+// background pixel hold kNoEntry): its representative is the
 // component's least perimeter position, the other perimeter pixels point at
 // it, and a component with a pixel on the frame border hooks its
 // representative under entry 0, the frame border itself.  The merge kernel
