@@ -14,7 +14,10 @@ Phases (each prints a line; any failure exits non-zero without a result):
      exactly (tolerance 0):
      a. the fused 640x480 kernel: bench frames in each input form,
         adversarial frames (also with K = 4, fewer slots than blobs) and an
-        odd frame size;
+        odd frame size; then the cases that attack its tiles
+        (scene.tile_case_frames and scene.label_case_masks drawn as frames,
+        BGR planes and Mono8, contrast 15 and -15) at 640x480, 477x631,
+        13x17 and 3x3 with K = 64 and 4;
      b. the band-tiled 2 MP kernels (preprocess, flood fill, band labels,
         band merge, banded stats, bbox sums) at 1920x1080: bench Mono8 and
         BGR frames, adversarial frames and masks with K = 64 and K = 4, and
@@ -25,7 +28,13 @@ Phases (each prints a line; any failure exits non-zero without a result):
         noise, contrast 15 and -15) at 3x3, 3x1920, 1080x3, 13x17,
         1037x1531 and 1920x1080, the flood fill and the preprocess (Mono8,
         BGR, BGR planes) exact, and the fill of a batch with active flags
-        mixed, its skipped frames' prefilled outputs untouched;
+        mixed, its skipped frames' prefilled outputs untouched; and the
+        band labels with the merge after them on scene.label_case_masks
+        (corridors across every tile edge and corner, pixels meeting only
+        diagonally at tile corners, a component whose least pixel lies in a
+        later tile, all foreground, all background, noise) at the same
+        sizes, bands 128, 48, 16, 2 and 1, connectivity 8 and 4, and with
+        active flags mixed over prefilled outputs;
      c. the run-table 2 MP kernels (the preprocess with background tables,
         run extraction, border flood, fill + extraction, run labels,
         writeback) at 1920x1080: bench BGR frames NHWC and channel-major,
@@ -139,6 +148,9 @@ BATCH_2MP = 128
 TIME_BATCH_2MP = 32
 H2, W2 = 1080, 1920
 ODD_2MP = (1037, 1531)        # a height that is not a multiple of the band
+# Bands of the label cases: the route's, bands that cut the 32-row tiles of
+# the labeling, and bands of 2 and 1 rows.
+LABEL_BANDS = (128, 48, 16, 2, 1)
 RT_BG, RT_FG = 8, 7           # the detector's run-table widths
 # Published peaks of one H100 SXM (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -358,6 +370,103 @@ def check_tile_cases(dev):
     return err
 
 
+def check_label_cases(dev):
+    """Phase 3b's cases that attack the foreground labeling's tiles: the
+    band labels (B5a) and the merge after them against their plain versions
+    on scene.label_case_masks at the frame sizes that cut tiles and at
+    1920x1080, every band of LABEL_BANDS (bands that cut the 32-row tiles,
+    and of 1 and 2 rows), connectivity 8 and 4; and the band labels of a
+    batch with active flags mixed, whose skipped frames must keep their
+    prefilled labels.  Returns the largest error (0 or the run fails)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    err = 0
+    for h, w in scene.TILE_CASE_SIZES + ((H2, W2),):
+        masks = on(np.stack(list(scene.label_case_masks(h, w).values())))
+        errs, most = {}, 0
+        for band in LABEL_BANDS:
+            for conn in (8, 4):
+                got = ct.band_ccl(masks, band, conn, 128)
+                want = ct.band_ccl_reference(masks, band, conn, 128)
+                merged = ct.merge_bands(got[0].clone(), got[1], got[2], band,
+                                        conn, K)
+                errs[f"b{band}c{conn}"] = max(
+                    max_abs_err(got, want),
+                    max_abs_err(merged, ct.merge_reference(
+                        want[0], want[1], want[2], band, conn, K)))
+                most = max(most, int(want[2].max()))
+        torch.cuda.synchronize()
+        phase(f"check 2MP label cases {h}x{w} ({len(masks)} masks, most "
+              f"roots in a band {most}): band_ccl + merge_bands max_abs_err "
+              f"{errs}")
+        err = max(err, *errs.values())
+    masks = on(np.stack(list(scene.label_case_masks(*ODD_2MP).values())))
+    active = torch.arange(len(masks), device=dev) % 3 != 1
+    sentinel = on(np.random.RandomState(8).randint(
+        0, ODD_2MP[0] * ODD_2MP[1], masks.shape).astype(np.int32))
+    for band, conn in ((128, 8), (48, 4)):
+        out = sentinel.clone()
+        got = ct.band_ccl(masks, band, conn, 128, active=active, out=out)
+        torch.cuda.synchronize()
+        want = ct.band_ccl_reference(masks, band, conn, 128)
+        skip_err = max(
+            max_abs_err(tuple(t[active] for t in got),
+                        tuple(t[active] for t in want)),
+            max_abs_err((out[~active],), (sentinel[~active],)))
+        phase(f"check 2MP label cases: band_ccl (band {band}, connectivity "
+              f"{conn}) with active {active.tolist()}, skipped frames "
+              f"prefilled: max_abs_err {skip_err}")
+        err = max(err, skip_err)
+    if err:
+        fail("the band labels differ from their plain version on the label "
+             "cases")
+    return err
+
+
+def check_fused_tile_cases(dev):
+    """Phase 3a's cases that attack B1's tiles: the fused kernel against
+    its plain version on scene.tile_case_frames and the label cases drawn
+    as frames, BGR planes and Mono8, contrast 15 and -15, K = 64 and 4, at
+    640x480, 477x631, 13x17 and 3x3.  Returns the largest error (0 or the
+    run fails)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops.fused_kernels import (
+        contamination_fused, contamination_fused_reference)
+
+    err = 0
+    for h, w in ((480, 640), (477, 631), (13, 17), (3, 3)):
+        frames = np.concatenate([
+            np.stack(list(scene.tile_case_frames(h, w).values())),
+            scene.mask_frames(list(scene.label_case_masks(h, w).values()))])
+        errs = {}
+        for form, (x, cm) in {
+                "bgr_planes": (frames.transpose(0, 3, 1, 2), True),
+                "mono8": (frames[..., 1], False)}.items():
+            x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for k in (K, 4):
+                for c in (CONTRAST, -CONTRAST):
+                    got = contamination_fused(x, c, k, cm, return_labels=True)
+                    want = contamination_fused_reference(x, c, k, cm,
+                                                         return_labels=True)
+                    errs[f"{form}_k{k}_{c}"] = max_abs_err(got, want)
+        torch.cuda.synchronize()
+        phase(f"check fused tile and label cases {h}x{w} ({len(frames)} "
+              f"frames): max_abs_err {errs}")
+        err = max(err, *errs.values())
+    if err:
+        fail("fused_detect differs from its plain version on the tile and "
+             "label cases")
+    return err
+
+
 def tiled_phases(dev, smi, argv):
     """Phases 3b, 4b and 5 of the band-tiled 2 MP route; returns
     (largest check error, {kernel: launches}, {kernel: timings})."""
@@ -396,6 +505,7 @@ def tiled_phases(dev, smi, argv):
             ("bench2_odd_mono8", on(odd[..., 2]), False, K, None)):
         err = max(err, check_tiled(name, x, cm, k, band, mask))
     err = max(err, check_tile_cases(dev))
+    err = max(err, check_label_cases(dev))
 
     # -- 4b. the 2 MP main path --------------------------------------------
     frames = scene.make_frames(BATCH_2MP, H2, W2, seed=2)
@@ -1587,6 +1697,7 @@ def main(argv):
               f"sums/bbox/bgsum/n/labels {errs}")
         if any(errs):
             fail(f"fused_detect differs from its plain version on {name}")
+    max_err = max(max_err, check_fused_tile_cases(dev))
     n_first = contamination_fused(cases["bench8_channel_major"][0][:2],
                                   CONTRAST, K, True)[3].tolist()
     if n_first != [9, 10]:
@@ -1765,9 +1876,19 @@ def main(argv):
         "library_ms": None,
         "library_note": "no single PyTorch call computes it",
         "batch": BATCH, "frame": "640x480x3",
+        "cuda_launches_per_call": launches_per_call,
+        "sources": [csrc + "fused_detect.cu", csrc + "tile_uf.cuh"],
+        "design": "one-pass preprocess, tile fill and tile labels over "
+                  "32x128 shared-memory tiles (tile_uf.cuh), stats",
     }] + [entry(n) for n in ("band_ccl", "flood_fill", "banded_stats",
                              "bbox_sums", *runtable)] + split + probes + \
         labeling + primitives
+    kernels[1].update(
+        sources=[csrc + "ccl_tiled.cu", csrc + "tile_uf.cuh"],
+        cuda_launches_per_call=4,
+        design="foreground tile labeling over 32x128 shared-memory tiles "
+               "(tile_uf.cuh): labels written once, edges merged in the "
+               "label plane, root tables from each band's first root")
     print(json.dumps({"path_kernels": [entry("merge_bands"),
                                        entry("preprocess")]}), flush=True)
     print(json.dumps({"end_to_end": dict(

@@ -17,16 +17,22 @@
 //
 // What bounds it on an H100 SXM: the function reads each frame once
 // (640x480x3 = 921,600 B) and writes ~4 KB of tables (16 rows x 64 slots x
-// 4 B), so the least time is ~0.28 us/frame at 3.35 TB/s; its float work
-// (44 flops/pixel in the mean) is ~0.2 us/frame at 67 TFLOP/s.  This first
-// design does not approach that bound: it keeps the TPU kernel's arithmetic
-// but not its block structure (a 1.2 MB label plane does not fit one SM's
-// 227 KB), and passes every stage through global-memory scratch that stays
-// partly in the 50 MB L2 (17 launches per batch).  Hole fill and labeling
-// are union-find with atomicMin hooking (the larger root goes under the
-// smaller, so a root is its component's minimum linear index, which is the
-// TPU kernel's label); initial parents are the start of each pixel's
-// same-class run within its warp (one ballot), which keeps find paths short.
+// 4 B), so its bytes take ~0.28 us/frame at 3.35 TB/s; its float work (the
+// mean's 44 uncontracted operations a pixel on the SMs' 128 FP32 lanes)
+// takes ~0.40, which bounds it.  A 1.2 MB label plane does not fit one SM's
+// 227 KB, so the TPU kernel's one launch does not map over; the detect is
+// composed of the port's shared-memory tile kernels instead, 11 launches:
+//   1. the one-pass preprocess (k_preprocess below, hd_preprocess's): gray
+//      and the closed mask, no other plane;
+//   2. the hole fill's block union-find (tile_uf.cuh, hd_flood_fill's, 3
+//      launches), in place on the closed mask;
+//   3. the foreground tile labeling (tile_uf.cuh, hd_band_ccl's with one
+//      band of H rows, 3 launches): labels = minimum linear index of the
+//      8-connected component (the TPU kernel's label), each written once
+//      and only components joined across tile edges rewritten;
+//   4. the first-K-root statistics (launch_stats, 4 launches).
+// Scratch beyond the outputs: gray and mask (1 B/px each), the fill's
+// per-frame table (L2-resident), and the stats' root ranks.
 // Per-slot sums are exact int32 atomics, aggregated per warp and per block in
 // shared memory first, so results do not depend on the order of execution.
 //
@@ -40,12 +46,14 @@
 // one-pass preprocess" below): no plane of scratch, and its bound is the
 // mean's 44 uncontracted float operations a pixel on the SMs' 128 FP32
 // lanes, above its 3 (Mono8) or 5 (BGR) bytes a pixel.  hd_label and
-// hd_stats_from_labels are the two-kernel split of the eight-pass chain
-// (the profiling path, heimdall_tpu_torch/ops/split_kernels.py).
+// hd_stats_from_labels are the two-kernel split of the first design's
+// eight-pass chain, with pixel-level union-finds on global planes (the
+// profiling path, heimdall_tpu_torch/ops/split_kernels.py); the chain stays
+// because its stages are the profilers' truncations.
 
 #include <string.h>
 
-#include "common.cuh"
+#include "tile_uf.cuh"
 
 namespace {
 
@@ -321,12 +329,10 @@ __global__ void k_bbox_sums(Frames f, Geom g, int K, const int32_t* nblobs,
   }
 }
 
-// The stages of hd_label, in order: it stops after `stage`.  Every other
-// entry point runs the whole preprocess (kCcl passed as the stage).
+// The stages of hd_label, in order: it stops after `stage`.
 enum Stage { kGray = 0, kBlur5, kMean11, kPre, kFill, kCcl, kNumStages };
 
-// The preprocess passes of every entry point, up to the dilate of the
-// close: gray in `gray`, the dilated plane in plane1 (plane2 and work are
+// hd_label's preprocess passes, up to the dilate of the close: gray in `gray`, the dilated plane in plane1 (plane2 and work are
 // scratch).  With stage kGray, kBlur5 or kMean11 it stops after that stage,
 // whose plane is then in gray, plane1 or plane2 (threshold 0/255).  Returns
 // the first CUDA error.
@@ -779,32 +785,6 @@ k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
 
 }  // namespace
 
-// Runs the whole detect on `stream`.  Scratch planes are [B, H, W]:
-// gray/plane1/plane2 uint8, work int32 (also used as float32), labels int32
-// (the output label plane).  rowcnt/rowoff are int32 [B, H].  sums and bgsum
-// must be zeroed by the caller.  Returns the first CUDA error (0 = none).
-extern "C" int hd_fused_detect(
-    const uint8_t* frames, int B, int H, int W, int C, long long cstride,
-    long long pstride, int ct, int K, const int* q8, const float* k11,
-    uint8_t* gray, uint8_t* plane1, uint8_t* plane2, int32_t* work,
-    int32_t* labels, int32_t* rowcnt, int32_t* rowoff, int32_t* sums,
-    int32_t* bbox, int32_t* bgsum, int32_t* nblobs, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  Geom g{H, W, (long long)H * W, H, 1};
-  Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
-  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, kCcl, gray, plane1,
-                                   plane2, work, st);
-  if (!err) err = launch_fill_label(g, B, kCcl, plane1, plane2, work, labels,
-                                    st);
-  if (!err) err = launch_stats(f, g, B, K, false, plane2, labels, work,
-                               rowcnt, rowoff, gray, sums, bbox, bgsum, nblobs,
-                               st);
-  return err;
-}
-
-// Number of kernel launches one hd_fused_detect call makes.
-extern "C" int hd_fused_detect_launches() { return 17; }
-
 // The preprocess stages of hd_fused_detect alone, for frames of any size
 // (the 2 MP routes take over from the closed mask): gray u8 [B, H, W] and
 // the closed binary plane binary u8 [B, H, W] (0/1), in one launch
@@ -837,6 +817,38 @@ extern "C" int hd_preprocess(const uint8_t* frames, int B, int H, int W,
   return 0;
 }
 
+// Runs the whole detect on `stream` (see the top of this file).  Scratch:
+// gray and mask u8 [B, H, W] (the closed mask, filled in place), table
+// int32 [B, hd_flood_entries(H, W)] (ccl_tiled.cu's; tile_uf.cuh's
+// fill_geom), rank int32 [B, H, W], rowcnt/rowoff int32 [B, H]; labels
+// int32 [B, H, W] is the output label plane.  sums and bgsum must be zeroed
+// by the caller.  Returns the first CUDA error (0 = none).
+extern "C" int hd_fused_detect(
+    const uint8_t* frames, int B, int H, int W, int C, long long cstride,
+    long long pstride, int ct, int K, const int* q8, const float* k11,
+    uint8_t* gray, uint8_t* mask, int32_t* table, int32_t* rank,
+    int32_t* labels, int32_t* rowcnt, int32_t* rowoff, int32_t* sums,
+    int32_t* bbox, int32_t* bgsum, int32_t* nblobs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = hd_preprocess(frames, B, H, W, C, cstride, pstride, ct, q8, k11,
+                          gray, mask, stream);
+  if (!err)
+    err = launch_flood_fill(mask, B, H, W, nullptr, table, mask, st);
+  if (!err)
+    err = launch_tile_labels<false>(
+        mask, B, label_geom(H, W, H, 8, 1, nullptr), labels, nullptr,
+        nullptr, st);
+  Geom g{H, W, (long long)H * W, H, 1};
+  Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
+  if (!err) err = launch_stats(f, g, B, K, false, mask, labels, rank, rowcnt,
+                               rowoff, gray, sums, bbox, bgsum, nblobs, st);
+  return err;
+}
+
+// Number of kernel launches one hd_fused_detect call makes (10 for a frame
+// of one 32 x 128 tile: its fill and labels need no merge).
+extern "C" int hd_fused_detect_launches() { return 11; }
+
 // ------------------------------------------------- the two-kernel split
 //
 // hd_label and hd_stats_from_labels replace the split of the fused Pallas
@@ -845,12 +857,14 @@ extern "C" int hd_preprocess(const uint8_t* frames, int B, int H, int W,
 // ::_make_stats_kernel (frame + label plane -> the fused kernel's tables),
 // and the profilers' truncations of the label kernel
 // (scripts/profile_fused.py, scripts/profile_preprocess.py), which are
-// hd_label's stages.  Both take BGR planes [B, 3, H, W] and run the fused
-// detect's passes above; B6b(frame) then B6a(frame, labels) gives the fused
-// detect's outputs.  What bounds them on an H100 SXM: bytes.  hd_label reads
-// the frame (3 B/px) and writes one plane (1 B/px, 4 B/px for the labels);
-// hd_stats_from_labels reads the frame and the labels (7 B/px) and writes
-// ~4 KB of tables.  Like the fused detect, they pass every stage through
+// hd_label's stages.  Both take BGR planes [B, 3, H, W]: hd_label runs the
+// eight global passes of the preprocess and the pixel-level union-finds
+// (launch_to_close_dilate, launch_fill_label), hd_stats_from_labels the
+// fused detect's stats passes; B6b(frame) then B6a(frame, labels) gives the
+// fused detect's outputs.  What bounds them on an H100 SXM: bytes.
+// hd_label reads the frame (3 B/px) and writes one plane (1 B/px, 4 B/px
+// for the labels); hd_stats_from_labels reads the frame and the labels
+// (7 B/px) and writes ~4 KB of tables.  They pass every stage through
 // global-memory scratch rather than approach that bound.
 
 // Frame -> the plane of `stage`: gray (gray), Q8 blur5 (plane1), the INV

@@ -5,7 +5,9 @@ and gates around it (counterpart of heimdall_tpu/ops/pallas_kernels.py).
 mean11 with rint, INV threshold, open/close, hole fill, 8-connected CCL and
 the first-K-root statistics — and returns the raw outputs in the layout of
 ``contamination_pallas``.  On a CUDA tensor it launches the hand-written
-kernel of ``csrc/fused_detect.cu``; on a CPU tensor it runs
+kernels of ``csrc/fused_detect.cu`` (the one-pass preprocess, then the
+shared-memory tile fill and labeling of ``csrc/tile_uf.cuh``, then the
+stats); on a CPU tensor it runs
 ``contamination_fused_reference``, the same function composed from the plain
 ops of this package.  ``fused_blob_table`` and ``fused_detect`` add the
 BlobTable formulas, the confidence blend and the gates (``gate``).
@@ -184,16 +186,17 @@ def _launch(frames: torch.Tensor, contrast_threshold, max_blobs: int,
     bbox = empty((B, 4, K), i32)
     bgsum = torch.zeros((B, 4, K), dtype=i32, device=dev)
     n = empty((B,), i32)
-    labels = empty((B, H, W), i32)
-    gray, plane1, plane2 = (empty((B, H, W), u8) for _ in range(3))
-    work = empty((B, H, W), i32)
+    labels, rank = empty((B, H, W), i32), empty((B, H, W), i32)
+    gray, mask = empty((B, H, W), u8), empty((B, H, W), u8)
+    table = empty((B, _cuda.library("ccl_tiled").hd_flood_entries(H, W)),
+                  i32)
     rowcnt, rowoff = empty((B, H), i32), empty((B, H), i32)
     q8, k11 = kernel_taps()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _cuda.library("fused_detect").hd_fused_detect(
         frames.data_ptr(), B, H, W, C, cstride, pstride,
         int(contrast_threshold), K, q8, k11, gray.data_ptr(),
-        plane1.data_ptr(), plane2.data_ptr(), work.data_ptr(),
+        mask.data_ptr(), table.data_ptr(), rank.data_ptr(),
         labels.data_ptr(), rowcnt.data_ptr(), rowoff.data_ptr(),
         sums.data_ptr(), bbox.data_ptr(), bgsum.data_ptr(), n.data_ptr(),
         stream)

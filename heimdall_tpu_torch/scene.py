@@ -7,7 +7,8 @@ rectangle outline (100), its base disc (80) and one to three dark
 contaminant discs drawn from a seeded RandomState.  Beside it: the
 adversarial masks, the run-table check's masks, and the masks and frames
 that attack the 2 MP kernels' tiles (tile_case_masks, tile_case_frames),
-shared by the tests and chip_smoke.py.
+and the masks that attack the labeling's tiles (label_case_masks), shared
+by the tests and chip_smoke.py.
 """
 
 import numpy as np
@@ -162,9 +163,11 @@ def check_runtable_masks(h=96, w=128):
     return cases
 
 
-# The tiles (rows, columns) of the hole-fill kernel and of the one-pass
-# preprocess (csrc/ccl_tiled.cu, csrc/fused_detect.cu).
+# The tiles (rows, columns) of the hole-fill kernel, of the foreground
+# labeling and of the one-pass preprocess (csrc/tile_uf.cuh,
+# csrc/fused_detect.cu).
 FILL_TILE = (32, 128)
+LABEL_TILE = (32, 128)
 PRE_TILE = (64, 120)
 # Frame sizes that cut tiles or are smaller than a tile or the preprocess's
 # 11-pixel halo.
@@ -255,6 +258,65 @@ def tile_case_masks(h, w, seed=0, tile=FILL_TILE):
         "snake_closed": _snake_corridor(h, w, tile, False),
         "snake_open": _snake_corridor(h, w, tile, True),
         "diagonal_corners": _diagonal_corners(h, w, tile),
+        "all_fg": np.ones((h, w), bool),
+        "all_bg": np.zeros((h, w), bool),
+        "noise": rng.rand(h, w) < 0.5,
+    }
+
+
+def _corner_pixels(h, w, tile, anti):
+    """Background but, at every interior tile corner (Y, X), the two
+    foreground pixels (Y - 1, X - 1) and (Y, X) (anti: (Y - 1, X) and
+    (Y, X - 1)), which touch only diagonally."""
+    th, tw = tile
+    m = np.zeros((h, w), bool)
+    for Y in range(th, h, th):
+        for X in range(tw, w, tw):
+            if anti:
+                m[Y - 1, X] = m[Y, X - 1] = True
+            else:
+                m[Y - 1, X - 1] = m[Y, X] = True
+    return m
+
+
+def _hook(h, w, tile):
+    """A component whose least pixel lies in a later tile than the
+    component's pixels of an earlier row: an arm down the first tile
+    column from row 10, an arm down the last from row 3, joined by a bar
+    near the bottom; and a U whose two arms lie in the first tile, joined
+    only below it, in the next tile row."""
+    th, tw = tile
+    m = np.zeros((h, w), bool)
+    if h < 8 or w < 8:
+        return m
+    bottom, a, b = h - 3, min(5, w - 1), w - 2
+    m[min(10, bottom):bottom + 1, a] = True
+    m[3:bottom + 1, b] = True
+    m[bottom, a:b + 1] = True
+    if h > th + 10 and w > 30:
+        u = th + 8
+        m[2:u + 1, 10] = m[2:u + 1, 20] = True
+        m[u, 10:21] = True
+    return m
+
+
+def label_case_masks(h, w, seed=0, tile=LABEL_TILE):
+    """Masks that attack the foreground labeling's tiles, bool [h, w] by
+    name (True = foreground): a one-pixel corridor snaking across every
+    tile edge and corner, a spiral corridor and its walls, foreground
+    pixels meeting only diagonally at tile corners (both diagonals: one
+    component under 8-connectivity, two under 4), a component whose least
+    pixel lies in a later tile than its first rows' tiles (and a U joined
+    only in the next tile row), all foreground, all background, and noise
+    at 0.5 (more roots a band than a root table holds)."""
+    rng = np.random.RandomState(seed)
+    return {
+        "snake": ~_snake_corridor(h, w, tile, False),
+        "spiral": ~_spiral_corridor(h, w, False),
+        "spiral_walls": _spiral_corridor(h, w, False),
+        "diagonal_corners": _corner_pixels(h, w, tile, False),
+        "antidiagonal_corners": _corner_pixels(h, w, tile, True),
+        "hook": _hook(h, w, tile),
         "all_fg": np.ones((h, w), bool),
         "all_bg": np.zeros((h, w), bool),
         "noise": rng.rand(h, w) < 0.5,

@@ -135,3 +135,47 @@ def test_preprocess_tile_cases(card, size, form):
         _equal(fused_kernels.preprocess(x, ct, cm),
                fused_kernels.preprocess_reference(x, ct, cm))
     torch.cuda.synchronize()
+
+
+# The cases that attack the foreground labeling's tiles
+# (scene.label_case_masks; tests/test_torch_label_cases.py holds the plain
+# versions against JAX): every band the route or a caller may take, bands
+# that cut the 32-row tiles, both connectivities.
+LABEL_SIZES = [(64, 256), (301, 517), *scene.TILE_CASE_SIZES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", LABEL_SIZES)
+@pytest.mark.parametrize("connectivity", [8, 4])
+def test_band_ccl_label_cases(card, size, connectivity):
+    masks = torch.from_numpy(np.stack(
+        list(scene.label_case_masks(*size).values()))).to(card)
+    for band in (1, 2, 16, 32, 48, 64, 128, size[0]):
+        for cap in (128, 4):
+            out = ccl_tiled.band_ccl(masks, band, connectivity, cap)
+            _equal(out, ccl_tiled.band_ccl_reference(masks, band,
+                                                     connectivity, cap))
+            merged = ccl_tiled.merge_bands(out[0].clone(), out[1], out[2],
+                                           band, connectivity, 64)
+            _equal(merged, ccl_tiled.merge_reference(
+                out[0], out[1], out[2], band, connectivity, 64))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_band_ccl_leaves_skipped_frames_untouched(card):
+    masks = torch.from_numpy(np.stack(
+        list(scene.label_case_masks(1037, 1531).values()))).to(card)
+    B = masks.shape[0]
+    active = torch.arange(B, device=card) % 3 != 1
+    sentinel = torch.from_numpy(np.random.RandomState(8).randint(
+        0, 1037 * 1531, masks.shape).astype(np.int32)).to(card)
+    for band, conn in ((128, 8), (48, 4)):
+        out = sentinel.clone()
+        lab, roots, counts = ccl_tiled.band_ccl(masks, band, conn, 128,
+                                                active=active, out=out)
+        torch.cuda.synchronize()
+        want = ccl_tiled.band_ccl_reference(masks, band, conn, 128)
+        _equal((lab[active], roots[active], counts[active]),
+               tuple(w[active] for w in want))
+        assert torch.equal(out[~active], sentinel[~active])
