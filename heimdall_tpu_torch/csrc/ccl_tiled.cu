@@ -53,8 +53,6 @@
 // in the 50 MB L2.  The merge passes through label planes in device memory
 // and does not approach its bound.
 
-#include <limits.h>
-
 #include "tile_uf.cuh"
 
 namespace {
@@ -66,14 +64,11 @@ constexpr int kItems = 8;   // consecutive pixels per thread in root scans
 
 // Writes, in raster order, the roots (L[p] == p) among pixels [lo, hi) to
 // out[start + rank] where start + rank < limit; returns their count (in
-// every thread), or, once it has found `stop` of them, stops after that
-// chunk of pixels.  Background holds H*W > p, so it is never a root.
+// every thread).  Background holds H*W > p, so it is never a root.
 __device__ int append_roots(const int32_t* L, long long lo, long long hi,
-                           int32_t* out, int start, int limit,
-                           int stop = INT_MAX) {
+                           int32_t* out, int start, int limit) {
   int n = 0;
-  for (long long c0 = lo; c0 < hi && n < stop;
-       c0 += (long long)kScanThreads * kItems) {
+  for (long long c0 = lo; c0 < hi; c0 += (long long)kScanThreads * kItems) {
     long long p0 = c0 + (long long)threadIdx.x * kItems;
     unsigned bits = 0;
     for (int i = 0; i < kItems; ++i) {
@@ -92,6 +87,55 @@ __device__ int append_roots(const int32_t* L, long long lo, long long hi,
   return n;
 }
 
+// Writes, in raster order, the roots among pixels [lo, hi) of L to
+// out[rank] where rank < limit, until it has found `stop` of them: a warp
+// takes 1024 pixels a step (32 coalesced loads a lane, then a ballot of
+// roots for each 32 of them), the block 8192, with one block scan a step.
+// Returns the count found (in every thread).
+__device__ int scan_roots(const int32_t* L, long long lo, long long hi,
+                          int32_t* out, int limit, int stop) {
+  __shared__ int warp_n[kScanThreads / 32];
+  constexpr int kSeg = 1024, kStep = kSeg * (kScanThreads / 32);
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int n = 0;
+  for (long long c0 = lo; c0 < hi && n < stop; c0 += kStep) {
+    long long seg = c0 + (long long)warp * kSeg;
+    int v[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      long long p = seg + i * 32 + lane;
+      v[i] = p < hi ? L[p] : -1;
+    }
+    uint32_t word = 0;                     // lane j: the roots of row j
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      uint32_t w = __ballot_sync(kFull, v[i] == seg + i * 32 + lane);
+      if (lane == i) word = w;
+    }
+    int cnt = __popc(word), incl = cnt;
+    for (int o = 1; o < 32; o <<= 1) {
+      int t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) warp_n[warp] = incl;
+    __syncthreads();
+    int before = n, total = 0;
+    for (int w = 0; w < kScanThreads / 32; ++w) {
+      int t = warp_n[w];
+      if (w < warp) before += t;
+      total += t;
+    }
+    __syncthreads();                       // warp_n is reused next step
+    int rank = before + incl - cnt;
+    for (; word; word &= word - 1) {
+      if (rank < limit) out[rank] = (int32_t)(seg + lane * 32 + __ffs(word) - 1);
+      ++rank;
+    }
+    n += total;
+  }
+  return n;
+}
+
 // One block per (band, frame): the band's root table, from its exact root
 // count and first root (k_label_write; the first root in slot 0 of the
 // table): the band is scanned from its first root only until the table's
@@ -103,8 +147,8 @@ __global__ void k_band_roots(Geom g, int cap, const int32_t* labels,
   int32_t* tab = roots + ((long long)b * g.R + r) * cap;
   int first = tab[0], need = min(counts[b * g.R + r], cap);
   __syncthreads();                         // every thread has read slot 0
-  int n = need > 0 ? append_roots(labels + b * g.HW, first, band_hi(g, r),
-                                  tab, 0, cap, need)
+  int n = need > 0 ? scan_roots(labels + b * g.HW, first, band_hi(g, r),
+                                tab, cap, need)
                    : 0;
   for (int j = n + threadIdx.x; j < cap; j += blockDim.x) tab[j] = (int)g.HW;
 }
@@ -237,6 +281,12 @@ extern "C" int hd_band_ccl(const uint8_t* mask, int B, int H, int W,
                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   LabelGeom lg = label_geom(H, W, band, conn, cap, active);
+  // the tile flags in the root tables' slots 1 .. cap - 1, which
+  // k_band_roots overwrites after the write pass, when they fit
+  int chunk = (cap - 1) * 4;
+  if (chunk > 0 && (lg.tx * lg.ty + chunk - 1) / chunk <= lg.R)
+    lg = with_flags(lg, reinterpret_cast<uint8_t*>(roots + 1),
+                    (long long)lg.R * cap * 4, chunk, cap * 4);
   int err = launch_tile_labels<true>(mask, B, lg, labels, roots, counts, st);
   if (err) return err;
   Geom g{H, W, (long long)H * W, band, lg.R, active};

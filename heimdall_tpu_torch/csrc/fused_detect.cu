@@ -834,10 +834,14 @@ extern "C" int hd_fused_detect(
                           gray, mask, stream);
   if (!err)
     err = launch_flood_fill(mask, B, H, W, nullptr, table, mask, st);
+  // the labels' tile flags live in the fill's table, free once it is done
+  LabelGeom lg = label_geom(H, W, H, 8, 1, nullptr);
+  long long entries = fill_geom(H, W, nullptr).E;
+  lg = with_flags(lg, reinterpret_cast<uint8_t*>(table), entries * 4,
+                  lg.tx * lg.ty, 0);
   if (!err)
-    err = launch_tile_labels<false>(
-        mask, B, label_geom(H, W, H, 8, 1, nullptr), labels, nullptr,
-        nullptr, st);
+    err = launch_tile_labels<false>(mask, B, lg, labels, nullptr, nullptr,
+                                    st);
   Geom g{H, W, (long long)H * W, H, 1};
   Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
   if (!err) err = launch_stats(f, g, B, K, false, mask, labels, rank, rowcnt,

@@ -41,13 +41,19 @@ __device__ __forceinline__ int find_halving(volatile int32_t* P, int x) {
   }
 }
 
+struct NoHook {
+  __device__ void operator()(int) const {}
+};
+
 // unite (common.cuh) with path halving in its finds: a halving store
 // re-parents a non-root to an ancestor, and a hook meanwhile carries on
 // from the parent it replaced, so no link is lost.  A halving store can
 // also overwrite a root just stored by a compression with an ancestor, so
 // compressions (find_root stores) run only after the unions, past a
-// barrier or in a later launch.
-__device__ void unite_halving(int32_t* P, int a, int b) {
+// barrier or in a later launch.  hook(b) is called for the root b that
+// the union hooks under another.
+template <typename Hook = NoHook>
+__device__ void unite_halving(int32_t* P, int a, int b, Hook hook = Hook()) {
   while (true) {
     a = find_halving(P, a);
     b = find_halving(P, b);
@@ -58,7 +64,10 @@ __device__ void unite_halving(int32_t* P, int a, int b) {
       b = t;
     }
     int old = atomicMin(&P[b], a);
-    if (old == b) return;
+    if (old == b) {
+      hook(b);
+      return;
+    }
     b = old;
   }
 }
@@ -537,6 +546,8 @@ inline int launch_flood_fill(const uint8_t* mask, int B, int H, int W,
 //      back), its roots' final roots found in the plane, and only the
 //      pixels of components hooked away rewritten; with kCount also each
 //      band's exact root count and first root (for the band root tables).
+//      Tile flags from launches 1 and 2 let it skip the tiles with no
+//      foreground, and without kCount those with no root hooked away.
 // The pairs: across a horizontal tile edge at row Y, the up links of row Y
 // with the rule that the in-row links make the rest redundant (8: up unless
 // the left pixel is foreground, up-right where up is background, up-left
@@ -547,16 +558,45 @@ inline int launch_flood_fill(const uint8_t* mask, int B, int H, int W,
 // joins them already.  Tile corners are covered: the diagonal pairs
 // (Y - 1, X - 1)-(Y, X) and (Y - 1, X)-(Y, X - 1) cross the horizontal edge.
 
+// Tile flags (one byte a tile, in scratch the caller lends): 0 no
+// foreground, 1 foreground, 2 a root of the tile hooked away by the merge.
+// They let the write pass skip every tile that has nothing to count or
+// rewrite.  A frame's flags lie in chunks of flag_chunk bytes, flag_pitch
+// bytes apart (so they can live in the unused slots of the band root
+// tables), frames flag_frame bytes apart.  Without flags the write pass
+// visits every tile.
+enum TileFlag { kNoFg = 0, kFg = 1, kHooked = 2 };
+
 struct LabelGeom {
   int H, W, tx, ty, band, conn;
   int R, cap;            // bands, and the root table's slots a band
   const int* active;
+  uint8_t* flags;
+  long long flag_frame;
+  int flag_chunk, flag_pitch;
 };
 
 inline LabelGeom label_geom(int H, int W, int band, int conn, int cap,
                             const int* active) {
   return LabelGeom{H, W, (W + kUfTW - 1) / kUfTW, (H + kUfTH - 1) / kUfTH,
-                   band, conn, (H + band - 1) / band, cap, active};
+                   band, conn, (H + band - 1) / band, cap, active,
+                   nullptr, 0, 1, 0};
+}
+
+// g with the tile flags at `flags` (see LabelGeom).
+inline LabelGeom with_flags(LabelGeom g, uint8_t* flags, long long frame,
+                            int chunk, int pitch) {
+  g.flags = flags;
+  g.flag_frame = frame;
+  g.flag_chunk = chunk;
+  g.flag_pitch = pitch;
+  return g;
+}
+
+__device__ __forceinline__ uint8_t* tile_flag(const LabelGeom& g, int b,
+                                              int t) {
+  return g.flags + b * g.flag_frame +
+         (long long)(t / g.flag_chunk) * g.flag_pitch + t % g.flag_chunk;
 }
 
 struct LabelSmem {
@@ -619,8 +659,8 @@ __device__ TilePx fg_label_tile(const LabelGeom& g, const TileBytes& v,
   return px;
 }
 
-// Launch 1: every pixel's label, the global index of its tile-local root.
-// With kCount, the first tile of each frame also clears the frame's band
+// Launch 1: every pixel's label, the global index of its tile-local root,
+// and the tile's flag (kNoFg or kFg).  With kCount, the first tile of each frame also clears the frame's band
 // root counts and sets each band's first root (slot 0 of its root table)
 // to H*W, for launch 3's atomics.
 template <bool kCount>
@@ -641,6 +681,8 @@ k_label_tiles(LabelGeom g, const uint8_t* mask, int32_t* labels,
     TileBytes v;
     tile_load(mask + off, g.W, y0, x0, th, tw, 0, v);
     TilePx px = fg_label_tile(g, v, y0, th, tw, s);
+    if (g.flags != nullptr && threadIdx.x == 0)
+      *tile_flag(g, b, ty * g.tx + tx) = px.uniform == 1 ? kNoFg : kFg;
     int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int k = 0; k < kUfRows; ++k) {
@@ -676,8 +718,13 @@ __global__ void k_label_merge(LabelGeom g, long long pairs,
   const uint8_t* m = mask + b * HW;
   int32_t* L = labels + b * HW;
   const volatile int32_t* VL = L;
+  // a root hooked away marks its tile for the write pass
+  auto mark = [&](int r) {
+    if (g.flags != nullptr)
+      *tile_flag(g, b, r / W / kUfTH * g.tx + r % W / kUfTW) = kHooked;
+  };
   auto join = [&](long long p, long long q) {
-    unite_halving(L, VL[p], VL[q]);
+    unite_halving(L, VL[p], VL[q], mark);
   };
   long long nh = (long long)(g.ty - 1) * W;
   for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -722,7 +769,8 @@ struct LabelWriteSmem {
 };
 
 // Launch 3: the labels of components hooked away, and with kCount each
-// band's root count and first root.
+// band's root count and first root; with flags, only over the tiles that
+// need it.
 template <bool kCount>
 __global__ void __launch_bounds__(kUfThreads, 5)
 k_label_write(LabelGeom g, const uint8_t* mask, int32_t* labels,
@@ -734,6 +782,11 @@ k_label_write(LabelGeom g, const uint8_t* mask, int32_t* labels,
     int th = min(kUfTH, g.H - y0), tw = min(kUfTW, g.W - x0);
     long long off = b * (long long)HW;
     const volatile int32_t* L = labels + off;
+    // a tile with no foreground has nothing to do, one with no root
+    // hooked away nothing to rewrite (only roots to count)
+    int flag = g.flags != nullptr ? *tile_flag(g, b, ty * g.tx + tx)
+                                  : kHooked;
+    if (flag == kNoFg || (!kCount && flag == kFg)) return;
     TileBytes v;
     tile_load(mask + off, g.W, y0, x0, th, tw, 0, v);
     TilePx px = fg_label_tile(g, v, y0, th, tw, s.t);
@@ -747,7 +800,8 @@ k_label_write(LabelGeom g, const uint8_t* mask, int32_t* labels,
     // each tile root's root in the merged plane
     bool moved = false;
     auto settle = [&](int i) {
-      int r = tile_global(g, y0, x0, i), f = find_root(L, r);
+      int r = tile_global(g, y0, x0, i);
+      int f = flag == kHooked ? find_root(L, r) : r;
       s.fin[i] = f;
       moved |= f != r;
       if (kCount && f == r) {
