@@ -849,7 +849,7 @@ extern "C" int hd_fused_detect(
   return err;
 }
 
-// Number of kernel launches one hd_fused_detect call makes (10 for a frame
+// Number of kernel launches one hd_fused_detect call makes (9 for a frame
 // of one 32 x 128 tile: its fill and labels need no merge).
 extern "C" int hd_fused_detect_launches() { return 11; }
 
