@@ -46,12 +46,13 @@
 // What bounds them on an H100 SXM: bytes.  The fill reads the mask and
 // writes the filled plane (2 B/px), the labeling reads the mask and writes
 // int32 labels (5 B/px), the merge reads and writes labels (8 B/px): about
-// 0.6, 3.1 and 5.0 us per 1920x1080 frame at 3.35 TB/s.  The fill and the
-// labeling read the mask twice (tile pass and write pass), so their design
-// floors are 3 and 6 B/px, plus the labeling's rewrites of components that
-// cross tile edges and its root scans; their tables and root pointers stay
-// in the 50 MB L2.  The merge passes through label planes in device memory
-// and does not approach its bound.
+// 0.6, 3.1 and 5.0 us per 1920x1080 frame at 3.35 TB/s.  The fill reads
+// the mask twice (tile pass and write pass), so its design floor is 3
+// B/px; the labeling meets its bound's bytes in its tile pass and adds
+// the labels of the tiles that hold foreground read back, the rewrites of
+// components that cross tile edges, and its root scans.  The fill's table
+// and the labels' root pointers stay in the 50 MB L2.  The merge passes
+// through label planes in device memory and does not approach its bound.
 
 #include "tile_uf.cuh"
 

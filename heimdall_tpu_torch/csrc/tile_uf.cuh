@@ -542,12 +542,12 @@ inline int launch_flood_fill(const uint8_t* mask, int B, int H, int W,
 //      plane is a forest over the tile roots: a pixel's label names its tile
 //      root, a tile root's label its parent, and the finds start from the
 //      pixels' labels, so only tile roots' labels change;
-//   3. write: each tile labelled again (cheaper than reading its labels
-//      back), its roots' final roots found in the plane, and only the
-//      pixels of components hooked away rewritten; with kCount also each
-//      band's exact root count and first root (for the band root tables).
-//      Tile flags from launches 1 and 2 let it skip the tiles with no
-//      foreground, and without kCount those with no root hooked away.
+//   3. write: each tile's labels read back, the roots of its components
+//      hooked away found in the plane once a component, and only their
+//      pixels rewritten; with kCount also each band's exact root count
+//      and first root (for the band root tables).  Tile flags from
+//      launches 1 and 2 let it skip the tiles with no foreground, and
+//      without kCount those with no root hooked away.
 // The pairs: across a horizontal tile edge at row Y, the up links of row Y
 // with the rule that the in-row links make the rest redundant (8: up unless
 // the left pixel is foreground, up-right where up is background, up-left
@@ -766,19 +766,24 @@ __global__ void k_label_merge(LabelGeom g, long long pairs,
 }
 
 struct LabelWriteSmem {
-  LabelSmem t;
-  int fin[kUfPx];        // at a tile root: its root after the merge
+  int lab[kUfPx];        // the tile's labels after the merge
+  int fin[kUfPx];        // at a pixel that ends an in-tile chain: its root
   int rows[kUfTH];       // roots surviving the merge, per row
   int first[kUfTH];      // the least of them, per row
 };
 
 // Launch 3: the labels of components hooked away, and with kCount each
 // band's root count and first root; with flags, only over the tiles that
-// need it.
+// need it.  The tile's labels are read back rather than the tile labelled
+// again: only tile roots' labels changed in the merge, and every label in
+// the tile names a smaller index, so following labels that stay in the
+// tile ends at a pixel whose label is itself (a root) or leaves the tile
+// (a root hooked into another tile); each such pixel finds its root once,
+// in the plane, and the others take it from shared memory.
 template <bool kCount>
 __global__ void __launch_bounds__(kUfThreads, 5)
-k_label_write(LabelGeom g, const uint8_t* mask, int32_t* labels,
-              int32_t* roots, int32_t* counts) {
+k_label_write(LabelGeom g, int32_t* labels, int32_t* roots,
+              int32_t* counts) {
   __shared__ LabelWriteSmem s;
   const int HW = g.H * g.W;
   for_each_uf_tile(g.ty, g.active, [&](int b, int ty, int tx) {
@@ -791,66 +796,69 @@ k_label_write(LabelGeom g, const uint8_t* mask, int32_t* labels,
     int flag = g.flags != nullptr ? *tile_flag(g, b, ty * g.tx + tx)
                                   : kHooked;
     if (flag == kNoFg || (!kCount && flag == kFg)) return;
-    TileBytes v;
-    tile_load(mask + off, g.W, y0, x0, th, tw, 0, v);
-    TilePx px = fg_label_tile(g, v, y0, th, tw, s.t);
-    if (px.uniform == 1) return;             // all background: no root
     int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    // the tile index of global index l, or -1 outside the tile
+    auto local = [&](int l) {
+      int y = l / g.W - y0, x = l % g.W - x0;
+      return y >= 0 && y < th && x >= 0 && x < tw ? y * kUfTW + x : -1;
+    };
+#pragma unroll
+    for (int k = 0; k < kUfRows; ++k)
+#pragma unroll
+      for (int c = 0; c < kUfCols; ++c) {
+        int ly = warp + k * kUfWarps, lx = c * 32 + lane;
+        s.lab[ly * kUfTW + lx] =
+            ly < th && lx < tw ? labels[off + (long long)(y0 + ly) * g.W +
+                                        x0 + lx]
+                               : HW;
+      }
     if (kCount && threadIdx.x < kUfTH) {
       s.rows[threadIdx.x] = 0;
       s.first[threadIdx.x] = HW;
     }
     __syncthreads();
-    // each tile root's root in the merged plane
-    bool moved = false;
-    auto settle = [&](int i) {
-      int r = tile_global(g, y0, x0, i);
-      int f = flag == kHooked ? find_root(L, r) : r;
-      s.fin[i] = f;
-      moved |= f != r;
-      if (kCount && f == r) {
-        atomicAdd(&s.rows[i / kUfTW], 1);
-        atomicMin(&s.first[i / kUfTW], r);
-      }
-    };
-    if (px.uniform == 2) {
-      // all foreground: one root at the tile's first column of each band
-      int ly = threadIdx.x;
-      if (ly < th && band_top(g, y0, ly) == ly) settle(ly * kUfTW);
-    } else {
+    // the chains' ends: roots (counted), and roots hooked into another tile
 #pragma unroll
-      for (int k = 0; k < kUfRows; ++k)
+    for (int k = 0; k < kUfRows; ++k)
 #pragma unroll
-        for (int c = 0; c < kUfCols; ++c) {
-          int i = (warp + k * kUfWarps) * kUfTW + c * 32 + lane;
-          if (px.has(k, c) && px.run_start(k, c) == c * 32 + lane &&
-              s.t.parent[i] == i)
-            settle(i);
+      for (int c = 0; c < kUfCols; ++c) {
+        int i = (warp + k * kUfWarps) * kUfTW + c * 32 + lane;
+        int l = s.lab[i];
+        if (l == HW) continue;   // background, or outside the frame
+        int r = tile_global(g, y0, x0, i);
+        if (l == r) {
+          s.fin[i] = r;
+          if (kCount) {
+            atomicAdd(&s.rows[i / kUfTW], 1);
+            atomicMin(&s.first[i / kUfTW], r);
+          }
+        } else if (local(l) < 0) {
+          s.fin[i] = find_root(L, l);
         }
-    }
-    moved = __syncthreads_or(moved);
+      }
+    __syncthreads();
     if (kCount && threadIdx.x < th && s.rows[threadIdx.x]) {
       int r = b * g.R + (y0 + threadIdx.x) / g.band;
       atomicAdd(&counts[r], s.rows[threadIdx.x]);
       atomicMin(&roots[(long long)r * g.cap], s.first[threadIdx.x]);
     }
-    if (moved) {
+    if (flag == kHooked) {
 #pragma unroll
-      for (int k = 0; k < kUfRows; ++k) {
-        int ly = warp + k * kUfWarps;
-        if (ly >= th) continue;
-        int32_t* out = labels + off + (long long)(y0 + ly) * g.W + x0;
+      for (int k = 0; k < kUfRows; ++k)
 #pragma unroll
         for (int c = 0; c < kUfCols; ++c) {
-          int lx = c * 32 + lane;
-          if (lx >= tw || (px.uniform == 0 && !px.has(k, c))) continue;
-          int i = px.uniform == 2
-                      ? band_top(g, y0, ly) * kUfTW
-                      : s.t.parent[ly * kUfTW + px.run_start(k, c)];
-          int f = s.fin[i];
-          if (f != tile_global(g, y0, x0, i)) out[lx] = f;
+          int ly = warp + k * kUfWarps, i = ly * kUfTW + c * 32 + lane;
+          int l = s.lab[i];
+          if (l == HW) continue;
+          int x = i;
+          for (int j = local(s.lab[x]);
+               j >= 0 && s.lab[x] != tile_global(g, y0, x0, x);
+               j = local(s.lab[x]))
+            x = j;
+          if (s.fin[x] != l)
+            labels[off + (long long)(y0 + ly) * g.W + x0 + c * 32 + lane] =
+                s.fin[x];
         }
-      }
     }
     __syncthreads();
   });
@@ -883,7 +891,7 @@ int launch_tile_labels(const uint8_t* mask, int B, const LabelGeom& g,
         g, pairs, mask, labels);
     HD_CHECK();
   }
-  k_label_write<kCount><<<grid, kUfThreads, 0, st>>>(g, mask, labels, roots,
+  k_label_write<kCount><<<grid, kUfThreads, 0, st>>>(g, labels, roots,
                                                      counts);
   HD_CHECK();
   return 0;
