@@ -92,7 +92,11 @@ Phases (each prints a line; any failure exits non-zero without a result):
      640x480x3, 1920x1080 Mono8, and 1920x1080 BGR through the run tables
      and through the band route, on the bench batch and on a mixed batch
      whose every fourth frame is adversarial (most of those overflow the
-     tables and fall back; both routes must give the same table);
+     tables and fall back; both routes must give the same table); the
+     CUDA kernels that one call of the fused detect and of the band labels
+     launches, counted from a torch.profiler trace of that call (for the
+     fused detect also at each phase 3a size, against what its C entry
+     reports);
      d. the profiling path, with the split kernels' launch counts set to 0
         just before and read just after: the port's profile_fused and
         profile_preprocess (batch 256, 10 iterations; each stage's us/frame
@@ -148,6 +152,14 @@ BATCH_2MP = 128
 TIME_BATCH_2MP = 32
 H2, W2 = 1080, 1920
 ODD_2MP = (1037, 1531)        # a height that is not a multiple of the band
+# The CUDA kernels one call of the fused detect (640x480) and of the band
+# labels (1920x1080) launch, each once.
+FUSED_KERNELS = ("k_preprocess", "k_fill_tiles", "k_fill_merge",
+                 "k_fill_write", "k_label_tiles", "k_label_merge",
+                 "k_label_write", "k_row_roots", "k_frame_roots", "k_stats",
+                 "k_bbox_sums")
+BAND_CCL_KERNELS = ("k_label_tiles", "k_label_merge", "k_label_write",
+                    "k_band_roots")
 # Bands of the label cases: the route's, bands that cut the 32-row tiles of
 # the labeling, and bands of 2 and 1 rows.
 LABEL_BANDS = (128, 48, 16, 2, 1)
@@ -207,6 +219,31 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_kernels(fn):
+    """The repo's CUDA kernels (their names start with k_) that one call of
+    fn launches, counted from a torch.profiler trace of that call:
+    {kernel name: launches}.  The trace opens with a PyTorch kernel and a
+    sync, since the card showed a trace's first kernel can go unrecorded."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        marker.add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        m = re.search(r"(?:^|[\s:])(k_\w+)", e.name)
+        if e.device_type == DeviceType.CUDA and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
 
 
 def max_abs_err(got, want):
@@ -438,9 +475,11 @@ def check_fused_tile_cases(dev):
     import numpy as np
     import torch
     from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import _cuda
     from heimdall_tpu_torch.ops.fused_kernels import (
         contamination_fused, contamination_fused_reference)
 
+    lib = _cuda.library("fused_detect")
     err = 0
     for h, w in ((480, 640), (477, 631), (13, 17), (3, 3)):
         frames = np.concatenate([
@@ -457,9 +496,16 @@ def check_fused_tile_cases(dev):
                     want = contamination_fused_reference(x, c, k, cm,
                                                          return_labels=True)
                     errs[f"{form}_k{k}_{c}"] = max_abs_err(got, want)
-        torch.cuda.synchronize()
+        # the launches the C entry reports for this size, against a trace
+        traced = sum(cuda_kernels(
+            lambda: contamination_fused(x, CONTRAST, K, False)).values())
+        told = lib.hd_fused_detect_launches(h, w)
         phase(f"check fused tile and label cases {h}x{w} ({len(frames)} "
-              f"frames): max_abs_err {errs}")
+              f"frames): max_abs_err {errs}; {traced} CUDA launches a call "
+              f"traced, {told} reported")
+        if traced != told:
+            fail(f"fused_detect made {traced} launches at {h}x{w}, its C "
+                 f"entry reports {told}")
         err = max(err, *errs.values())
     if err:
         fail("fused_detect differs from its plain version on the tile and "
@@ -598,6 +644,11 @@ def tiled_phases(dev, smi, argv):
         "banded_stats": px * 6 + TIME_BATCH_2MP * 12 * K * 4,
         "bbox_sums": window_px + TIME_BATCH_2MP * (R * K + R + 8 * K) * 4,
     }
+    # the CUDA kernels of one band labeling call, from a trace of it
+    band_kernels = cuda_kernels(calls["band_ccl"][0])
+    if band_kernels != dict.fromkeys(BAND_CCL_KERNELS, 1):
+        fail(f"band_ccl launched {band_kernels}, not one each of "
+             f"{BAND_CCL_KERNELS}")
     timings = {}
     for name, (kfn, pfn) in calls.items():
         if name == "merge_bands":      # merges in place: restore its input
@@ -614,6 +665,8 @@ def tiled_phases(dev, smi, argv):
                              bound_ms=max(bytes_ms, ops_ms),
                              bound_by="bytes" if bytes_ms >= ops_ms
                              else "operations", bytes=moved[name])
+        if name == "band_ccl":
+            timings[name]["cuda_kernels"] = band_kernels
         phase(f"{smi}: {name} {ms:.4f} ms per {TIME_BATCH_2MP} frames of "
               f"1920x1080 Mono8 ({ms / TIME_BATCH_2MP * 1e3:.3f} us/frame); "
               f"plain version {plain_ms:.2f} ms; bound "
@@ -1764,7 +1817,14 @@ def main(argv):
     torch.cuda.synchronize()
     e2e_s = (time.perf_counter() - t0) / 20
     e2e_host = host_ms(e2e)
-    launches_per_call = _cuda.library("fused_detect").hd_fused_detect_launches()
+    # the CUDA kernels of one fused detect call, from a trace of it
+    fused_kernels = cuda_kernels(kernel)
+    launches_per_call = sum(fused_kernels.values())
+    if (fused_kernels != dict.fromkeys(FUSED_KERNELS, 1)
+            or launches_per_call != _cuda.library(
+                "fused_detect").hd_fused_detect_launches(480, 640)):
+        fail(f"fused_detect launched {fused_kernels}, not one each of "
+             f"{FUSED_KERNELS}")
     in_bytes = x.numel()
     out_bytes = BATCH * (8 + 4 + 4) * K * 4 + BATCH * 4
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
@@ -1877,15 +1937,19 @@ def main(argv):
         "library_note": "no single PyTorch call computes it",
         "batch": BATCH, "frame": "640x480x3",
         "cuda_launches_per_call": launches_per_call,
+        "cuda_kernels": fused_kernels,
         "sources": [csrc + "fused_detect.cu", csrc + "tile_uf.cuh"],
         "design": "one-pass preprocess, tile fill and tile labels over "
                   "32x128 shared-memory tiles (tile_uf.cuh), stats",
     }] + [entry(n) for n in ("band_ccl", "flood_fill", "banded_stats",
                              "bbox_sums", *runtable)] + split + probes + \
         labeling + primitives
-    kernels[1].update(
+    band_kernels = times2["band_ccl"].pop("cuda_kernels")
+    band_entry = next(k for k in kernels if k["name"] == "band_ccl")
+    band_entry.update(
         sources=[csrc + "ccl_tiled.cu", csrc + "tile_uf.cuh"],
-        cuda_launches_per_call=4,
+        cuda_launches_per_call=sum(band_kernels.values()),
+        cuda_kernels=band_kernels,
         design="foreground tile labeling over 32x128 shared-memory tiles "
                "(tile_uf.cuh): labels written once, edges merged in the "
                "label plane, root tables from each band's first root")

@@ -58,35 +58,8 @@
 
 namespace {
 
-constexpr int kItems = 8;   // consecutive pixels per thread in root scans
-
 // ------------------------------------------------------ band-local labels
 // (the tile labeling itself, launch_tile_labels, is in tile_uf.cuh)
-
-// Writes, in raster order, the roots (L[p] == p) among pixels [lo, hi) to
-// out[start + rank] where start + rank < limit; returns their count (in
-// every thread).  Background holds H*W > p, so it is never a root.
-__device__ int append_roots(const int32_t* L, long long lo, long long hi,
-                           int32_t* out, int start, int limit) {
-  int n = 0;
-  for (long long c0 = lo; c0 < hi; c0 += (long long)kScanThreads * kItems) {
-    long long p0 = c0 + (long long)threadIdx.x * kItems;
-    unsigned bits = 0;
-    for (int i = 0; i < kItems; ++i) {
-      long long p = p0 + i;
-      if (p < hi && L[p] == p) bits |= 1u << i;
-    }
-    int total;
-    int rank = start + n + block_exclusive_scan(__popc(bits), &total);
-    for (int i = 0; i < kItems; ++i) {
-      if (!(bits >> i & 1u)) continue;
-      if (rank < limit) out[rank] = (int32_t)(p0 + i);
-      ++rank;
-    }
-    n += total;
-  }
-  return n;
-}
 
 // Writes, in raster order, the roots among pixels [lo, hi) of L to
 // out[rank] where rank < limit, until it has found `stop` of them: a warp
@@ -197,7 +170,7 @@ __global__ void k_root_table(Geom g, int K, int cap, const int32_t* labels,
   for (int r = 0; r < g.R; ++r) {
     int cnt = counts[b * g.R + r];
     if (cnt > cap) {
-      n += append_roots(L, band_lo(g, r), band_hi(g, r), out, n, K);
+      n += scan_roots(L, band_lo(g, r), band_hi(g, r), out + n, K - n, cnt);
       continue;
     }
     const int32_t* tab = roots + ((long long)b * g.R + r) * cap;

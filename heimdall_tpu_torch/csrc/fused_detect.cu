@@ -820,25 +820,25 @@ extern "C" int hd_preprocess(const uint8_t* frames, int B, int H, int W,
 // Runs the whole detect on `stream` (see the top of this file).  Scratch:
 // gray and mask u8 [B, H, W] (the closed mask, filled in place), table
 // int32 [B, hd_flood_entries(H, W)] (ccl_tiled.cu's; tile_uf.cuh's
-// fill_geom), rank int32 [B, H, W], rowcnt/rowoff int32 [B, H]; labels
-// int32 [B, H, W] is the output label plane.  sums and bgsum must be zeroed
-// by the caller.  Returns the first CUDA error (0 = none).
+// fill_geom), flags u8 [B, hd_label_tiles(H, W)] (the labels' tile flags),
+// rank int32 [B, H, W], rowcnt/rowoff int32 [B, H]; labels int32 [B, H, W]
+// is the output label plane.  sums and bgsum must be zeroed by the caller.
+// Returns the first CUDA error (0 = none).
 extern "C" int hd_fused_detect(
     const uint8_t* frames, int B, int H, int W, int C, long long cstride,
     long long pstride, int ct, int K, const int* q8, const float* k11,
-    uint8_t* gray, uint8_t* mask, int32_t* table, int32_t* rank,
-    int32_t* labels, int32_t* rowcnt, int32_t* rowoff, int32_t* sums,
-    int32_t* bbox, int32_t* bgsum, int32_t* nblobs, void* stream) {
+    uint8_t* gray, uint8_t* mask, int32_t* table, uint8_t* flags,
+    int32_t* rank, int32_t* labels, int32_t* rowcnt, int32_t* rowoff,
+    int32_t* sums, int32_t* bbox, int32_t* bgsum, int32_t* nblobs,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int err = hd_preprocess(frames, B, H, W, C, cstride, pstride, ct, q8, k11,
                           gray, mask, stream);
   if (!err)
     err = launch_flood_fill(mask, B, H, W, nullptr, table, mask, st);
-  // the labels' tile flags live in the fill's table, free once it is done
   LabelGeom lg = label_geom(H, W, H, 8, 1, nullptr);
-  long long entries = fill_geom(H, W, nullptr).E;
-  lg = with_flags(lg, reinterpret_cast<uint8_t*>(table), entries * 4,
-                  lg.tx * lg.ty, 0);
+  int tiles = lg.tx * lg.ty;
+  lg = with_flags(lg, flags, tiles, tiles, 0);
   if (!err)
     err = launch_tile_labels<false>(mask, B, lg, labels, nullptr, nullptr,
                                     st);
@@ -849,9 +849,18 @@ extern "C" int hd_fused_detect(
   return err;
 }
 
-// Number of kernel launches one hd_fused_detect call makes (9 for a frame
-// of one 32 x 128 tile: its fill and labels need no merge).
-extern "C" int hd_fused_detect_launches() { return 11; }
+// Tile flags a frame of H x W needs in hd_fused_detect: one a label tile.
+extern "C" int hd_label_tiles(int H, int W) {
+  LabelGeom lg = label_geom(H, W, H, 8, 1, nullptr);
+  return lg.tx * lg.ty;
+}
+
+// Number of kernel launches one hd_fused_detect call makes on H x W frames:
+// the preprocess, the fill and the labels (2 each, and a merge each when
+// the frame has more than one tile), the stats (4).
+extern "C" int hd_fused_detect_launches(int H, int W) {
+  return hd_label_tiles(H, W) > 1 ? 11 : 9;
+}
 
 // ------------------------------------------------- the two-kernel split
 //

@@ -73,23 +73,34 @@ __device__ void unite_halving(int32_t* P, int a, int b, Hook hook = Hook()) {
 }
 
 // The mask bytes of this thread's pixels (row warp + 8k, column 32c +
-// lane), every load in flight at once; outside the tile `outside`.
+// lane); outside the tile `outside`.  Each load reads an in-frame byte (row
+// and column clamped to the tile) under no predicate, so all sixteen are in
+// flight at once.  Loads guarded by the tile's bounds took a predicate
+// register each, and the compiler issued most of them one at a time, each
+// waiting for its use (the SASS of k_fill_tiles and k_label_tiles);
+// clamped, the fill ran 17% and the band labels 11% faster on an H100
+// (2 MP bench masks).
 using TileBytes = uint8_t[kUfRows][kUfCols];
 
 __device__ __forceinline__ void tile_load(const uint8_t* m, int W, int y0,
                                           int x0, int th, int tw,
                                           uint8_t outside, TileBytes& v) {
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint8_t raw[kUfRows][kUfCols];
 #pragma unroll
   for (int k = 0; k < kUfRows; ++k) {
-    int ly = warp + k * kUfWarps;
+    int ly = min(warp + k * kUfWarps, th - 1);
     const uint8_t* row = m + (long long)(y0 + ly) * W + x0;
 #pragma unroll
-    for (int c = 0; c < kUfCols; ++c) {
-      int lx = c * 32 + lane;
-      v[k][c] = ly < th && lx < tw ? row[lx] : outside;
-    }
+    for (int c = 0; c < kUfCols; ++c)
+      raw[k][c] = row[min(c * 32 + lane, tw - 1)];
   }
+#pragma unroll
+  for (int k = 0; k < kUfRows; ++k)
+#pragma unroll
+    for (int c = 0; c < kUfCols; ++c)
+      v[k][c] = warp + k * kUfWarps < th && c * 32 + lane < tw ? raw[k][c]
+                                                               : outside;
 }
 
 // What a thread keeps of its pixels after the labeling: which are of the
@@ -664,11 +675,11 @@ __device__ TilePx fg_label_tile(const LabelGeom& g, const TileBytes& v,
 // frame also clears the frame's band root counts and sets each band's
 // first root (slot 0 of its root table) to H*W, for launch 3's atomics.
 // Most tiles of a real frame are all background, so the pass is a stream
-// of label stores behind one mask load a tile: eight blocks an SM (32
-// registers, a few bytes of spill) keep more of those loads in flight
-// than five, and ran faster on the card.
+// of label stores behind one mask load a tile: six blocks an SM (40
+// registers, a few bytes of spill) ran faster on the card than five or
+// eight (eight: 32 registers, and the tile's sixteen mask bytes spill).
 template <bool kCount>
-__global__ void __launch_bounds__(kUfThreads, 8)
+__global__ void __launch_bounds__(kUfThreads, 6)
 k_label_tiles(LabelGeom g, const uint8_t* mask, int32_t* labels,
               int32_t* roots, int32_t* counts) {
   __shared__ LabelSmem s;

@@ -31,8 +31,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "fused_detect": {
         "hd_fused_detect": [_P, _I, _I, _I, _I, _LL, _LL, _I, _I, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-        "hd_fused_detect_launches": [],
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P],
+        "hd_label_tiles": [_I, _I],
+        "hd_fused_detect_launches": [_I, _I],
         "hd_preprocess": [_P, _I, _I, _I, _I, _LL, _LL, _I, _P, _P, _P, _P,
                           _P],
         "hd_label": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],

@@ -190,13 +190,15 @@ def _launch(frames: torch.Tensor, contrast_threshold, max_blobs: int,
     gray, mask = empty((B, H, W), u8), empty((B, H, W), u8)
     table = empty((B, _cuda.library("ccl_tiled").hd_flood_entries(H, W)),
                   i32)
+    lib = _cuda.library("fused_detect")
+    flags = empty((B, lib.hd_label_tiles(H, W)), u8)
     rowcnt, rowoff = empty((B, H), i32), empty((B, H), i32)
     q8, k11 = kernel_taps()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _cuda.library("fused_detect").hd_fused_detect(
+    err = lib.hd_fused_detect(
         frames.data_ptr(), B, H, W, C, cstride, pstride,
         int(contrast_threshold), K, q8, k11, gray.data_ptr(),
-        mask.data_ptr(), table.data_ptr(), rank.data_ptr(),
+        mask.data_ptr(), table.data_ptr(), flags.data_ptr(), rank.data_ptr(),
         labels.data_ptr(), rowcnt.data_ptr(), rowoff.data_ptr(),
         sums.data_ptr(), bbox.data_ptr(), bgsum.data_ptr(), n.data_ptr(),
         stream)
