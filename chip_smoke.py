@@ -42,7 +42,18 @@ Phases (each prints a line; any failure exits non-zero without a result):
         masks that fit, trip the foreground guard and trip both guards, and
         odd-sized BGR frames, and 3b's tile-case masks and frames at its
         sizes; on each, the route with the detector's guards (per frame,
-        tables or bands) equals the band route exactly;
+        tables or bands) equals the band route exactly; then the cases that
+        attack the run extraction's lanes and steps (scene.run_case_masks:
+        runs ending at, starting at and crossing the 16-column lane and
+        512-column step edges, every other lane's columns, a run through
+        the row, one-pixel runs on every second column, rows of 6 to 13
+        runs, all foreground and all background) at the run-case sizes
+        (widths 1, 3, 17, 531, 1920), 1920x1080 and 1037x1531: run
+        extraction with R 8, 12 and 40, both inverts, fill + extraction with
+        r_bg / r_fg 8 / 7, 12 / 10 and 40 / 7 (past 32 background slots the
+        flags are read from memory) on random flags and the border flood's,
+        and the route on them; and the CUDA kernels of one run extraction
+        and one fill + extraction call, traced: one launch each;
      d. the split kernels at 640x480 (the label kernel at every stage, the
         stats kernel on its labels): bench frames, adversarial frames with
         K = 64 and K = 4, 2 frames of 477x631, and a uniform frame with no
@@ -96,7 +107,8 @@ Phases (each prints a line; any failure exits non-zero without a result):
      CUDA kernels that one call of the fused detect and of the band labels
      launches, counted from a torch.profiler trace of that call (for the
      fused detect also at each phase 3a size, against what its C entry
-     reports);
+     reports); the B3 kernels and B2 also at the main path's batch of 128
+     (kernels only; the plain versions at 32);
      d. the profiling path, with the split kernels' launch counts set to 0
         just before and read just after: the port's profile_fused and
         profile_preprocess (batch 256, 10 iterations; each stage's us/frame
@@ -164,6 +176,14 @@ BAND_CCL_KERNELS = ("k_label_tiles", "k_label_merge", "k_label_write",
 # the labeling, and bands of 2 and 1 rows.
 LABEL_BANDS = (128, 48, 16, 2, 1)
 RT_BG, RT_FG = 8, 7           # the detector's run-table widths
+# Table widths of the run cases: the detector's, the tests', and a
+# background width past a warp's 32 lanes (the fill extraction then reads
+# the flags from memory instead of a ballot).
+RUN_R = (RT_BG, 12, 40)
+FILL_R = ((RT_BG, RT_FG), (12, 10), (40, RT_FG))
+# The B3 kernels, timed at the main path's batch as well.
+B3_KERNELS = ("run_extract", "flood_fix", "fill_extract", "label_fix",
+              "writeback")
 # Published peaks of one H100 SXM (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS_PER_S = 495e12
@@ -760,6 +780,71 @@ def check_runtable(name, x, channel_major, k, band, mask=None):
     return max(errs.values())
 
 
+def check_run_cases(dev, band):
+    """Phase 3c's cases that attack the run extraction's lanes and steps
+    (scene.run_case_masks) at the run-case sizes, 1920x1080 and 1037x1531:
+    run_extract (both inverts, R 8, 12, 40) and fill_extract (r_bg / r_fg
+    8 / 7, 12 / 10, 40 / 7; flags drawn at random and the border flood's)
+    against their plain versions, and the whole route on the masks (every
+    kernel against its plain version, the route against the band route);
+    then the CUDA kernels of one call of each, from a trace, which must be
+    one launch of its kernel.  Returns (the largest error, 0 or the run
+    fails; {wrapper: {CUDA kernel: launches}})."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import runtable_tiled as rt
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    rng = np.random.RandomState(11)
+    err = 0
+    for h, w in scene.RUN_CASE_SIZES + ((H2, W2), ODD_2MP):
+        cases = np.stack(list(scene.run_case_masks(h, w).values()))
+        masks = on(cases)
+        u8 = masks.to(torch.uint8) * 255
+        errs = {}
+        for R in RUN_R:
+            for inv in (False, True):
+                errs[f"run_extract_{R}{'_inv' if inv else ''}"] = \
+                    max_abs_err(rt.run_extract(u8, R, inv),
+                                rt.run_extract_reference(u8, R, inv))
+        for r_bg, r_fg in FILL_R:
+            runid, S, E, _ = rt.run_extract(masks, r_bg, True)
+            for how, F in (
+                    ("random", on(rng.randint(0, 2, (len(cases), h, r_bg))
+                                  .astype(np.int32))),
+                    ("flood", rt.flood_fix(S, E, w))):
+                errs[f"fill_extract_{r_bg}_{r_fg}_{how}"] = max_abs_err(
+                    rt.fill_extract(masks, runid, F, r_fg),
+                    rt.fill_extract_reference(masks, runid, F, r_fg))
+        torch.cuda.synchronize()
+        phase(f"check 2MP run cases {h}x{w} ({len(cases)} masks): "
+              f"max_abs_err {errs}")
+        err = max(err, *errs.values(),
+                  check_runtable(f"run_case_masks_{h}x{w}", None, False, K,
+                                 band, masks))
+    traced = {}
+    for h, w in ((H2, W2), ODD_2MP):
+        masks = on(np.stack(list(scene.run_case_masks(h, w).values())))
+        runid, S, E, _ = rt.run_extract(masks, RT_BG, True)
+        F = rt.flood_fix(S, E, w)
+        traced = {
+            "run_extract": cuda_kernels(
+                lambda: rt.run_extract(masks, RT_BG, True)),
+            "fill_extract": cuda_kernels(
+                lambda: rt.fill_extract(masks, runid, F, RT_FG))}
+        phase(f"run cases {h}x{w}: CUDA kernels per call (traced) {traced}")
+        for name, got in traced.items():
+            if got != {"k_" + name: 1}:
+                fail(f"{name} launched {got}, not one k_{name}")
+    if err:
+        fail("a run extraction kernel differs from its plain version on the "
+             "run cases")
+    return err, traced
+
+
 def _stripes(h, w, n=8):
     """n full-height stripes from column 0 to column w-1: n - 1 background
     runs per row, n foreground runs (only the foreground guard trips)."""
@@ -768,6 +853,57 @@ def _stripes(h, w, n=8):
     for s in np.linspace(0, w - 4, n).astype(int):
         m[:, s:s + 4] = True
     return m
+
+
+def runtable_calls(xt, band):
+    """Phase 5's calls of each run-table kernel and its plain version on
+    the frames xt (BGR channel-major), with their inputs made by the
+    kernels, and the bytes each function must move (inputs read once,
+    outputs written once): ({kernel: (kernel call, plain call)},
+    {kernel: bytes})."""
+    from heimdall_tpu_torch.ops import preprocess_tiled as pt
+    from heimdall_tpu_torch.ops import runtable_tiled as rt
+    kern = runtable_stages(xt, True, K, band)
+    binary, gray, runid, S, E, nrun = kern["preprocess_tiled"]
+    (F,) = kern["flood_fix"]
+    filled, runid_fg, S_fg, E_fg, nrun_fg = kern["fill_extract"]
+    L = kern["label_fix"][0]
+    calls = {
+        "preprocess_tiled": (
+            lambda: pt.contamination_preprocess_tiled(xt, CONTRAST, True,
+                                                      RT_BG),
+            lambda: pt.contamination_preprocess_tiled_reference(
+                xt, CONTRAST, True, RT_BG)),
+        "run_extract": (lambda: rt.run_extract(binary, RT_BG, True),
+                        lambda: rt.run_extract_reference(binary, RT_BG,
+                                                         True)),
+        "flood_fix": (lambda: rt.flood_fix(S, E, W2),
+                      lambda: rt.flood_fix_reference(S, E, W2)),
+        "fill_extract": (lambda: rt.fill_extract(binary, runid, F, RT_FG),
+                         lambda: rt.fill_extract_reference(binary, runid, F,
+                                                           RT_FG)),
+        "label_fix": (lambda: rt.label_fix(S_fg, E_fg, W2, band, K),
+                      lambda: rt.label_fix_reference(S_fg, E_fg, W2, band,
+                                                     K)),
+        "writeback": (lambda: rt.writeback(filled, runid_fg, L),
+                      lambda: rt.writeback_reference(filled, runid_fg, L)),
+    }
+    n = len(xt)
+    px, rows = n * H2 * W2, n * H2
+    Rb = -(-H2 // band)
+
+    def tables(r):          # S, E [rows, r] and nrun [rows, 1], int32
+        return rows * (2 * r + 1) * 4
+
+    moved = {
+        "preprocess_tiled": px * 3 + px * 3 + tables(RT_BG),
+        "run_extract": px * 2 + tables(RT_BG),
+        "flood_fix": rows * RT_BG * 4 * 3,
+        "fill_extract": px * 4 + rows * RT_BG * 4 + tables(RT_FG),
+        "label_fix": rows * RT_FG * 4 * 3 + n * (K + 1 + Rb * K + Rb) * 4,
+        "writeback": px * 6 + rows * RT_FG * 4,
+    }
+    return calls, moved
 
 
 def runtable_phases(dev, smi, argv):
@@ -824,6 +960,8 @@ def runtable_phases(dev, smi, argv):
                                       False, K, band, on(tm)),
                   check_runtable(f"tile_case_frames_{h}x{w}", on(tf), False,
                                  K, band))
+    run_err, traced = check_run_cases(dev, band)    # the run cases
+    err = max(err, run_err)
 
     # -- 4c. the BGR 2 MP main path ----------------------------------------
     frames = scene.make_frames(BATCH_2MP, H2, W2, seed=2)
@@ -874,65 +1012,42 @@ def runtable_phases(dev, smi, argv):
           f"first 2 frames equal to the CPU path")
 
     # -- 5. times: each run-table kernel, its plain version, its bound ------
-    n = TIME_BATCH_2MP
-    xt = x[:n]
-    kern = runtable_stages(xt, True, K, band)
-    binary, gray, runid, S, E, nrun = kern["preprocess_tiled"]
-    (F,) = kern["flood_fix"]
-    filled, runid_fg, S_fg, E_fg, nrun_fg = kern["fill_extract"]
-    L = kern["label_fix"][0]
-    calls = {
-        "preprocess_tiled": (
-            lambda: pt.contamination_preprocess_tiled(xt, CONTRAST, True,
-                                                      RT_BG),
-            lambda: pt.contamination_preprocess_tiled_reference(
-                xt, CONTRAST, True, RT_BG)),
-        "run_extract": (lambda: rt.run_extract(binary, RT_BG, True),
-                        lambda: rt.run_extract_reference(binary, RT_BG,
-                                                         True)),
-        "flood_fix": (lambda: rt.flood_fix(S, E, W2),
-                      lambda: rt.flood_fix_reference(S, E, W2)),
-        "fill_extract": (lambda: rt.fill_extract(binary, runid, F, RT_FG),
-                         lambda: rt.fill_extract_reference(binary, runid, F,
-                                                           RT_FG)),
-        "label_fix": (lambda: rt.label_fix(S_fg, E_fg, W2, band, K),
-                      lambda: rt.label_fix_reference(S_fg, E_fg, W2, band,
-                                                     K)),
-        "writeback": (lambda: rt.writeback(filled, runid_fg, L),
-                      lambda: rt.writeback_reference(filled, runid_fg, L)),
-    }
-    # bytes each function must move: inputs read once, outputs written once
-    px, rows = n * H2 * W2, n * H2
-    Rb = -(-H2 // band)
-
-    def tables(r):          # S, E [rows, r] and nrun [rows, 1], int32
-        return rows * (2 * r + 1) * 4
-
-    moved = {
-        "preprocess_tiled": px * 3 + px * 3 + tables(RT_BG),
-        "run_extract": px * 2 + tables(RT_BG),
-        "flood_fix": rows * RT_BG * 4 * 3,
-        "fill_extract": px * 4 + rows * RT_BG * 4 + tables(RT_FG),
-        "label_fix": rows * RT_FG * 4 * 3 + n * (K + 1 + Rb * K + Rb) * 4,
-        "writeback": px * 6 + rows * RT_FG * 4,
-    }
+    # at TIME_BATCH_2MP, and the B3 kernels (and B2, which launches B3a)
+    # also at the main path's batch (kernels only)
     timings = {}
-    for name, (kfn, pfn) in calls.items():
-        kfn()
-        ms = cuda_ms(kfn, 10)
-        pfn()
-        torch.cuda.synchronize()
-        plain_ms = cuda_ms(pfn, 1)
-        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = mean_ops_ms(px) if name == "preprocess_tiled" else 0.0
-        timings[name] = dict(ms=ms, plain_ms=plain_ms,
-                             bound_ms=max(bytes_ms, ops_ms),
-                             bound_by="bytes" if bytes_ms >= ops_ms
-                             else "operations", bytes=moved[name])
-        phase(f"{smi}: {name} {ms:.4f} ms per {n} frames of 1920x1080 BGR "
-              f"({ms / n * 1e3:.3f} us/frame); plain version "
-              f"{plain_ms:.2f} ms; bound {timings[name]['bound_ms']:.4f} ms "
-              f"(by {timings[name]['bound_by']}; {moved[name]} bytes)")
+    for n in (TIME_BATCH_2MP, BATCH_2MP):
+        calls, moved = runtable_calls(x[:n], band)
+        for name, (kfn, pfn) in calls.items():
+            if n != TIME_BATCH_2MP and name not in B3_KERNELS + (
+                    "preprocess_tiled",):
+                continue
+            kfn()
+            ms = cuda_ms(kfn, 10)
+            bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+            ops_ms = (mean_ops_ms(n * H2 * W2) if name == "preprocess_tiled"
+                      else 0.0)
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            if n != TIME_BATCH_2MP:
+                timings[name].update(ms_batch_128=ms,
+                                     bound_ms_batch_128=bound_ms)
+                phase(f"{smi}: {name} {ms:.4f} ms per {n} frames of "
+                      f"1920x1080 BGR ({ms / n * 1e3:.3f} us/frame); bound "
+                      f"{bound_ms:.4f} ms (by {bound_by}; {moved[name]} "
+                      f"bytes)")
+                continue
+            pfn()
+            torch.cuda.synchronize()
+            plain_ms = cuda_ms(pfn, 1)
+            timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, bytes=moved[name])
+            phase(f"{smi}: {name} {ms:.4f} ms per {n} frames of 1920x1080 "
+                  f"BGR ({ms / n * 1e3:.3f} us/frame); plain version "
+                  f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms (by "
+                  f"{bound_by}; {moved[name]} bytes)")
+        del calls
+    for name in ("run_extract", "fill_extract"):
+        timings[name]["cuda_kernels"] = traced[name]
 
     def band_route(xe):
         return contamination_program(xe, CONTRAST, 10.0, 3000.0, 0.25,
@@ -1911,15 +2026,19 @@ def main(argv):
             (src, replaces), t = tiled[name], times2[name]
             err, n, frame = err2, launches2[name], "1920x1080 Mono8"
         srcs = [csrc + f for f in ((src,) if isinstance(src, str) else src)]
-        return {"name": name, "route": "cuda", "source": srcs[0],
-                "sources": srcs,
-                "replaces": replaces, "equal": err == 0,
-                "launches": n, "max_abs_err": err,
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None,
-                "library_note": "no single PyTorch call computes it",
-                "batch": TIME_BATCH_2MP, "frame": frame}
+        out = {"name": name, "route": "cuda", "source": srcs[0],
+               "sources": srcs,
+               "replaces": replaces, "equal": err == 0,
+               "launches": n, "max_abs_err": err,
+               "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": None,
+               "library_note": "no single PyTorch call computes it",
+               "batch": TIME_BATCH_2MP, "frame": frame}
+        for key in ("ms_batch_128", "bound_ms_batch_128", "cuda_kernels"):
+            if key in t:
+                out[key] = t[key]
+        return out
 
     kernels = [{
         "name": "fused_detect",

@@ -22,10 +22,20 @@
 // S + (the row's run pixels from its R-th run on) - 1; such a row is never
 // read, since its frame takes the band route.
 //
-// Design.  Extraction (hd_run_extract, and the second half of
-// hd_fill_extract) is one 256-thread block per row: each thread takes 8
-// consecutive columns, one block scan of the run starts gives runid, and
-// the threads that hold a run's first or last column write its slot.  The
+// Design.  Extraction (hd_run_extract, and hd_fill_extract) runs a warp
+// per row, 8 rows a 256-thread block, with no block barrier and no shared
+// memory.  Each step of the row takes 512 columns: every lane loads its 16
+// as one uint4 (rows whose width is not a multiple of 16 take 16 clamped
+// byte loads), builds a 16-bit run mask, and gets its neighbours' edge bits
+// by shuffles; run starts are own & ~(own << 1 | left) and ends the mirror
+// image.  runid is a warp scan of the lanes' start counts plus the count
+// carried from earlier steps, formed 16 bytes in registers and stored as
+// one uint4.  The lanes holding the start or end of one of the first R
+// runs write its slot; a warp reduction gives the tail of a row with more
+// than R runs.  hd_fill_extract forms filled in the same registers: each
+// lane holds the row's background flags as a 32-bit ballot (or reads F
+// past 32 slots), looks a pixel's flag up by its background runid, stores
+// filled once and extracts its runs without reading it back.  The
 // TPU kernels find the fill and the labels as min-propagation fixpoints over
 // the whole-frame tables; here each is one union-find over the frame's runs
 // (node row * R + slot; runs of adjacent rows are joined where they overlap,
@@ -52,87 +62,265 @@
 // where one block per frame runs under one wave on 132 SMs: latency, not
 // bytes, bounds them.
 
+#include <initializer_list>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBig = 1 << 20;     // S / E of a slot past the row's runs
-constexpr int kRowItems = 8;      // consecutive columns per thread in a row
+constexpr int kLaneCols = 16;    // columns a lane takes per step: one uint4
+constexpr int kStepCols = 32 * kLaneCols;   // columns a warp takes per step
+constexpr int kRowWarps = kScanThreads / 32;  // rows a block takes
 
-// The run tables of one row whose runs are the columns c with
-// (row[c] != 0) != invert.  Every thread of a kScanThreads block calls it.
-__device__ void extract_row(const uint8_t* row, bool invert, int W, int R,
-                            uint8_t* runid, int32_t* S, int32_t* E,
-                            int32_t* nrun) {
-  int carry = 0;
-  int tail = 0;       // this thread's run pixels from the R-th run on
-  for (int c0 = 0; c0 < W; c0 += kScanThreads * kRowItems) {
-    int p0 = c0 + threadIdx.x * kRowItems;
-    unsigned bits = 0;    // bit i: column p0 - 1 + i is in a run
-    for (int i = 0; i < kRowItems + 2; ++i) {
-      int c = p0 - 1 + i;
-      if (c >= 0 && c < W && ((row[c] != 0) != invert)) bits |= 1u << i;
-    }
-    unsigned own = (bits >> 1) & ((1u << kRowItems) - 1u);
-    unsigned starts = own & ~bits;          // previous column not in a run
-    unsigned ends = own & ~(bits >> 2);     // next column not in a run
-    int total;
-    int id = carry + block_exclusive_scan(__popc(starts), &total);
-    for (int i = 0; i < kRowItems && p0 + i < W; ++i) {
-      int c = p0 + i;
-      if (starts >> i & 1u) {
-        ++id;
-        if (id <= R) S[id - 1] = c;
-      }
-      if ((ends >> i & 1u) && id <= R) E[id - 1] = c;
-      if ((own >> i & 1u) && id >= R) ++tail;
-      runid[c] = (uint8_t)id;
-    }
-    carry += total;
+// Word k of a uint4, k a compile-time constant once unrolled.
+__device__ __forceinline__ unsigned word(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Bit i: byte i of the 16 is nonzero.
+__device__ __forceinline__ unsigned nonzero_bits(const uint4& v) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    unsigned m = __vcmpne4(word(v, k), 0u) & 0x01010101u;
+    bits |= ((m * 0x01020408u) >> 24) << (4 * k);  // bytes 0..3 -> bits 0..3
   }
-  for (int j = carry + threadIdx.x; j < R; j += blockDim.x) {
+  return bits;
+}
+
+// Bits 4k .. 4k + 3 of `bits` as the bytes (0 or 1) of one word.
+__device__ __forceinline__ unsigned nibble_bytes(unsigned bits, int k) {
+  return ((bits >> (4 * k) & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// Byte i = bit i of `bits` (0 or 1).
+__device__ __forceinline__ uint4 bit_bytes(unsigned bits) {
+  return make_uint4(nibble_bytes(bits, 0), nibble_bytes(bits, 1),
+                    nibble_bytes(bits, 2), nibble_bytes(bits, 3));
+}
+
+// Byte i = (base + the set bits of `starts` at or below bit i) mod 256.
+__device__ __forceinline__ uint4 runid_bytes(unsigned starts, int base) {
+  unsigned acc = (unsigned)(base & 0xFF) * 0x01010101u, w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {   // byte j of s * 0x01010101: bytes 0..j of s
+    w[k] = __vadd4(acc, nibble_bytes(starts, k) * 0x01010101u);
+    acc = __byte_perm(w[k], 0, 0x3333);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Bit i: column c + i lies in the row of W columns.
+__device__ __forceinline__ unsigned col_mask(int c, int W) {
+  int n = W - c;
+  return n >= kLaneCols ? 0xFFFFu : n <= 0 ? 0u : (1u << n) - 1u;
+}
+
+// Columns c .. c + 15 of a row of W bytes.  kVec (W % 16 == 0, the row
+// 16-byte aligned, c % 16 == 0): one 16-byte load, its address clamped into
+// the row; else 16 byte loads, each clamped.  No load is predicated, so all
+// of them issue together; columns past W are masked by the caller.
+template <bool kVec>
+__device__ __forceinline__ uint4 load16(const uint8_t* row, int c, int W) {
+  if (kVec)
+    return __ldg(reinterpret_cast<const uint4*>(row + min(c, W - kLaneCols)));
+  unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < kLaneCols; ++i)
+    w[i / 4] |= (unsigned)__ldg(row + min(c + i, W - 1)) << (8 * (i % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Stores the bytes of v at columns c .. c + 15 that lie in the row.
+template <bool kVec>
+__device__ __forceinline__ void store16(uint8_t* row, int c, int W,
+                                        const uint4& v) {
+  if (kVec) {
+    if (c < W) *reinterpret_cast<uint4*>(row + c) = v;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kLaneCols; ++i)
+    if (c + i < W) row[c + i] = (uint8_t)(word(v, i / 4) >> (8 * (i % 4)));
+}
+
+// k_run_extract's row: the runs are the columns whose byte is nonzero, or
+// with invert zero.
+struct PlaneRow {
+  using Raw = uint4;
+  const uint8_t* row;
+  int W;
+  unsigned flip;    // 0xFFFF with invert
+  template <bool kVec>
+  __device__ Raw load(int c) const { return load16<kVec>(row, c, W); }
+  template <bool kVec>
+  __device__ unsigned bits(const Raw& v, int c) const {
+    return (nonzero_bits(v) ^ flip) & col_mask(c, W);
+  }
+};
+
+// k_fill_extract's row: filled = binary, or the background run's flag F
+// (1: not reached from the border), stored as it is formed; the runs are
+// its foreground.  With Rbg <= 32 every lane holds the row's flags as the
+// bits of `fmask` (bit j: F[j] != 0); past that they are read from F.
+struct FillRow {
+  struct Raw {
+    uint4 bin, rid;
+  };
+  const uint8_t* bin;
+  const uint8_t* rid;
+  const int32_t* F;
+  uint8_t* out;
+  int W, Rbg;
+  unsigned fmask;
+  template <bool kVec>
+  __device__ Raw load(int c) const {
+    return {load16<kVec>(bin, c, W), load16<kVec>(rid, c, W)};
+  }
+  template <bool kVec>
+  __device__ unsigned bits(const Raw& v, int c) const {
+    unsigned hole = 0;
+    if (Rbg <= 32) {
+#pragma unroll
+      for (int i = 0; i < kLaneCols; ++i) {
+        int j = min(max((int)(word(v.rid, i / 4) >> (8 * (i % 4)) & 0xFFu) - 1,
+                        0), Rbg - 1);
+        hole |= (fmask >> j & 1u) << i;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kLaneCols; ++i) {
+        int j = min(max((int)(word(v.rid, i / 4) >> (8 * (i % 4)) & 0xFFu) - 1,
+                        0), Rbg - 1);
+        hole |= (unsigned)(F[j] != 0) << i;
+      }
+    }
+    unsigned filled = (nonzero_bits(v.bin) | hole) & col_mask(c, W);
+    store16<kVec>(out, c, W, bit_bytes(filled));
+    return filled;
+  }
+};
+
+// One lane's columns c .. c + 15 of a step: writes the slots of the first R
+// runs that start or end there, and adds its run pixels from the R-th run on
+// to `tail`.  base: the runs started before column c.  Slot R - 1 is kept
+// in sR / eR, for the row's last write.
+__device__ __forceinline__ void lane_slots(unsigned own, unsigned starts,
+                                           unsigned ends, int base, int c,
+                                           int R, int32_t* S, int32_t* E,
+                                           int& tail, int& sR, int& eR) {
+  if (base >= R) tail += __popc(own);
+  if (base > R) return;
+  int id = base;
+  for (unsigned m = starts | ends; m; m &= m - 1) {
+    int i = __ffs(m) - 1;
+    if (starts >> i & 1u) {
+      if (++id > R) return;
+      if (id < R) {
+        S[id - 1] = c + i;
+      } else {
+        sR = c + i;
+        tail += __popc(own >> i);
+      }
+    }
+    if (ends >> i & 1u) {
+      if (id < R) E[id - 1] = c + i;
+      else eR = c + i;
+    }
+  }
+}
+
+// The run tables of one row, by one warp, with no block barrier.  Each step
+// takes 512 columns, 16 a lane: the lane's run mask `own` comes from
+// src.bits; the neighbours' edge bits come by shuffles (the last lane's right
+// neighbour from the next step, loaded before this step's work, and the
+// first lane's left one carried from the last step); runid is a warp scan of
+// the run starts plus the carry, stored as 16 bytes.
+template <bool kVec, typename Row>
+__device__ void extract_row(const Row& src, int W, int R, uint8_t* runid,
+                            int32_t* S, int32_t* E, int32_t* nrun) {
+  const int lane = threadIdx.x & 31;
+  int carry = 0;          // runs started in earlier steps
+  unsigned left = 0;      // the last column of the previous step is in a run
+  int tail = 0, sR = -1, eR = -1;
+  int c = lane * kLaneCols;
+  unsigned own = src.template bits<kVec>(src.template load<kVec>(c), c);
+  for (int c0 = 0; c0 < W; c0 += kStepCols, c += kStepCols) {
+    const bool more = c0 + kStepCols < W;
+    typename Row::Raw next{};
+    if (more) next = src.template load<kVec>(c + kStepCols);
+    unsigned up = __shfl_up_sync(kFull, own >> 15, 1);
+    if (lane == 0) up = left;
+    unsigned starts = own & ~((own << 1) | up) & 0xFFFFu;
+    int n = __popc(starts), incl = n;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      int t = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += t;
+    }
+    int base = carry + incl - n;
+    store16<kVec>(runid, c, W, runid_bytes(starts, base));
+    unsigned next_own = more ? src.template bits<kVec>(next, c + kStepCols)
+                             : 0u;
+    unsigned down = __shfl_down_sync(kFull, own & 1u, 1);
+    unsigned first = __shfl_sync(kFull, next_own & 1u, 0);
+    if (lane == 31) down = first;
+    unsigned ends = own & ~((own >> 1) | (down << 15));
+    lane_slots(own, starts, ends, base, c, R, S, E, tail, sR, eR);
+    carry += __shfl_sync(kFull, incl, 31);
+    left = __shfl_sync(kFull, own >> 15, 31);
+    own = next_own;
+  }
+  tail = __reduce_add_sync(kFull, tail);
+  sR = __reduce_max_sync(kFull, sR);
+  eR = __reduce_max_sync(kFull, eR);
+  for (int j = carry + lane; j < R; j += 32) {
     S[j] = kBig;
     E[j] = -kBig;
   }
-  tail = block_sum(tail);
-  if (threadIdx.x == 0) {
+  if (lane == 0) {
     *nrun = carry;
-    if (carry > R) E[R - 1] = S[R - 1] + tail - 1;
+    if (carry >= R) {
+      S[R - 1] = sR;
+      E[R - 1] = carry > R ? sR + tail - 1 : eR;
+    }
   }
 }
 
-// One block per (row, frame).
+// A warp per (row, frame), kRowWarps rows a block.
+template <bool kVec>
 __global__ void k_run_extract(const uint8_t* plane, int invert, int H, int W,
                               int R, const int* active, uint8_t* runid,
                               int32_t* S, int32_t* E, int32_t* nrun) {
-  int y = blockIdx.x, b = blockIdx.y;
-  if (active != nullptr && active[b] == 0) return;
+  int y = blockIdx.x * kRowWarps + (threadIdx.x >> 5), b = blockIdx.y;
+  if (y >= H || (active != nullptr && active[b] == 0)) return;
   long long row = (long long)b * H + y;
-  extract_row(plane + row * W, invert != 0, W, R, runid + row * W,
-              S + row * R, E + row * R, nrun + row);
+  PlaneRow src{plane + row * W, W, invert ? 0xFFFFu : 0u};
+  extract_row<kVec>(src, W, R, runid + row * W, S + row * R, E + row * R,
+                    nrun + row);
 }
 
-// One block per (row, frame): filled = binary, or the background run's flag
-// (1: not reached from the border), then the run tables of filled.
+// A warp per (row, frame): filled = binary, or the background run's flag
+// (1: not reached from the border), then the run tables of filled, from the
+// same registers.
+template <bool kVec>
 __global__ void k_fill_extract(int H, int W, int Rbg, int Rfg,
                                const int* active, const uint8_t* binary,
                                const uint8_t* runid_bg, const int32_t* F,
                                uint8_t* filled, uint8_t* runid_fg,
                                int32_t* S, int32_t* E, int32_t* nrun) {
-  int y = blockIdx.x, b = blockIdx.y;
-  if (active != nullptr && active[b] == 0) return;
+  int y = blockIdx.x * kRowWarps + (threadIdx.x >> 5), b = blockIdx.y;
+  if (y >= H || (active != nullptr && active[b] == 0)) return;
   long long row = (long long)b * H + y;
-  const uint8_t* bin = binary + row * W;
-  const uint8_t* rid = runid_bg + row * W;
   const int32_t* flag = F + row * Rbg;
-  uint8_t* out = filled + row * W;
-  for (int c = threadIdx.x; c < W; c += blockDim.x) {
-    int j = min(max((int)rid[c] - 1, 0), Rbg - 1);
-    out[c] = bin[c] != 0 || flag[j] != 0;
-  }
-  __syncthreads();
-  extract_row(out, false, W, Rfg, runid_fg + row * W, S + row * Rfg,
-              E + row * Rfg, nrun + row);
+  int lane = threadIdx.x & 31;
+  unsigned fmask = __ballot_sync(kFull, lane < Rbg &&
+                                            flag[min(lane, Rbg - 1)] != 0);
+  FillRow src{binary + row * W, runid_bg + row * W, flag, filled + row * W,
+              W, Rbg, fmask};
+  extract_row<kVec>(src, W, Rfg, runid_fg + row * W, S + row * Rfg,
+                    E + row * Rfg, nrun + row);
 }
 
 // Union-find over the valid runs of one frame's tables S / E [H, R]: runs of
@@ -289,6 +477,15 @@ int shared_bytes(Kernel* kernel, size_t bytes, size_t* out) {
   return 0;
 }
 
+// Whether every row of these [B, H, W] byte planes starts 16-byte aligned,
+// so that the extraction kernels move 16 columns a lane as one uint4.
+inline bool rows_vec16(int W, std::initializer_list<const void*> planes) {
+  if (W % kLaneCols != 0) return false;
+  for (const void* p : planes)
+    if ((uintptr_t)p % 16 != 0) return false;
+  return true;
+}
+
 }  // namespace
 
 // plane u8 [B, H, W] -> runid u8 [B, H, W], S / E int32 [B, H, R], nrun
@@ -298,8 +495,14 @@ extern "C" int hd_run_extract(const uint8_t* plane, int invert, int B, int H,
                               int W, int R, const int* active,
                               uint8_t* runid, int32_t* S, int32_t* E,
                               int32_t* nrun, void* stream) {
-  k_run_extract<<<dim3(H, B), kScanThreads, 0, (cudaStream_t)stream>>>(
-      plane, invert, H, W, R, active, runid, S, E, nrun);
+  dim3 grid((H + kRowWarps - 1) / kRowWarps, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rows_vec16(W, {plane, runid}))
+    k_run_extract<true><<<grid, kScanThreads, 0, st>>>(
+        plane, invert, H, W, R, active, runid, S, E, nrun);
+  else
+    k_run_extract<false><<<grid, kScanThreads, 0, st>>>(
+        plane, invert, H, W, R, active, runid, S, E, nrun);
   HD_CHECK();
   return 0;
 }
@@ -329,9 +532,16 @@ extern "C" int hd_fill_extract(int B, int H, int W, int Rbg, int Rfg,
                                uint8_t* filled, uint8_t* runid_fg,
                                int32_t* S, int32_t* E, int32_t* nrun,
                                void* stream) {
-  k_fill_extract<<<dim3(H, B), kScanThreads, 0, (cudaStream_t)stream>>>(
-      H, W, Rbg, Rfg, active, binary, runid_bg, F, filled, runid_fg, S, E,
-      nrun);
+  dim3 grid((H + kRowWarps - 1) / kRowWarps, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rows_vec16(W, {binary, runid_bg, filled, runid_fg}))
+    k_fill_extract<true><<<grid, kScanThreads, 0, st>>>(
+        H, W, Rbg, Rfg, active, binary, runid_bg, F, filled, runid_fg, S, E,
+        nrun);
+  else
+    k_fill_extract<false><<<grid, kScanThreads, 0, st>>>(
+        H, W, Rbg, Rfg, active, binary, runid_bg, F, filled, runid_fg, S, E,
+        nrun);
   HD_CHECK();
   return 0;
 }

@@ -337,3 +337,60 @@ def tile_case_frames(h, w, seed=0, tile=PRE_TILE):
            "uniform": np.full((h, w, 3), 128, np.uint8)}
     out.update(zip(names, drawn))
     return out
+
+
+# The run extraction's seams (csrc/runtable_tiled.cu): a lane takes 16
+# columns of a row, a warp step 512.
+RUN_LANE_COLS = 16
+RUN_STEP_COLS = 512
+RUN_SEAMS = (16, 32, 512, 1024, 1536)
+# Rows of a few frames at widths below a lane, across one, odd and the 2 MP
+# width.
+RUN_CASE_SIZES = ((5, 1), (5, 3), (5, 17), (5, 531), (5, 1920))
+# Runs a row of the counted cases holds: R and R + 1 for the tables'
+# widths (the detector's 8 / 7, the tests' 12 / 10).
+RUN_COUNTS = (6, 7, 8, 9, 10, 11, 12, 13)
+RUN_SHIFTS = 17
+
+
+def _runs_row(w, runs, shift):
+    """bool [w]: True on the columns of runs [(first, last), ...], each
+    moved right by shift and cut at the row's end."""
+    row = np.zeros(w, bool)
+    for a, b in runs:
+        row[max(a + shift, 0):max(b + shift + 1, 0)] = True
+    return row
+
+
+def run_case_masks(h, w):
+    """Masks that attack the run extraction's lanes and steps, bool [h, w]
+    by name (True = foreground).  Row y is the case's row moved right by
+    y % 17 columns, so that every run edge meets a seam from both sides:
+    runs ending at, starting at and crossing the lane and step edges
+    (RUN_SEAMS), every other lane's 16 columns, a run through the whole
+    row but its first and last column, one-pixel runs on every second
+    column from column 0 and from column 1 (960 runs at w = 1920: runid
+    wraps past 255), rows of exactly k runs for each k of RUN_COUNTS, all
+    foreground and all background."""
+    spaced = {}
+    for k in RUN_COUNTS:
+        gap = max(2, w // k)
+        spaced[f"runs_{k}"] = [(j * gap, j * gap + max(0, gap // 2 - 1))
+                               for j in range(k)]
+    cases = {
+        "ends_at_seams": [(s - 4, s - 1) for s in RUN_SEAMS],
+        "starts_at_seams": [(s, s + 3) for s in RUN_SEAMS],
+        "across_seams": [(s - 1, s) for s in RUN_SEAMS],
+        "lane_blocks": [(c, c + RUN_LANE_COLS - 1)
+                        for c in range(0, w, 2 * RUN_LANE_COLS)],
+        "through_row": [(1, w - 2)],
+        "alternate_even": [(c, c) for c in range(0, w, 2)],
+        "alternate_odd": [(c, c) for c in range(1, w, 2)],
+        **spaced,
+    }
+    out = {name: np.stack([_runs_row(w, runs, y % RUN_SHIFTS)
+                           for y in range(h)])
+           for name, runs in cases.items()}
+    out["all_fg"] = np.ones((h, w), bool)
+    out["all_bg"] = np.zeros((h, w), bool)
+    return out

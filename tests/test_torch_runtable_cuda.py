@@ -184,3 +184,31 @@ def test_preprocess_tiled_tile_cases(card, size, form):
         _equal(preprocess_tiled.contamination_preprocess_tiled(x, ct, cm, 8),
                preprocess_tiled.contamination_preprocess_tiled_reference(
                    x, ct, cm, 8))
+
+
+# The cases that attack the run extraction's lanes and steps
+# (scene.run_case_masks; tests/test_torch_run_cases.py holds the plain
+# versions against JAX).  A background width past 32 slots takes the fill's
+# flags from memory instead of a ballot.
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(1080, 1920), (1037, 1531)])
+@pytest.mark.parametrize("r", [(8, 7), (12, 10), (40, 7)])
+def test_extraction_run_cases_match_plain_versions(card, size, r):
+    h, w = size
+    r_bg, r_fg = r
+    masks = torch.from_numpy(np.stack(
+        list(scene.run_case_masks(h, w).values()))).to(card)
+    u8 = masks.to(torch.uint8) * 255
+    for plane in (masks, u8):
+        for invert in (False, True):
+            _equal(rt.run_extract(plane, r_fg, invert),
+                   rt.run_extract_reference(plane, r_fg, invert))
+    runid, S, E, _ = rt.run_extract(masks, r_bg, invert=True)
+    _equal((runid, S, E), rt.run_extract_reference(masks, r_bg, True)[:3])
+    rng = np.random.RandomState(r_bg)
+    for F in (torch.from_numpy(rng.randint(0, 2, (len(masks), h, r_bg))
+                               .astype(np.int32)).to(card),
+              rt.flood_fix(S, E, w)):
+        _equal(rt.fill_extract(masks, runid, F, r_fg),
+               rt.fill_extract_reference(masks, runid, F, r_fg))
+    torch.cuda.synchronize()
