@@ -123,26 +123,28 @@ __device__ __forceinline__ unsigned col_mask(int c, int W) {
 // of them issue together; columns past W are masked by the caller.
 template <bool kVec>
 __device__ __forceinline__ uint4 load16(const uint8_t* row, int c, int W) {
-  if (kVec)
+  if constexpr (kVec) {
     return __ldg(reinterpret_cast<const uint4*>(row + min(c, W - kLaneCols)));
-  unsigned w[4] = {0, 0, 0, 0};
+  } else {
+    unsigned w[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int i = 0; i < kLaneCols; ++i)
-    w[i / 4] |= (unsigned)__ldg(row + min(c + i, W - 1)) << (8 * (i % 4));
-  return make_uint4(w[0], w[1], w[2], w[3]);
+    for (int i = 0; i < kLaneCols; ++i)
+      w[i / 4] |= (unsigned)__ldg(row + min(c + i, W - 1)) << (8 * (i % 4));
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
 // Stores the bytes of v at columns c .. c + 15 that lie in the row.
 template <bool kVec>
 __device__ __forceinline__ void store16(uint8_t* row, int c, int W,
                                         const uint4& v) {
-  if (kVec) {
+  if constexpr (kVec) {
     if (c < W) *reinterpret_cast<uint4*>(row + c) = v;
-    return;
-  }
+  } else {
 #pragma unroll
-  for (int i = 0; i < kLaneCols; ++i)
-    if (c + i < W) row[c + i] = (uint8_t)(word(v, i / 4) >> (8 * (i % 4)));
+    for (int i = 0; i < kLaneCols; ++i)
+      if (c + i < W) row[c + i] = (uint8_t)(word(v, i / 4) >> (8 * (i % 4)));
+  }
 }
 
 // k_run_extract's row: the runs are the columns whose byte is nonzero, or
@@ -178,23 +180,22 @@ struct FillRow {
   __device__ Raw load(int c) const {
     return {load16<kVec>(bin, c, W), load16<kVec>(rid, c, W)};
   }
+  // The flag slot of column c + i's background run: runid - 1, clamped.
+  __device__ __forceinline__ int slot(const uint4& ids, int i) const {
+    return min(max((int)(word(ids, i / 4) >> (8 * (i % 4)) & 0xFFu) - 1, 0),
+               Rbg - 1);
+  }
   template <bool kVec>
   __device__ unsigned bits(const Raw& v, int c) const {
     unsigned hole = 0;
     if (Rbg <= 32) {
 #pragma unroll
-      for (int i = 0; i < kLaneCols; ++i) {
-        int j = min(max((int)(word(v.rid, i / 4) >> (8 * (i % 4)) & 0xFFu) - 1,
-                        0), Rbg - 1);
-        hole |= (fmask >> j & 1u) << i;
-      }
+      for (int i = 0; i < kLaneCols; ++i)
+        hole |= (fmask >> slot(v.rid, i) & 1u) << i;
     } else {
 #pragma unroll
-      for (int i = 0; i < kLaneCols; ++i) {
-        int j = min(max((int)(word(v.rid, i / 4) >> (8 * (i % 4)) & 0xFFu) - 1,
-                        0), Rbg - 1);
-        hole |= (unsigned)(F[j] != 0) << i;
-      }
+      for (int i = 0; i < kLaneCols; ++i)
+        hole |= (unsigned)(F[slot(v.rid, i)] != 0) << i;
     }
     unsigned filled = (nonzero_bits(v.bin) | hole) & col_mask(c, W);
     store16<kVec>(out, c, W, bit_bytes(filled));

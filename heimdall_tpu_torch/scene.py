@@ -343,7 +343,8 @@ def tile_case_frames(h, w, seed=0, tile=PRE_TILE):
 # columns of a row, a warp step 512.
 RUN_LANE_COLS = 16
 RUN_STEP_COLS = 512
-RUN_SEAMS = (16, 32, 512, 1024, 1536)
+RUN_SEAMS = (RUN_LANE_COLS, 2 * RUN_LANE_COLS, RUN_STEP_COLS,
+             2 * RUN_STEP_COLS, 3 * RUN_STEP_COLS)
 # Rows of a few frames at widths below a lane, across one, odd and the 2 MP
 # width.
 RUN_CASE_SIZES = ((5, 1), (5, 3), (5, 17), (5, 531), (5, 1920))
