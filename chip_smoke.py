@@ -244,24 +244,34 @@ def cuda_ms(fn, iters):
 def cuda_kernels(fn):
     """The repo's CUDA kernels (their names start with k_) that one call of
     fn launches, counted from a torch.profiler trace of that call:
-    {kernel name: launches}.  The trace opens with a PyTorch kernel and a
-    sync, since the card showed a trace's first kernel can go unrecorded."""
+    {kernel name: launches}.  The card can leave a trace's first kernels
+    unrecorded, so each trace opens with a lead kernel that no wrapper
+    launches (torch.cuda._sleep's spin kernel) and a sync, and is counted
+    only when the lead was recorded; else fn is traced again, after a host
+    wait of 0.05 s, then 0.5 s."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    marker = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        marker.add_(1)
+    for wait in (0.0, 0.05, 0.5):
         torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(wait)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if any("spin" in n for n in names):
+            break
+    else:
+        fail("no trace recorded its lead kernel: launches not counted")
     counts = {}
-    for e in prof.events():
-        m = re.search(r"(?:^|[\s:])(k_\w+)", e.name)
-        if e.device_type == DeviceType.CUDA and m:
+    for name in names:
+        m = re.search(r"(?:^|[\s:])(k_\w+)", name)
+        if m:
             counts[m.group(1)] = counts.get(m.group(1), 0) + 1
     return counts
 
