@@ -244,30 +244,34 @@ def cuda_ms(fn, iters):
 def cuda_kernels(fn):
     """The repo's CUDA kernels (their names start with k_) that one call of
     fn launches, counted from a torch.profiler trace of that call:
-    {kernel name: launches}.  The card can leave a trace's first kernels
-    unrecorded, so each trace opens with a lead kernel that no wrapper
-    launches (torch.cuda._sleep's spin kernel) and a sync, and is counted
-    only when the lead was recorded; else fn is traced again, after a host
-    wait of 0.05 s, then 0.5 s."""
+    {kernel name: launches}.  The card can leave kernels at a trace's start
+    unrecorded, so fn runs between two kernels that no wrapper launches
+    (torch.cuda._sleep's spin kernel), each behind a sync, with a host wait
+    before the first and after the second; the trace counts only when both
+    were recorded, else it is taken again with a longer wait."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for wait in (0.0, 0.05, 0.5):
+    for wait in (0.01, 0.1, 0.5, 2.0):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(wait)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(wait)
-            fn()
-            torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
-        if any("spin" in n for n in names):
+        if sum("spin" in n for n in names) == 2:
             break
     else:
-        fail("no trace recorded its lead kernel: launches not counted")
+        fail("no trace recorded both of its bracketing kernels: launches "
+             "not counted")
     counts = {}
     for name in names:
         m = re.search(r"(?:^|[\s:])(k_\w+)", name)
