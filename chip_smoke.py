@@ -244,31 +244,35 @@ def cuda_ms(fn, iters):
 def cuda_kernels(fn):
     """The repo's CUDA kernels (their names start with k_) that one call of
     fn launches, counted from a torch.profiler trace of that call:
-    {kernel name: launches}.  The card can leave kernels at a trace's start
-    unrecorded, so fn runs between two kernels that no wrapper launches
-    (torch.cuda._sleep's spin kernel), each behind a sync, with a host wait
-    before the first and after the second; the trace counts only when both
-    were recorded, else it is taken again with a longer wait."""
+    {kernel name: launches}.  The card can leave a trace's first one or two
+    kernels unrecorded, so each trace opens with three PyTorch kernels to
+    lose, then runs fn between two kernels that no wrapper launches
+    (torch.cuda._sleep's spin kernel), each behind a sync; it counts only
+    when both spins were recorded, else it is taken again."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for wait in (0.01, 0.1, 0.5, 2.0):
+    marker = torch.zeros(1, device="cuda")
+    for attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(wait)
+            for _ in range(3):
+                marker.add_(1)
+                torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            time.sleep(wait)
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
         if sum("spin" in n for n in names) == 2:
             break
+        phase(f"trace {attempt} recorded {[n[:40] for n in names]}, not "
+              f"both spin kernels: tracing again")
     else:
         fail("no trace recorded both of its bracketing kernels: launches "
              "not counted")
