@@ -116,7 +116,7 @@ Phases (each prints a line; any failure exits non-zero without a result):
         card (5 batches, its JSON report), and a ProfilingSession.trace of
         the split kernels, which must list their CUDA kernels (opened by
         three PyTorch kernels the card may leave unrecorded, and taken up to
-        three times); then each split kernel's plain version and bound;
+        8 times); then each split kernel's plain version and bound;
      e. the probes path, with the probe kernels' launch counts set to 0
         just before and read just after: the port's profile_pre_variants
         and profile_fill_variants (batch 256, 10 iterations; every
@@ -216,6 +216,9 @@ PRIM_OPS = {
     "masked_ladder5": 10, "nbmin_guard": 6, "nbmin_masked_sub": 10,
     "or_and_mask": 2, "max_ladder_full": 20, "sublane_mask_add": 2}
 H100_SMS = 132
+# torch.profiler traces taken before a traced count or listing fails: the
+# card has returned two incomplete traces in a row (cuda_kernels).
+TRACE_TRIES = 8
 DISPATCH_LANES_PER_SM = 128
 BF16_FLOPS_PER_S = 989e12
 
@@ -246,16 +249,18 @@ def cuda_kernels(fn):
     """The repo's CUDA kernels (their names start with k_) that one call of
     fn launches, counted from a torch.profiler trace of that call:
     {kernel name: launches}.  The card can leave a trace's first one or two
-    kernels unrecorded, so each trace opens with three PyTorch kernels to
-    lose, then runs fn between two kernels that no wrapper launches
-    (torch.cuda._sleep's spin kernel), each behind a sync; it counts only
-    when both spins were recorded, else it is taken again."""
+    kernels unrecorded, or record no kernel at all, so each trace opens
+    with three PyTorch kernels to lose, then runs fn between two kernels
+    that no wrapper launches (torch.cuda._sleep's spin kernel), each behind
+    a sync; it counts only when both spins were recorded, else it is taken
+    again, up to TRACE_TRIES times."""
     import re
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     marker = torch.zeros(1, device="cuda")
-    for attempt in range(3):
+    for attempt in range(TRACE_TRIES):
+        time.sleep(0.2 if attempt else 0.0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1223,9 +1228,12 @@ def split_phases(dev, smi, cases):
         x = cases["bench8_channel_major"][0]
         session = ProfilingSession("split_trace", device=dev)
         marker = torch.zeros(1, device=dev)
-        for attempt in range(3):    # the card can lose a trace's kernels
+        # the card can lose a trace's kernels: open it with kernels to
+        # lose, and take it again until it lists the split kernels
+        for attempt in range(TRACE_TRIES):
+            time.sleep(0.2 if attempt else 0.0)
             with session.trace(os.path.join(out_dir, "trace")):
-                for _ in range(3):  # kernels to lose at the trace's start
+                for _ in range(3):
                     marker.add_(1)
                     torch.cuda.synchronize()
                 sk.stats_kernel(x, sk.label_kernel(x, CONTRAST), K)
