@@ -52,8 +52,18 @@ Phases (each prints a line; any failure exits non-zero without a result):
         extraction with R 8, 12 and 40, both inverts, fill + extraction with
         r_bg / r_fg 8 / 7, 12 / 10 and 40 / 7 (past 32 background slots the
         flags are read from memory) on random flags and the border flood's,
-        and the route on them; and the CUDA kernels of one run extraction
-        and one fill + extraction call, traced: one launch each;
+        and the route on them; then the cases whose components cross every
+        row block of the union-finds many times (scene.fix_case_masks:
+        serpentine corridors, a ring over the frame's height, a staircase
+        diagonal and a comb whose teeth meet on the last row, as foreground
+        and as background) at 1920x1080, 301x517 and heights 1, 7, 8 and 9
+        (below, at and above the cluster's 8 blocks), the route and every
+        kernel as above and the label fix also with band 16 and K = 4 and
+        with band 1, both union-finds on their cluster path, every frame on
+        the tables; tall frames at R 12, 5000 rows on the cluster path and
+        16000 rows on the global-scratch path; and the CUDA kernels of one
+        run extraction, border flood, fill + extraction and run-label call,
+        traced: one launch each;
      d. the split kernels at 640x480 (the label kernel at every stage, the
         stats kernel on its labels): bench frames, adversarial frames with
         K = 64 and K = 4, 2 frames of 477x631, and a uniform frame with no
@@ -107,8 +117,9 @@ Phases (each prints a line; any failure exits non-zero without a result):
      CUDA kernels that one call of the fused detect and of the band labels
      launches, counted from a torch.profiler trace of that call (for the
      fused detect also at each phase 3a size, against what its C entry
-     reports); the B3 kernels and B2 also at the main path's batch of 128
-     (kernels only; the plain versions at 32);
+     reports); the B3 kernels and B2 (BGR) and the banded stats and bbox
+     sums (Mono8) also at the main path's batch of 128 (kernels only; the
+     plain versions at 32);
      d. the profiling path, with the split kernels' launch counts set to 0
         just before and read just after: the port's profile_fused and
         profile_preprocess (batch 256, 10 iterations; each stage's us/frame
@@ -557,6 +568,29 @@ def check_fused_tile_cases(dev):
     return err
 
 
+def stats_bytes(n):
+    """Bytes the banded stats of n 2 MP frames must move: labels 4, mask
+    1 and gray 1 B/px in, 12 sums a slot out."""
+    return n * H2 * W2 * 6 + n * 12 * K * 4
+
+
+def bbox_bytes(bbox, sl, sc, band):
+    """Bytes the bbox sums must move on these inputs: the gray pixels of
+    each listed (slot, band) pair's window in the band, the slot lists,
+    counts and bboxes, and 8 sums a slot out."""
+    import torch
+    n, R = sc.shape
+    listed = torch.arange(K, device=sc.device) < sc[..., None].long()
+    k_ids = torch.where(listed, sl.long(), 0)
+    bb = bbox.long().gather(2, k_ids.reshape(n, 1, -1).expand(
+        -1, 4, -1)).reshape(n, 4, R, K)
+    top = torch.arange(R, device=sc.device)[None, :, None] * band
+    rows = (torch.minimum(bb[:, 3], (top + band).clamp(max=H2) - 1)
+            - torch.maximum(bb[:, 1], top) + 1).clamp(min=0)
+    cols = (bb[:, 2] - bb[:, 0] + 1).clamp(min=0)
+    return int((rows * cols * listed).sum()) + n * (R * K + R + 8 * K) * 4
+
+
 def tiled_phases(dev, smi, argv):
     """Phases 3b, 4b and 5 of the band-tiled 2 MP route; returns
     (largest check error, {kernel: launches}, {kernel: timings})."""
@@ -671,22 +705,13 @@ def tiled_phases(dev, smi, argv):
     # bytes each function must move: inputs read once, outputs written once
     R = -(-H2 // band)
     small = TIME_BATCH_2MP * (R * 128 + R + K + 1 + R * K + R) * 4
-    listed = torch.arange(K, device=dev) < sc[..., None].long()
-    k_ids = torch.where(listed, sl.long(), 0)
-    bb = bbox.long().gather(2, k_ids.reshape(TIME_BATCH_2MP, 1, -1).expand(
-        -1, 4, -1)).reshape(TIME_BATCH_2MP, 4, R, K)
-    top = torch.arange(R, device=dev)[None, :, None] * band
-    rows = (torch.minimum(bb[:, 3], (top + band).clamp(max=H2) - 1)
-            - torch.maximum(bb[:, 1], top) + 1).clamp(min=0)
-    cols = (bb[:, 2] - bb[:, 0] + 1).clamp(min=0)
-    window_px = int((rows * cols * listed).sum())
     moved = {
         "preprocess": px * 3,                       # frame in, gray + binary
         "flood_fill": px * 2,                       # mask in, filled out
         "band_ccl": px * 5 + small,                 # mask in, labels out
         "merge_bands": px * 8 + small,              # labels in and out
-        "banded_stats": px * 6 + TIME_BATCH_2MP * 12 * K * 4,
-        "bbox_sums": window_px + TIME_BATCH_2MP * (R * K + R + 8 * K) * 4,
+        "banded_stats": stats_bytes(TIME_BATCH_2MP),
+        "bbox_sums": bbox_bytes(bbox, sl, sc, band),
     }
     # the CUDA kernels of one band labeling call, from a trace of it
     band_kernels = cuda_kernels(calls["band_ccl"][0])
@@ -716,6 +741,28 @@ def tiled_phases(dev, smi, argv):
               f"plain version {plain_ms:.2f} ms; bound "
               f"{timings[name]['bound_ms']:.4f} ms (by "
               f"{timings[name]['bound_by']}; {moved[name]} bytes)")
+
+    # B4a and B4b also at the main path's batch (kernels only)
+    kern = tiled_stages(x, False, K, band)
+    gray, _ = kern["preprocess"]
+    (filled,) = kern["flood_fill"]
+    labels, rl, n, sl, sc = kern["merge_bands"]
+    bbox = kern["banded_stats"][1]
+    del kern
+    for name, fn, nbytes in (
+            ("banded_stats",
+             lambda: st.banded_stats(labels, filled, gray, None, rl, n, K),
+             stats_bytes(BATCH_2MP)),
+            ("bbox_sums", lambda: st.bbox_sums(bbox, sl, sc, band, gray),
+             bbox_bytes(bbox, sl, sc, band))):
+        fn()
+        ms = cuda_ms(fn, 10)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        timings[name].update(ms_batch_128=ms, bound_ms_batch_128=bound_ms)
+        phase(f"{smi}: {name} {ms:.4f} ms per {BATCH_2MP} frames of "
+              f"1920x1080 Mono8 ({ms / BATCH_2MP * 1e3:.3f} us/frame); bound "
+              f"{bound_ms:.4f} ms (by bytes; {nbytes} bytes)")
+    del gray, filled, labels, rl, n, sl, sc, bbox
 
     det.run_device(x)
     torch.cuda.synchronize()
@@ -811,9 +858,10 @@ def check_run_cases(dev, band):
     8 / 7, 12 / 10, 40 / 7; flags drawn at random and the border flood's)
     against their plain versions, and the whole route on the masks (every
     kernel against its plain version, the route against the band route);
-    then the CUDA kernels of one call of each, from a trace, which must be
-    one launch of its kernel.  Returns (the largest error, 0 or the run
-    fails; {wrapper: {CUDA kernel: launches}})."""
+    then the CUDA kernels of one call of each, and of the two union-finds
+    between them, from a trace, which must be one launch of its kernel.
+    Returns (the largest error, 0 or the run fails; {wrapper: {CUDA kernel:
+    launches}})."""
     import numpy as np
     import torch
     from heimdall_tpu_torch import scene
@@ -854,11 +902,15 @@ def check_run_cases(dev, band):
         masks = on(np.stack(list(scene.run_case_masks(h, w).values())))
         runid, S, E, _ = rt.run_extract(masks, RT_BG, True)
         F = rt.flood_fix(S, E, w)
+        S_fg, E_fg = rt.fill_extract(masks, runid, F, RT_FG)[2:4]
         traced = {
             "run_extract": cuda_kernels(
                 lambda: rt.run_extract(masks, RT_BG, True)),
+            "flood_fix": cuda_kernels(lambda: rt.flood_fix(S, E, w)),
             "fill_extract": cuda_kernels(
-                lambda: rt.fill_extract(masks, runid, F, RT_FG))}
+                lambda: rt.fill_extract(masks, runid, F, RT_FG)),
+            "label_fix": cuda_kernels(
+                lambda: rt.label_fix(S_fg, E_fg, w, band, K))}
         phase(f"run cases {h}x{w}: CUDA kernels per call (traced) {traced}")
         for name, got in traced.items():
             if got != {"k_" + name: 1}:
@@ -867,6 +919,70 @@ def check_run_cases(dev, band):
         fail("a run extraction kernel differs from its plain version on the "
              "run cases")
     return err, traced
+
+
+def check_fix_cases(dev, band):
+    """Phase 3c's cases whose components cross every row block of the
+    union-finds (scene.fix_case_masks) at scene.FIX_CASE_SIZES: every
+    run-table kernel against its plain version and the route against the
+    band route (check_runtable), every frame on the tables, and the label
+    fix also with band 16 and K 4 and with band 1, both union-finds on
+    their cluster path; then two [h, 64] masks at R 12 (noise, a bar with a
+    hole down most of its height): 5000 rows on the cluster path, 16000 on
+    the global-scratch path.  Returns the largest error (0 or the run
+    fails)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import runtable_tiled as rt
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def fixes(masks, r_bg, r_fg, labelings):
+        W = masks.shape[-1]
+        runid, S, E, _ = rt.run_extract(masks, r_bg, True)
+        F = rt.flood_fix(S, E, W)
+        errs = {"flood_fix": max_abs_err(
+            (F,), (rt.flood_fix_reference(S, E, W),))}
+        paths = {rt.flood_fix.last_path}
+        S_fg, E_fg = rt.fill_extract(masks, runid, F, r_fg)[2:4]
+        for b, k in labelings:
+            errs[f"label_fix_band{b}_k{k}"] = max_abs_err(
+                rt.label_fix(S_fg, E_fg, W, b, k),
+                rt.label_fix_reference(S_fg, E_fg, W, b, k))
+            paths.add(rt.label_fix.last_path)
+        torch.cuda.synchronize()
+        return errs, paths
+
+    err = 0
+    for h, w in scene.FIX_CASE_SIZES:
+        masks = on(np.stack(list(scene.fix_case_masks(h, w).values())))
+        err = max(err, check_runtable(f"fix_case_masks_{h}x{w}", None, False,
+                                      K, band, masks))
+        if not bool(rt.fill_label_runtable_tiled.last_route.all()):
+            fail(f"a fix case at {h}x{w} did not take the run tables")
+        errs, paths = fixes(masks, RT_BG, RT_FG, ((16, 4), (1, K)))
+        phase(f"check 2MP fix cases {h}x{w} ({len(masks)} masks): "
+              f"union-find paths {sorted(paths)} max_abs_err {errs}")
+        if paths != {"cluster"}:
+            fail(f"a union-find at {h}x{w} took {paths}, not its cluster")
+        err = max(err, *errs.values())
+    for h, path in ((5000, "cluster"), (16000, "scratch")):
+        tall = np.zeros((2, h, 64), bool)
+        tall[0] = np.random.RandomState(1).rand(h, 64) < 0.1
+        tall[1, :, 10:20] = True
+        tall[1, 100:h - 100, 14:16] = False
+        errs, paths = fixes(on(tall), 12, 12, ((band, K),))
+        phase(f"check tall tables {h}x64 R 12: union-find paths "
+              f"{sorted(paths)} max_abs_err {errs}")
+        if paths != {path}:
+            fail(f"the union-finds at {h}x64 took {paths}, not {path}")
+        err = max(err, *errs.values())
+    if err:
+        fail("a union-find kernel differs from its plain version on the fix "
+             "cases")
+    return err
 
 
 def _stripes(h, w, n=8):
@@ -985,7 +1101,7 @@ def runtable_phases(dev, smi, argv):
                   check_runtable(f"tile_case_frames_{h}x{w}", on(tf), False,
                                  K, band))
     run_err, traced = check_run_cases(dev, band)    # the run cases
-    err = max(err, run_err)
+    err = max(err, run_err, check_fix_cases(dev, band))
 
     # -- 4c. the BGR 2 MP main path ----------------------------------------
     frames = scene.make_frames(BATCH_2MP, H2, W2, seed=2)
@@ -1070,7 +1186,7 @@ def runtable_phases(dev, smi, argv):
                   f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms (by "
                   f"{bound_by}; {moved[name]} bytes)")
         del calls
-    for name in ("run_extract", "fill_extract"):
+    for name in traced:
         timings[name]["cuda_kernels"] = traced[name]
 
     def band_route(xe):

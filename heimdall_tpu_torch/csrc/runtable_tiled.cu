@@ -39,13 +39,15 @@
 // TPU kernels find the fill and the labels as min-propagation fixpoints over
 // the whole-frame tables; here each is one union-find over the frame's runs
 // (node row * R + slot; runs of adjacent rows are joined where they overlap,
-// 4-connected for the background, 8-connected for the foreground), one
-// block per frame, with the parents in shared memory when the frame's
-// table fits (1080 x 8 nodes: 34.6 KB of parents, plus 8.6 KB of border
-// marks in the fill) and in global scratch when it does not.  A root is the
-// smallest node of its tree, which is also the run with the smallest
-// row * W + S, so the label of a run is read off its root.  The per-band
-// slot incidence is a second kernel, one block per (band, frame).
+// 4-connected for the background, 8-connected for the foreground), spread
+// over a cluster of 8 blocks per frame, each holding its rows' tables and
+// parents in shared memory (135 x 8 nodes at 1080 rows: about 14 KB) and
+// uniting across block edges through distributed shared memory; the label
+// fix also ranks the roots and writes the per-band slot incidence in the
+// same launch.  A root is the smallest node of its tree, which is also the
+// run with the smallest row * W + S, so the label of a run is read off its
+// root.  Frames whose blocks' tables exceed shared memory take one block
+// per frame over global scratch.
 //
 // Every kernel takes an optional `active` (int32 [B]): frames whose flag is
 // 0 are skipped and their outputs left unwritten, so the density guards of
@@ -59,12 +61,17 @@
 // filled, runid and the tables (~8.4 MB, 2.5 us); the writeback reads
 // filled and runid and writes int32 labels (~12.5 MB, 3.7 us); the two
 // union-finds read and write tables of 1080 x 8 slots (~0.1 MB, 0.03 us),
-// where one block per frame runs under one wave on 132 SMs: latency, not
-// bytes, bounds them.
+// where chains of dependent shared-memory accesses and the cluster's
+// barriers, not bytes, bound them: the cluster spreads a frame over 8 SMs'
+// worth of blocks so that a batch fills the card.
+
+#include <cooperative_groups.h>
 
 #include <initializer_list>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -324,9 +331,366 @@ __global__ void k_fill_extract(int H, int W, int Rbg, int Rfg,
                     E + row * Rfg, nrun + row);
 }
 
-// Union-find over the valid runs of one frame's tables S / E [H, R]: runs of
-// adjacent rows are united where [S - dilate, E + dilate] meets the other's
-// [S, E] (dilate 0: 4-connected, 1: 8-connected).  Ends synchronised.
+// ------------------------------------------------ the union-finds (B3b, B3d)
+//
+// Both fixes unite the valid runs of a frame's tables S / E [H, R]: node
+// y * R + k is slot k of row y, and runs of adjacent rows are united where
+// [S - dilate, E + dilate] meets the other's [S, E] (dilate 0: 4-connected,
+// the background; 1: 8-connected, the foreground).  Hooking the larger root
+// under the smaller keeps every root the smallest node of its tree, which is
+// also its component's run with the smallest row * W + S (in a row the
+// slots are sorted by S), so no result depends on the order of the unions.
+//
+// A frame is a cluster of kFixCluster blocks.  Block c owns rows
+// [c * H / kFixCluster, (c + 1) * H / kFixCluster) (none when H is below the
+// cluster) and stages them in its shared memory with the row above its
+// first: S and E, 16 bytes a load, and its nodes' parents, which hold frame
+// node ids.  Then, each step behind a barrier of the block or the cluster:
+//   1. the links inside the block: a warp per pair of rows, lane p testing
+//      run p / R of the row against run p % R of the row above, uniting in
+//      the block's parents (atomicMin; find with path halving);
+//   2. after a cluster barrier, the links across block edges: one warp a
+//      block unites its first row with the staged row above through the
+//      owners' parents (distributed shared memory), finding without
+//      halving, so that only step 1's roots get a parent in another block;
+//   3. after a cluster barrier, with no union left, every parent becomes
+//      its node's root: first the nodes whose parent lies in another block
+//      walk the cluster, then every node walks its block's chain, which ends
+//      at its root or at a parent in another block, by then a root.  Each
+//      pass writes a node's parent once, with its root: no halving store can
+//      land behind a root store.
+// The flood fix then sets the mark of each root reached from the border in
+// its owner's block and, after a cluster barrier, writes F.  The label fix
+// writes L, ranks the roots in raster order (a block scan over chunks of
+// nodes, each block's base from the earlier blocks' counts), writes the root
+// table and count, and sets each run's slot in its band's presence mask,
+// held by the block that holds the band's first row; after a cluster
+// barrier a warp per band writes the band's slot list.  No block leaves
+// while another may still read its shared memory.
+//
+// A frame whose blocks' tables exceed shared memory takes the global-scratch
+// kernels further down: one block per frame, the parents in global memory.
+
+constexpr int kFixCluster = 8;   // blocks a frame: the portable cluster size
+
+// A fix block's shared memory in 32-bit words, the same in every block of a
+// launch: the staged S and E (the row above, then the block's rows, moved
+// by up to 3 words to share the tables' 16-byte alignment), the parents,
+// then the label fix's root ranks and band presence masks, or the flood
+// fix's marks (bytes).
+struct FixLayout {
+  int rows, tab, nodes, bands, words;
+  __host__ __device__ FixLayout(int H, int R, int band, int K) {
+    rows = (H + kFixCluster - 1) / kFixCluster;
+    tab = ((rows + 1) * R + 3 + 3) & ~3;
+    nodes = (rows * R + 3) & ~3;
+    bands = band > 0 ? rows / band + 2 : 0;
+    words = (K + 31) / 32;
+  }
+  __host__ __device__ size_t flood_bytes() const {
+    return (size_t)(2 * tab + nodes) * 4 + nodes;
+  }
+  __host__ __device__ size_t label_bytes() const {
+    return (size_t)(2 * tab + 2 * nodes + bands * words) * 4;
+  }
+};
+
+__device__ __forceinline__ int32_t* fix_smem() {
+  extern __shared__ __align__(16) int32_t fix_raw[];
+  return fix_raw;
+}
+
+// Copies src[lo, hi) to dst[lo, hi) (int32; dst and src agree mod 16
+// bytes), 16 bytes a load where both are aligned.
+__device__ void stage_words(int32_t* dst, const int32_t* src, int lo,
+                            int hi) {
+  int t = threadIdx.x, nt = blockDim.x;
+  int a = min(hi, lo + (int)((4 - ((uintptr_t)(src + lo) >> 2)) & 3));
+  int z = a + (hi - a) / 4 * 4;
+  for (int j = lo + t; j < a; j += nt) dst[j] = __ldg(src + j);
+  for (int j = a + 4 * t; j < z; j += 4 * nt)
+    *reinterpret_cast<int4*>(dst + j) =
+        __ldg(reinterpret_cast<const int4*>(src + j));
+  for (int j = z + t; j < hi; j += nt) dst[j] = __ldg(src + j);
+}
+
+// One block's part of its frame's cluster.  Nodes are frame node ids.
+struct FixBlock {
+  cg::cluster_group cluster;
+  int H, W, R;
+  int c, y0, n, g0;       // rank, first row, rows, first node
+  long long base;         // the frame's first table entry
+  uintptr_t sword;        // the S table's address in words
+  int32_t* raw;           // the layout's start
+  int32_t *S, *E, *P;     // the block's rows (S[-R, 0): the row above)
+
+  __device__ FixBlock(int H_, int W_, int R_, const FixLayout& lay,
+                      const int32_t* Sg, const int32_t* Eg)
+      : cluster(cg::this_cluster()), H(H_), W(W_), R(R_) {
+    c = (int)cluster.block_rank();
+    y0 = first_row(c);
+    n = first_row(c + 1) - y0;
+    g0 = y0 * R;
+    base = (long long)blockIdx.y * H * R;
+    sword = (uintptr_t)Sg >> 2;
+    raw = fix_smem();
+    S = raw + shift(sword, c) + R;
+    E = raw + lay.tab + shift((uintptr_t)Eg >> 2, c) + R;
+    P = raw + 2 * lay.tab;
+  }
+  __device__ int first_row(int o) const {
+    return (int)((long long)o * H / kFixCluster);
+  }
+  __device__ int owner(int y) const {
+    return (int)((((long long)y + 1) * kFixCluster - 1) / H);
+  }
+  // Words the staged rows of block o are moved by, for a table at `word`.
+  __device__ int shift(uintptr_t word, int o) const {
+    return (int)((word + base + (long long)first_row(o) * R - R) & 3);
+  }
+  // Entry of node x in the node array `arr` of x's block (arr: this block's
+  // copy); `mapped` takes the cluster window even for this block.
+  template <typename T>
+  __device__ T* at(T* arr, int x, bool mapped = false) {
+    int o = owner(x / R);
+    if (o == c && !mapped) return arr + (x - g0);
+    return cluster.map_shared_rank(arr, o) + (x - first_row(o) * R);
+  }
+  // row * W + S of node x.
+  __device__ int lin(int x) {
+    int o = owner(x / R);
+    const int32_t* s = o == c ? S
+                              : cluster.map_shared_rank(raw, o) +
+                                    shift(sword, o) + R;
+    return x / R * W + s[x - first_row(o) * R];
+  }
+  __device__ bool valid(int i) const { return S[i] < kBig; }
+
+  // S and E of the row above and the block's rows; parents = node ids.
+  __device__ void stage(const int32_t* Sg, const int32_t* Eg) {
+    int lo = y0 > 0 && n > 0 ? -R : 0, hi = n * R;
+    stage_words(S, Sg + base + g0, lo, hi);
+    stage_words(E, Eg + base + g0, lo, hi);
+    if (y0 == 0)
+      for (int k = threadIdx.x; k < R; k += blockDim.x) {
+        S[k - R] = kBig;
+        E[k - R] = -kBig;
+      }
+    for (int i = threadIdx.x; i < hi; i += blockDim.x) P[i] = g0 + i;
+  }
+
+  // Step 1's find: every ancestor is this block's; halves the path.
+  __device__ int find_local(int x) {
+    volatile int32_t* p = P;
+    while (true) {
+      int q = p[x - g0];
+      if (q == x) return x;
+      int r = p[q - g0];
+      if (r == q) return q;
+      p[x - g0] = r;
+      x = r;
+    }
+  }
+  // Step 2's find, over the cluster, without stores.
+  __device__ int find_cluster(int x) {
+    while (true) {
+      int q = *(volatile int32_t*)at(P, x, true);
+      if (q == x) return x;
+      x = q;
+    }
+  }
+  // unite (common.cuh) over the block's or the cluster's parents.
+  template <bool kCluster>
+  __device__ void unite_nodes(int a, int b) {
+    while (true) {
+      a = kCluster ? find_cluster(a) : find_local(a);
+      b = kCluster ? find_cluster(b) : find_local(b);
+      if (a == b) return;
+      if (a > b) {
+        int t = a;
+        a = b;
+        b = t;
+      }
+      int old = atomicMin(kCluster ? at(P, b, true) : P + (b - g0), a);
+      if (old == b) return;
+      b = old;
+    }
+  }
+  // The runs of the block's row y united with the row above's, by one warp.
+  template <bool kCluster>
+  __device__ void link_row(int y, int dilate) {
+    const int32_t *s1 = S + y * R, *e1 = E + y * R;
+    const int32_t *s0 = s1 - R, *e0 = e1 - R;
+    for (int p = threadIdx.x & 31; p < R * R; p += 32) {
+      int i = p / R, j = p - i * R;
+      int s = s1[i], su = s0[j];
+      if (s < kBig && su < kBig && su - dilate <= e1[i] &&
+          e0[j] + dilate >= s)
+        unite_nodes<kCluster>(g0 + y * R + i, g0 + (y - 1) * R + j);
+    }
+  }
+  // Steps 1-3 (see above); the block's parents are then its nodes' roots.
+  __device__ void union_find(int dilate) {
+    int warp = threadIdx.x >> 5, warps = blockDim.x >> 5, N = n * R;
+    for (int y = warp + 1; y < n; y += warps) link_row<false>(y, dilate);
+    cluster.sync();
+    if (warp == 0 && n > 0 && y0 > 0) link_row<true>(0, dilate);
+    cluster.sync();
+    for (int i = threadIdx.x; i < N; i += blockDim.x)
+      if (P[i] < g0) P[i] = find_cluster(P[i]);
+    __syncthreads();
+    volatile int32_t* p = P;
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      int x = g0 + i, q = p[i];
+      while (q != x && q >= g0) {
+        x = q;
+        q = p[x - g0];
+      }
+      p[i] = q;
+    }
+    __syncthreads();
+  }
+};
+
+// A cluster per frame: F = 0 for the background runs 4-connected to a run
+// on the first or last row or touching the first or last column, else 1
+// (invalid slots included).
+__global__ void __launch_bounds__(kScanThreads)
+    k_flood_fix(int H, int W, int R, const int* active, const int32_t* S,
+                const int32_t* E, int32_t* F) {
+  if (active != nullptr && active[blockIdx.y] == 0) return;
+  FixLayout lay(H, R, 0, 0);
+  FixBlock f(H, W, R, lay, S, E);
+  uint8_t* mark = reinterpret_cast<uint8_t*>(f.P + lay.nodes);
+  int N = f.n * R;
+  f.stage(S, E);
+  for (int i = threadIdx.x; i < N; i += blockDim.x) mark[i] = 0;
+  __syncthreads();
+  f.union_find(0);
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    int y = f.y0 + i / R;
+    if (f.valid(i) &&
+        (y == 0 || y == H - 1 || f.S[i] == 0 || f.E[i] == W - 1))
+      *f.at(mark, f.P[i]) = 1;
+  }
+  f.cluster.sync();
+  int32_t* out = F + f.base + f.g0;
+  for (int i = threadIdx.x; i < N; i += blockDim.x)
+    out[i] = f.valid(i) && *f.at(mark, f.P[i]) ? 0 : 1;
+  f.cluster.sync();
+}
+
+// One band's slot list from its presence mask (K bits), by one warp: the
+// present slots ascending, then the absent ones; *count the present ones.
+__device__ void warp_slot_list(const unsigned* pres, int K, int32_t* list,
+                               int32_t* count) {
+  int lane = threadIdx.x & 31, words = (K + 31) / 32;
+  unsigned lt = (1u << lane) - 1u;
+  int n = 0;
+  for (int w = lane; w < words; w += 32) n += __popc(pres[w]);
+  n = __reduce_add_sync(kFull, n);
+  int present = 0, absent = 0;
+  for (int w = 0; w < words; ++w) {
+    unsigned bits = pres[w];
+    int k = 32 * w + lane, np = __popc(bits);
+    if (k < K)
+      list[bits >> lane & 1u ? present + __popc(bits & lt)
+                             : n + absent + __popc(~bits & lt)] = k;
+    present += np;
+    absent += min(32, K - 32 * w) - np;
+  }
+  if (lane == 0) *count = n;
+}
+
+// A cluster per frame: L = row * W + S of the run's component root (H*W in
+// invalid slots), the first K roots in raster order (padded with H*W), the
+// root count, and each band's slot list (present slots ascending, then the
+// absent ones) and count.
+__global__ void __launch_bounds__(kScanThreads)
+    k_label_fix(int H, int W, int R, int band, int K, const int* active,
+                const int32_t* S, const int32_t* E, int32_t* L, int32_t* rl,
+                int32_t* nblobs, int32_t* slot_list, int32_t* slot_count) {
+  __shared__ int s_count, s_base, s_total;
+  int b = blockIdx.y;
+  if (active != nullptr && active[b] == 0) return;
+  FixLayout lay(H, R, band, K);
+  FixBlock f(H, W, R, lay, S, E);
+  int32_t* rank = f.P + lay.nodes;
+  unsigned* pres = reinterpret_cast<unsigned*>(rank + lay.nodes);
+  int N = f.n * R, HW = H * W, Rb = (H + band - 1) / band;
+  int blo = f.y0 / band;
+  int nb = f.n > 0 ? (f.y0 + f.n - 1) / band - blo + 1 : 0;
+  f.stage(S, E);
+  for (int i = threadIdx.x; i < nb * lay.words; i += blockDim.x) pres[i] = 0;
+  __syncthreads();
+  f.union_find(1);
+  int32_t* Lf = L + f.base + f.g0;
+  for (int i = threadIdx.x; i < N; i += blockDim.x)
+    Lf[i] = f.valid(i) ? f.lin(f.P[i]) : HW;
+  // the roots of each thread's chunk of nodes, in raster order
+  int q = (N + blockDim.x - 1) / blockDim.x;
+  int lo = min(N, (int)threadIdx.x * q), hi = min(N, lo + q), cnt = 0;
+  for (int i = lo; i < hi; ++i) cnt += f.valid(i) && f.P[i] == f.g0 + i;
+  int total;
+  int off = block_exclusive_scan(cnt, &total);
+  if (threadIdx.x == 0) s_count = total;
+  f.cluster.sync();
+  if (threadIdx.x < 32) {
+    int lane = threadIdx.x;
+    int v = lane < kFixCluster ? *f.cluster.map_shared_rank(&s_count, lane)
+                               : 0;
+    int before = __reduce_add_sync(kFull, lane < f.c ? v : 0);
+    int all = __reduce_add_sync(kFull, v);
+    if (lane == 0) {
+      s_base = before;
+      s_total = all;
+    }
+  }
+  __syncthreads();
+  int r = s_base + off, count = s_total;
+  for (int i = lo; i < hi; ++i)
+    if (f.valid(i) && f.P[i] == f.g0 + i) {
+      rank[i] = r;
+      if (r < K) rl[(long long)b * K + r] = (f.y0 + i / R) * W + f.S[i];
+      ++r;
+    }
+  if (f.c == 0) {
+    for (int k = count + threadIdx.x; k < K; k += blockDim.x)
+      rl[(long long)b * K + k] = HW;
+    if (threadIdx.x == 0) nblobs[b] = count;
+  }
+  f.cluster.sync();
+  // each run's slot in its band's mask; the first band's bits go to the
+  // block holding that band's first row when that is an earlier block
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    if (!f.valid(i)) continue;
+    int k = *f.at(rank, f.P[i]);
+    if (k < K)
+      atomicOr(pres + ((f.y0 + i / R) / band - blo) * lay.words + (k >> 5),
+               1u << (k & 31));
+  }
+  __syncthreads();
+  if (nb > 0 && blo * band < f.y0) {
+    int o = f.owner(blo * band);
+    unsigned* dst = f.cluster.map_shared_rank(pres, o) +
+                    (blo - f.first_row(o) / band) * lay.words;
+    for (int w = threadIdx.x; w < lay.words; w += blockDim.x)
+      if (pres[w]) atomicOr(dst + w, pres[w]);
+  }
+  f.cluster.sync();
+  // the slot lists of the bands whose first row is this block's
+  int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  for (int rb = (f.y0 + band - 1) / band + warp;
+       f.n > 0 && rb * band < f.y0 + f.n; rb += warps)
+    warp_slot_list(pres + (rb - blo) * lay.words, K,
+                   slot_list + ((long long)b * Rb + rb) * K,
+                   slot_count + (long long)b * Rb + rb);
+}
+
+// ---------------------------------------------- global-scratch union-finds
+
+// Union-find over the valid runs of one frame's tables S / E [H, R] by one
+// block, the parents P in global scratch (see above).  Ends synchronised.
 __device__ void link_runs(const int32_t* S, const int32_t* E, int H, int R,
                           int dilate, int32_t* P) {
   int N = H * R;
@@ -343,30 +707,20 @@ __device__ void link_runs(const int32_t* S, const int32_t* E, int H, int R,
   __syncthreads();
 }
 
-// The frame's union-find parents: in the launch's dynamic shared memory, or
-// in its slice of the global scratch.
-__device__ __forceinline__ int32_t* parents(int in_smem, int32_t* scratch,
-                                            int N) {
-  extern __shared__ int32_t smem[];
-  return in_smem ? smem : scratch + (long long)blockIdx.x * N;
-}
-
-// One block per frame: F = 0 for background runs 4-connected to a run on
-// the first or last row or touching the first or last column, else 1
-// (invalid slots included).
-__global__ void k_flood_fix(int H, int W, int R, int in_smem,
-                            const int* active, const int32_t* S,
-                            const int32_t* E, int32_t* scratch,
-                            uint8_t* mark_scratch, int32_t* F) {
+// k_flood_fix with one block per frame and the parents and marks in global
+// scratch.
+__global__ void k_flood_scratch(int H, int W, int R, const int* active,
+                                const int32_t* S, const int32_t* E,
+                                int32_t* scratch, uint8_t* mark_scratch,
+                                int32_t* F) {
   int b = blockIdx.x;
   if (active != nullptr && active[b] == 0) return;
   int N = H * R;
   S += (long long)b * N;
   E += (long long)b * N;
   F += (long long)b * N;
-  int32_t* P = parents(in_smem, scratch, N);
-  uint8_t* mark = in_smem ? (uint8_t*)(P + N)
-                          : mark_scratch + (long long)b * N;
+  int32_t* P = scratch + (long long)b * N;
+  uint8_t* mark = mark_scratch + (long long)b * N;
   for (int n = threadIdx.x; n < N; n += blockDim.x) mark[n] = 0;
   link_runs(S, E, H, R, 0, P);
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
@@ -379,13 +733,12 @@ __global__ void k_flood_fix(int H, int W, int R, int in_smem,
     F[n] = S[n] < kBig && mark[find_root(P, n)] ? 0 : 1;
 }
 
-// One block per frame: L = row * W + S of the run's component root (H*W in
-// invalid slots), the first K roots in raster order (padded with H*W) and
-// the root count.
-__global__ void k_label_fix(int H, int W, int R, int K, int in_smem,
-                            const int* active, const int32_t* S,
-                            const int32_t* E, int32_t* scratch, int32_t* L,
-                            int32_t* rl, int32_t* nblobs) {
+// k_label_fix's labels, roots and count with one block per frame and the
+// parents in global scratch; k_run_incidence then gives the slot lists.
+__global__ void k_label_scratch(int H, int W, int R, int K, const int* active,
+                                const int32_t* S, const int32_t* E,
+                                int32_t* scratch, int32_t* L, int32_t* rl,
+                                int32_t* nblobs) {
   int b = blockIdx.x;
   if (active != nullptr && active[b] == 0) return;
   int N = H * R, HW = H * W;
@@ -393,7 +746,7 @@ __global__ void k_label_fix(int H, int W, int R, int K, int in_smem,
   E += (long long)b * N;
   L += (long long)b * N;
   rl += (long long)b * K;
-  int32_t* P = parents(in_smem, scratch, N);
+  int32_t* P = scratch + (long long)b * N;
   link_runs(S, E, H, R, 1, P);
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     int r = find_root(P, n);
@@ -456,25 +809,53 @@ __global__ void k_writeback(Geom g, int R, const uint8_t* filled,
   });
 }
 
-// Dynamic shared memory for a per-frame union-find of `bytes` on the
-// current device: `bytes` (raising the kernel's limit past 48 KB), or 0 when
-// it exceeds what a block may opt in to, so that the kernel uses its global
-// scratch.  Returns the first CUDA error.
+// A cluster launch of a fix kernel: kFixCluster blocks a frame, B frames.
+// Used in place (cfg points at attr).
+struct FixLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  FixLaunch(int B, size_t smem, cudaStream_t st) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kFixCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg = {};
+    cfg.gridDim = dim3(kFixCluster, B);
+    cfg.blockDim = dim3(kScanThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Dynamic shared memory of a fix kernel's cluster launch with `bytes` a
+// block on the current device: `bytes` (raising the kernel's limit past 48
+// KB), or 0 when a block may not opt in to that much or no such cluster
+// fits on the card, so that the frames take the global-scratch kernel.
+// Returns the first CUDA error.
 template <typename Kernel>
-int shared_bytes(Kernel* kernel, size_t bytes, size_t* out) {
+int cluster_bytes(Kernel* kernel, size_t bytes, size_t* out) {
   int dev = 0, optin = 0;
+  *out = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  *out = bytes <= (size_t)optin ? bytes : 0;
-  if (*out > 48 * 1024) {
+  if (bytes > (size_t)optin) return 0;
+  if (bytes > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)*out);
+                               (int)bytes);
     if (err != cudaSuccess) return (int)err;
+    FixLaunch l(1, bytes, nullptr);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &l.cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters == 0) return 0;
   }
+  *out = bytes;
   return 0;
 }
 
@@ -508,18 +889,29 @@ extern "C" int hd_run_extract(const uint8_t* plane, int invert, int B, int H,
   return 0;
 }
 
-// Background tables S / E int32 [B, H, R] -> F int32 [B, H, R].  Scratch
-// (used when the frame's table exceeds shared memory): int32 [B, H, R] and
-// u8 [B, H, R].
+// Background tables S / E int32 [B, H, R] -> F int32 [B, H, R].  A cluster
+// of blocks per frame, or, where its tables exceed shared memory, one block
+// per frame over the scratch int32 [B, H, R] and u8 [B, H, R]; *in_cluster
+// (host memory) says which.
 extern "C" int hd_flood_fix(int B, int H, int W, int R, const int* active,
                             const int32_t* S, const int32_t* E,
                             int32_t* scratch, uint8_t* mark_scratch,
-                            int32_t* F, void* stream) {
+                            int32_t* F, int* in_cluster, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   size_t smem = 0;
-  int err = shared_bytes(k_flood_fix, (size_t)H * R * 5, &smem);
+  int err = cluster_bytes(k_flood_fix, FixLayout(H, R, 0, 0).flood_bytes(),
+                          &smem);
   if (err) return err;
-  k_flood_fix<<<B, kScanThreads, smem, (cudaStream_t)stream>>>(
-      H, W, R, smem > 0, active, S, E, scratch, mark_scratch, F);
+  *in_cluster = smem > 0;
+  if (smem > 0) {
+    FixLaunch l(B, smem, st);
+    cudaError_t e = cudaLaunchKernelEx(&l.cfg, k_flood_fix, H, W, R, active,
+                                       S, E, F);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    k_flood_scratch<<<B, kScanThreads, 0, st>>>(H, W, R, active, S, E,
+                                                scratch, mark_scratch, F);
+  }
   HD_CHECK();
   return 0;
 }
@@ -549,20 +941,33 @@ extern "C" int hd_fill_extract(int B, int H, int W, int Rbg, int Rfg,
 
 // Foreground tables S / E int32 [B, H, R] -> L int32 [B, H, R], rl int32
 // [B, K], nblobs int32 [B], slot_list int32 [B, Rb, K], slot_count int32
-// [B, Rb] with Rb = ceil(H / band).  K <= kMaxSlots.  Scratch: int32
-// [B, H, R].
+// [B, Rb] with Rb = ceil(H / band).  K <= kMaxSlots.  A cluster of blocks
+// per frame, or, where its tables exceed shared memory, one block per frame
+// over the scratch int32 [B, H, R] and then a block per (band, frame) for
+// the slot lists; *in_cluster (host memory) says which.
 extern "C" int hd_label_fix(int B, int H, int W, int R, int band, int K,
                             const int* active, const int32_t* S,
                             const int32_t* E, int32_t* scratch, int32_t* L,
                             int32_t* rl, int32_t* nblobs,
                             int32_t* slot_list, int32_t* slot_count,
-                            void* stream) {
+                            int* in_cluster, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   size_t smem = 0;
-  int err = shared_bytes(k_label_fix, (size_t)H * R * 4, &smem);
+  int err = cluster_bytes(k_label_fix,
+                          FixLayout(H, R, band, K).label_bytes(), &smem);
   if (err) return err;
-  k_label_fix<<<B, kScanThreads, smem, st>>>(H, W, R, K, smem > 0, active,
-                                             S, E, scratch, L, rl, nblobs);
+  *in_cluster = smem > 0;
+  if (smem > 0) {
+    FixLaunch l(B, smem, st);
+    cudaError_t e = cudaLaunchKernelEx(&l.cfg, k_label_fix, H, W, R, band, K,
+                                       active, S, E, L, rl, nblobs,
+                                       slot_list, slot_count);
+    if (e != cudaSuccess) return (int)e;
+    HD_CHECK();
+    return 0;
+  }
+  k_label_scratch<<<B, kScanThreads, 0, st>>>(H, W, R, K, active, S, E,
+                                              scratch, L, rl, nblobs);
   HD_CHECK();
   int Rb = (H + band - 1) / band;
   k_run_incidence<<<dim3(Rb, B), kScanThreads, 0, st>>>(

@@ -52,11 +52,11 @@ SIGNATURES = {
     },
     "runtable_tiled": {
         "hd_run_extract": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-        "hd_flood_fix": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        "hd_flood_fix": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
         "hd_fill_extract": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P],
         "hd_label_fix": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _P],
+                         _P, _P, _P, _P],
         "hd_writeback": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     },
     "pre_variants": {

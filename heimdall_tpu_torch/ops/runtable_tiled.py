@@ -32,12 +32,18 @@ running its plain PyTorch version on CPU tensors:
 * ``writeback`` (B3e): the label plane.
 
 Each counts its launches in ``.launches`` and takes ``active`` as the
-wrappers of ops/ccl_tiled.py do.  ``fill_label_runtable_tiled`` composes
+wrappers of ops/ccl_tiled.py do.  The two union-finds (``flood_fix``,
+``label_fix``) spread each frame over a cluster of blocks with its tables in
+shared memory, or, for frames whose tables do not fit, run one block per
+frame over global scratch; ``.last_path`` keeps the last call's choice
+("cluster", "scratch", or "plain" on the CPU).  ``fill_label_runtable_tiled`` composes
 them with the density guards of JAX's function, decided per frame on the
 device: a frame with a background row of more than r_bg runs, or a filled
 foreground row of more than r_fg runs, takes the band route of
 ops/ccl_tiled.py instead, into the same outputs.
 """
+
+import ctypes
 
 import torch
 
@@ -61,6 +67,10 @@ def _library():
 def _check_tables(S, E, R: int, shape):
     for name, t in (("S", S), ("E", E)):
         check_cuda(t, name, (torch.int32,), tuple(shape) + (R,))
+
+
+def _fix_path(in_cluster: ctypes.c_int) -> str:
+    return "cluster" if in_cluster.value else "scratch"
 
 
 # ---------------------------------------------------------- run extraction
@@ -148,19 +158,24 @@ def flood_fix(S: torch.Tensor, E: torch.Tensor, W: int, active=None):
     F, = alloc(S.device, ((B, H, R), torch.int32))
     if S.device.type == "cpu":
         run_plain(flood_fix_reference, active, (S, E), (W,), (F,))
+        flood_fix.last_path = "plain"
         return F
     _check_tables(S, E, R, (B, H))
     flags, act = active_ptr(active, B)
     scratch, marks = alloc(S.device, ((B, H, R), torch.int32),
                            ((B, H, R), torch.uint8))
+    in_cluster = ctypes.c_int(0)
     raise_on(_library().hd_flood_fix(
         B, H, W, R, act, S.data_ptr(), E.data_ptr(), scratch.data_ptr(),
-        marks.data_ptr(), F.data_ptr(), stream(S)), "flood_fix")
+        marks.data_ptr(), F.data_ptr(), ctypes.addressof(in_cluster),
+        stream(S)), "flood_fix")
     flood_fix.launches += 1
+    flood_fix.last_path = _fix_path(in_cluster)
     return F
 
 
 flood_fix.launches = 0
+flood_fix.last_path = None
 
 
 # ------------------------------------------------- fill + fg extraction
@@ -245,20 +260,25 @@ def label_fix(S: torch.Tensor, E: torch.Tensor, W: int, band: int,
                  ((B, Rb, K), i32), ((B, Rb), i32))
     if S.device.type == "cpu":
         run_plain(label_fix_reference, active, (S, E), (W, band, K), outs)
+        label_fix.last_path = "plain"
         return outs
     _check_tables(S, E, R, (B, H))
     flags, act = active_ptr(active, B)
     L, rl, n, slot_list, slot_count = outs
     scratch, = alloc(S.device, ((B, H, R), i32))
+    in_cluster = ctypes.c_int(0)
     raise_on(_library().hd_label_fix(
         B, H, W, R, band, K, act, S.data_ptr(), E.data_ptr(),
         scratch.data_ptr(), L.data_ptr(), rl.data_ptr(), n.data_ptr(),
-        slot_list.data_ptr(), slot_count.data_ptr(), stream(S)), "label_fix")
+        slot_list.data_ptr(), slot_count.data_ptr(),
+        ctypes.addressof(in_cluster), stream(S)), "label_fix")
     label_fix.launches += 1
+    label_fix.last_path = _fix_path(in_cluster)
     return outs
 
 
 label_fix.launches = 0
+label_fix.last_path = None
 
 
 # -------------------------------------------------------------- writeback

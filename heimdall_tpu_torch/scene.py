@@ -395,3 +395,102 @@ def run_case_masks(h, w):
     out["all_fg"] = np.ones((h, w), bool)
     out["all_bg"] = np.zeros((h, w), bool)
     return out
+
+
+# Frame sizes of the union-find cases (fix_case_masks) on the card: the 2 MP
+# size, an odd one, and heights of 1 row and just below, at and above the 8
+# blocks of a frame's cluster (csrc/runtable_tiled.cu: blocks with no rows).
+FIX_CASE_SIZES = ((1080, 1920), (301, 517), (1, 517), (7, 517), (8, 517),
+                  (9, 517))
+FIX_TEETH = 6
+
+
+def _bars(w, k):
+    """Column ranges [(a, b), ...] of k bars and the k + 1 gaps around them,
+    of nearly equal width (at least one column each where w >= 2k + 1)."""
+    edges = np.linspace(0, w, 2 * k + 2).astype(int)
+    return [(edges[2 * j + 1], max(edges[2 * j + 2], edges[2 * j + 1] + 1))
+            for j in range(k)]
+
+
+def _serpentine(h, w, inner):
+    """Four vertical corridors joined at alternate ends: the first two at
+    the bottom, the middle two at the top, the last two at the bottom.
+    inner: the corridors run over rows 1 .. h - 2 (the joins on those rows),
+    else over every row."""
+    m = np.zeros((h, w), bool)
+    top, bottom = (1, h - 2) if inner else (0, h - 1)
+    if bottom < top:
+        return m
+    bars = _bars(w, 4)
+    for a, b in bars:
+        m[top:bottom + 1, a:b] = True
+    for (a, _), (_, b), row in ((bars[0], bars[1], bottom),
+                                (bars[1], bars[2], top),
+                                (bars[2], bars[3], bottom)):
+        m[row, a:b] = True
+    return m
+
+
+def _staircase(h, w, top):
+    """A diagonal from row `top` to the last row, the run of row y starting
+    at y * (w - t) / h with t columns, enough for each row's run to overlap
+    the next one's."""
+    m = np.zeros((h, w), bool)
+    step = (w - 1) / max(h, 1)
+    t = min(w, int(np.ceil(step)) + 2)
+    for y in range(top, h):
+        x = int(y * (w - t) / max(h - 1, 1))
+        m[y, x:x + t] = True
+    return m
+
+
+def _comb(h, w, top):
+    """FIX_TEETH vertical teeth from row `top` to the last row, joined only
+    on the last row."""
+    m = np.zeros((h, w), bool)
+    bars = _bars(w, FIX_TEETH)
+    for a, b in bars:
+        m[top:, a:b] = True
+    m[h - 1, bars[0][0]:bars[-1][1]] = True
+    return m
+
+
+def fix_case_masks(h, w):
+    """Masks whose components cross every block edge of the run-table
+    union-finds (a frame split into row blocks) many times, yet whose rows
+    fit the detector's tables (at most 8 background and 7 filled foreground
+    runs), bool [h, w] by name (True = foreground):
+
+    * serpentine: four foreground corridors over every row, joined at
+      alternate ends (one component from top to bottom); serpentine_bg_open
+      the same corridors as background in foreground over rows 1 .. h - 2,
+      reaching the border only through the top of the last corridor;
+      serpentine_bg_closed not at all (a hole);
+    * ring: a closed foreground ring over every row, its hole spanning the
+      frame's height;
+    * staircase: a foreground diagonal that crosses each row block's edge
+      once; staircase_bg the same as background in foreground from row 1,
+      reaching the border only on the last row;
+    * comb: FIX_TEETH foreground teeth over every row, meeting only on the
+      last row; comb_bg the same as background in foreground from row 1,
+      reaching the border only through the last row."""
+    ring = np.zeros((h, w), bool)
+    a, b = w // 4, max(3 * w // 4, w // 4 + 1)
+    t = max(1, w // 64)
+    ring[:, a:min(a + t, b)] = ring[:, max(b - t, a):b] = True
+    ring[0, a:b] = ring[h - 1, a:b] = True
+    serpentine_open = _serpentine(h, w, True)
+    if h >= 3:
+        a3, b3 = _bars(w, 4)[3]
+        serpentine_open[0, a3:b3] = True
+    return {
+        "serpentine": _serpentine(h, w, False),
+        "serpentine_bg_open": ~serpentine_open,
+        "serpentine_bg_closed": ~_serpentine(h, w, True),
+        "ring": ring,
+        "staircase": _staircase(h, w, 0),
+        "staircase_bg": ~_staircase(h, w, min(1, h - 1)),
+        "comb": _comb(h, w, 0),
+        "comb_bg": ~_comb(h, w, min(1, h - 1)),
+    }

@@ -55,17 +55,21 @@ def _equal(got, want):
         assert torch.equal(a, b)
 
 
-def _kernels_against_plain(masks, r_bg, r_fg, band, k):
+def _kernels_against_plain(masks, r_bg, r_fg, band, k, path="cluster"):
+    """Every run-table kernel against its plain version on masks; the two
+    union-finds must take `path` (their wrappers' record)."""
     W = masks.shape[-1]
     tables = rt.run_extract(masks, r_bg, invert=True)
     _equal(tables, rt.run_extract_reference(masks, r_bg, invert=True))
     runid, S, E, _ = tables
     F = rt.flood_fix(S, E, W)
+    assert rt.flood_fix.last_path == path
     _equal((F,), (rt.flood_fix_reference(S, E, W),))
     fill = rt.fill_extract(masks, runid, F, r_fg)
     _equal(fill, rt.fill_extract_reference(masks, runid, F, r_fg))
     filled, runid_fg, S_fg, E_fg, _ = fill
     lab = rt.label_fix(S_fg, E_fg, W, band, k)
+    assert rt.label_fix.last_path == path
     _equal(lab, rt.label_fix_reference(S_fg, E_fg, W, band, k))
     L = lab[0]
     _equal((rt.writeback(filled, runid_fg, L),),
@@ -83,15 +87,45 @@ def test_runtable_kernels_match_plain_versions(card, r, k):
     assert rt.label_fix.launches == before + 1
 
 
+def _tall(h):
+    """Two [h, 64] masks: noise at 0.1, and a bar with a hole down most of
+    its height."""
+    masks = np.zeros((2, h, 64), bool)
+    masks[0] = np.random.RandomState(1).rand(h, 64) < 0.1
+    masks[1, :, 10:20] = True
+    masks[1, 100:h - 100, 14:16] = False
+    return masks
+
+
 @pytest.mark.cuda
 def test_tables_in_global_scratch(card):
-    """Frames whose tables exceed a block's shared memory take the kernels'
-    global-scratch variant."""
-    masks = np.zeros((2, 5000, 64), bool)
-    masks[0] = np.random.RandomState(1).rand(5000, 64) < 0.1
-    masks[1, :, 10:20] = True
-    masks[1, 100:4900, 14:16] = False
-    _kernels_against_plain(torch.from_numpy(masks).to(card), 12, 12, 128, 64)
+    """Frames whose tables exceed the shared memory of a cluster's blocks
+    (16000 rows at R 12: 2000 rows a block) take the union-finds' global-
+    scratch kernels."""
+    _kernels_against_plain(torch.from_numpy(_tall(16000)).to(card), 12, 12,
+                           128, 64, path="scratch")
+
+
+@pytest.mark.cuda
+def test_tall_tables_in_cluster(card):
+    """5000 rows at R 12 (625 rows a block) still fit the cluster."""
+    _kernels_against_plain(torch.from_numpy(_tall(5000)).to(card), 12, 12,
+                           128, 64)
+
+
+# The cases whose components cross every row block of the union-finds
+# (scene.fix_case_masks; tests/test_torch_fix_cases.py holds the plain
+# versions against JAX): the 2 MP size, an odd size, 1 row and heights
+# below, at and above the cluster's 8 blocks.
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", scene.FIX_CASE_SIZES)
+@pytest.mark.parametrize("band, k", [(128, 64), (16, 4), (1, 64)])
+def test_fix_cases_match_plain_versions(card, size, band, k):
+    masks = torch.from_numpy(np.stack(
+        list(scene.fix_case_masks(*size).values()))).to(card)
+    _kernels_against_plain(masks, 8, 7, band, k)
+    rt.fill_label_runtable_tiled(masks, band, max_blobs=k, r_bg=8, r_fg=7)
+    assert rt.fill_label_runtable_tiled.last_route.all()
 
 
 @pytest.mark.cuda
