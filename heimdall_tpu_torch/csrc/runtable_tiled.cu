@@ -41,11 +41,12 @@
 // (node row * R + slot; runs of adjacent rows are joined where they overlap,
 // 4-connected for the background, 8-connected for the foreground), spread
 // over a cluster of 8 blocks per frame, each holding its rows' tables and
-// parents in shared memory (135 x 8 nodes at 1080 rows: about 14 KB) and
-// uniting across block edges through distributed shared memory; the label
-// fix also ranks the roots and writes the per-band slot incidence in the
-// same launch.  A root is the smallest node of its tree, which is also the
-// run with the smallest row * W + S, so the label of a run is read off its
+// parents in shared memory (135 x 8 nodes at 1080 rows: about 23 KB with
+// the rest of the layout); the blocks meet through their first and last
+// rows, which each copies from the others in one round, and the label fix
+// also ranks the roots and writes the per-band slot incidence in the same
+// launch.  A root is the smallest node of its tree, which is also the run
+// with the smallest row * W + S, so the label of a run is read off its
 // root.  Frames whose blocks' tables exceed shared memory take one block
 // per frame over global scratch.
 //
@@ -61,9 +62,9 @@
 // filled, runid and the tables (~8.4 MB, 2.5 us); the writeback reads
 // filled and runid and writes int32 labels (~12.5 MB, 3.7 us); the two
 // union-finds read and write tables of 1080 x 8 slots (~0.1 MB, 0.03 us),
-// where chains of dependent shared-memory accesses and the cluster's
-// barriers, not bytes, bound them: the cluster spreads a frame over 8 SMs'
-// worth of blocks so that a batch fills the card.
+// where chains of dependent shared-memory accesses and the cluster's two
+// barriers, not bytes, bound them: the cluster spreads a frame over 8
+// blocks so that a batch fills the card.
 
 #include <cooperative_groups.h>
 
@@ -336,62 +337,86 @@ __global__ void k_fill_extract(int H, int W, int Rbg, int Rfg,
 // Both fixes unite the valid runs of a frame's tables S / E [H, R]: node
 // y * R + k is slot k of row y, and runs of adjacent rows are united where
 // [S - dilate, E + dilate] meets the other's [S, E] (dilate 0: 4-connected,
-// the background; 1: 8-connected, the foreground).  Hooking the larger root
-// under the smaller keeps every root the smallest node of its tree, which is
-// also its component's run with the smallest row * W + S (in a row the
-// slots are sorted by S), so no result depends on the order of the unions.
+// the background; 1: 8-connected, the foreground).  Every root is the
+// smallest node of its tree, which is also its component's run with the
+// smallest row * W + S (in a row the slots are sorted by S), so no result
+// depends on the order of the unions.
 //
 // A frame is a cluster of kFixCluster blocks.  Block c owns rows
 // [c * H / kFixCluster, (c + 1) * H / kFixCluster) (none when H is below the
 // cluster) and stages them in its shared memory with the row above its
-// first: S and E, 16 bytes a load, and its nodes' parents, which hold frame
-// node ids.  Then, each step behind a barrier of the block or the cluster:
-//   1. the links inside the block: a warp per pair of rows, lane p testing
-//      run p / R of the row against run p % R of the row above, uniting in
-//      the block's parents (atomicMin; find with path halving);
-//   2. after a cluster barrier, the links across block edges: one warp a
-//      block unites its first row with the staged row above through the
-//      owners' parents (distributed shared memory), finding without
-//      halving, so that only step 1's roots get a parent in another block;
-//   3. after a cluster barrier, with no union left, every parent becomes
-//      its node's root: first the nodes whose parent lies in another block
-//      walk the cluster, then every node walks its block's chain, which ends
-//      at its root or at a parent in another block, by then a root.  Each
-//      pass writes a node's parent once, with its root: no halving store can
-//      land behind a root store.
-// The flood fix then sets the mark of each root reached from the border in
-// its owner's block and, after a cluster barrier, writes F.  The label fix
-// writes L, ranks the roots in raster order (a block scan over chunks of
-// nodes, each block's base from the earlier blocks' counts), writes the root
-// table and count, and sets each run's slot in its band's presence mask,
-// held by the block that holds the band's first row; after a cluster
-// barrier a warp per band writes the band's slot list.  No block leaves
-// while another may still read its shared memory.
+// first: S and E, 16 bytes a load.  On the card a dependent load through
+// the cluster's window into another block takes ~700 cycles idle and
+// several thousand under load, against 30-60 in a block's own shared
+// memory, so a block reads other blocks' memory once, in one parallel
+// round, and never walks a parent chain across blocks:
+//   1. inside the block, a thread per row gives each run the first run of
+//      the row above that it meets as its parent (two pointers over the
+//      sorted runs; a forest whose roots are its trees' smallest nodes),
+//      pointer jumping makes every parent a root, the rows' other meetings
+//      unite roots (atomicMin, larger under smaller), and pointer jumping
+//      runs again: every run then points at its local root;
+//   2. the block publishes its first and last rows: each run's S, E, local
+//      root and what the fix needs of it (the flood fix: whether the local
+//      component reaches the border; the label fix: its root's row * W + S
+//      and rank among the block's local roots), and its local root count;
+//   3. after a cluster barrier every block copies all blocks' rows and
+//      unites them in a small union-find of its own: a block's published
+//      runs that share a local root, and the runs that meet across each
+//      block edge.  Each
+//      component's smallest local root, reach and row * W + S are then
+//      known to every block, and so are the global root count and each
+//      block's first rank.
+// The flood fix writes F from its local roots' reach.  The label fix writes
+// L and each run's slot, ranks its roots (local rank less the earlier
+// local roots that another block's root absorbed), writes the root table
+// and count, and sets each run's slot in its band's presence mask, held by
+// the block that holds the band's first row; after a second cluster barrier
+// a warp per band writes its slot list.  No block leaves while another may
+// still read its shared memory.
 //
 // A frame whose blocks' tables exceed shared memory takes the global-scratch
 // kernels further down: one block per frame, the parents in global memory.
 
 constexpr int kFixCluster = 8;   // blocks a frame: the portable cluster size
+// Ints a published run takes: S, E, local root, reach or row * W + S of the
+// local root, the local root's rank among the block's local roots.
+constexpr int kDescInts = 5;
 
 // A fix block's shared memory in 32-bit words, the same in every block of a
 // launch: the staged S and E (the row above, then the block's rows, moved
-// by up to 3 words to share the tables' 16-byte alignment), the parents,
-// then the label fix's root ranks and band presence masks, or the flood
-// fix's marks (bytes).
+// by up to 3 words to share the tables' 16-byte alignment); per node the
+// parent, the rank and the label value; the published rows and the copies
+// of every block's; the boundary union-find (parents, 64-bit minima, the
+// component's value, the absorbed roots); the band presence masks; then a
+// byte per node (the flood fix's reach, the label fix's final-root flag).
 struct FixLayout {
-  int rows, tab, nodes, bands, words;
+  int rows, tab, nodes, desc, V, bands, words;
   __host__ __device__ FixLayout(int H, int R, int band, int K) {
     rows = (H + kFixCluster - 1) / kFixCluster;
-    tab = ((rows + 1) * R + 3 + 3) & ~3;
+    tab = ((rows + 1) * R + 6) & ~3;
     nodes = (rows * R + 3) & ~3;
+    desc = (2 * R * kDescInts + 1 + 3) & ~3;
+    V = kFixCluster * 2 * R;
     bands = band > 0 ? rows / band + 2 : 0;
     words = (K + 31) / 32;
   }
-  __host__ __device__ size_t flood_bytes() const {
-    return (size_t)(2 * tab + nodes) * 4 + nodes;
+  __host__ __device__ int rank_at() const { return 2 * tab + nodes; }
+  __host__ __device__ int val_at() const { return rank_at() + nodes; }
+  __host__ __device__ int desc_at() const { return val_at() + nodes; }
+  __host__ __device__ int copy_at() const { return desc_at() + desc; }
+  __host__ __device__ int uf_at() const {
+    return copy_at() + kFixCluster * desc;
   }
-  __host__ __device__ size_t label_bytes() const {
-    return (size_t)(2 * tab + 2 * nodes + bands * words) * 4;
+  __host__ __device__ int min_at() const { return uf_at() + V; }  // 8-aligned
+  __host__ __device__ int cval_at() const { return min_at() + 2 * V; }
+  __host__ __device__ int nf_at() const { return cval_at() + V; }
+  __host__ __device__ int pres_at() const { return nf_at() + V; }
+  __host__ __device__ int byte_at() const {
+    return pres_at() + bands * words;
+  }
+  __host__ __device__ size_t bytes() const {
+    return (size_t)byte_at() * 4 + nodes;
   }
 };
 
@@ -414,28 +439,74 @@ __device__ void stage_words(int32_t* dst, const int32_t* src, int lo,
   for (int j = z + t; j < hi; j += nt) dst[j] = __ldg(src + j);
 }
 
-// One block's part of its frame's cluster.  Nodes are frame node ids.
+// Root of x in a parent array of local indices, without stores.
+__device__ __forceinline__ int find_idx(const volatile int32_t* p, int x) {
+  for (int q = p[x]; q != x; q = p[x]) x = q;
+  return x;
+}
+
+// unite (common.cuh) over a parent array of local indices.
+__device__ void unite_idx(int32_t* p, int a, int b) {
+  while (true) {
+    a = find_idx(p, a);
+    b = find_idx(p, b);
+    if (a == b) return;
+    if (a > b) {
+      int t = a;
+      a = b;
+      b = t;
+    }
+    int old = atomicMin(p + b, a);
+    if (old == b) return;
+    b = old;
+  }
+}
+
+// Calls meet(i, j, first) for each run i of row s1 / e1 that meets run j of
+// row s0 / e0 (first: j is the first run of s0 that i meets), walking the
+// two sorted rows with two pointers; run i's S is s1[i * step].
+template <typename Meet>
+__device__ __forceinline__ void meetings(const int32_t* s1, const int32_t* e1,
+                                         const int32_t* s0, const int32_t* e0,
+                                         int step, int R, int dilate,
+                                         Meet meet) {
+  int i = 0, j = 0, given = -1;
+  while (i < R && j < R) {
+    int s = s1[i * step], su = s0[j * step];
+    if (s >= kBig || su >= kBig) return;
+    int e = e1[i * step], eu = e0[j * step];
+    if (su - dilate <= e && eu + dilate >= s) {
+      meet(i, j, given != i);
+      given = i;
+    }
+    if (e < eu) ++i;
+    else ++j;
+  }
+}
+
+// One block's part of its frame's cluster.  Parents hold the block's node
+// indices (node g0 + i is index i).
 struct FixBlock {
   cg::cluster_group cluster;
+  FixLayout lay;
   int H, W, R;
   int c, y0, n, g0;       // rank, first row, rows, first node
   long long base;         // the frame's first table entry
-  uintptr_t sword;        // the S table's address in words
   int32_t* raw;           // the layout's start
   int32_t *S, *E, *P;     // the block's rows (S[-R, 0): the row above)
 
-  __device__ FixBlock(int H_, int W_, int R_, const FixLayout& lay,
+  __device__ FixBlock(int H_, int W_, int R_, int band, int K,
                       const int32_t* Sg, const int32_t* Eg)
-      : cluster(cg::this_cluster()), H(H_), W(W_), R(R_) {
+      : cluster(cg::this_cluster()), lay(H_, R_, band, K), H(H_), W(W_),
+        R(R_) {
     c = (int)cluster.block_rank();
     y0 = first_row(c);
     n = first_row(c + 1) - y0;
     g0 = y0 * R;
     base = (long long)blockIdx.y * H * R;
-    sword = (uintptr_t)Sg >> 2;
     raw = fix_smem();
-    S = raw + shift(sword, c) + R;
-    E = raw + lay.tab + shift((uintptr_t)Eg >> 2, c) + R;
+    S = raw + shift(Sg) + R;
+    E = raw + lay.tab + shift(Eg) + R;
     P = raw + 2 * lay.tab;
   }
   __device__ int first_row(int o) const {
@@ -444,29 +515,16 @@ struct FixBlock {
   __device__ int owner(int y) const {
     return (int)((((long long)y + 1) * kFixCluster - 1) / H);
   }
-  // Words the staged rows of block o are moved by, for a table at `word`.
-  __device__ int shift(uintptr_t word, int o) const {
-    return (int)((word + base + (long long)first_row(o) * R - R) & 3);
-  }
-  // Entry of node x in the node array `arr` of x's block (arr: this block's
-  // copy); `mapped` takes the cluster window even for this block.
-  template <typename T>
-  __device__ T* at(T* arr, int x, bool mapped = false) {
-    int o = owner(x / R);
-    if (o == c && !mapped) return arr + (x - g0);
-    return cluster.map_shared_rank(arr, o) + (x - first_row(o) * R);
-  }
-  // row * W + S of node x.
-  __device__ int lin(int x) {
-    int o = owner(x / R);
-    const int32_t* s = o == c ? S
-                              : cluster.map_shared_rank(raw, o) +
-                                    shift(sword, o) + R;
-    return x / R * W + s[x - first_row(o) * R];
+  // Words the staged rows are moved by, for the table at t.
+  __device__ int shift(const int32_t* t) const {
+    return (int)((((uintptr_t)t >> 2) + base + g0 - R) & 3);
   }
   __device__ bool valid(int i) const { return S[i] < kBig; }
+  // Index of node i's local root (once step 1 is done).
+  __device__ int root(int i) const { return P[i]; }
+  __device__ int32_t* desc() const { return raw + lay.desc_at(); }
 
-  // S and E of the row above and the block's rows; parents = node ids.
+  // S and E of the row above and the block's rows.
   __device__ void stage(const int32_t* Sg, const int32_t* Eg) {
     int lo = y0 > 0 && n > 0 ? -R : 0, hi = n * R;
     stage_words(S, Sg + base + g0, lo, hi);
@@ -476,80 +534,142 @@ struct FixBlock {
         S[k - R] = kBig;
         E[k - R] = -kBig;
       }
-    for (int i = threadIdx.x; i < hi; i += blockDim.x) P[i] = g0 + i;
   }
+  // Pointer jumping over the valid runs, a thread per row, until every
+  // parent is a root.
+  __device__ void jump() {
+    while (true) {
+      int changed = 0;
+      for (int y = threadIdx.x; y < n; y += blockDim.x)
+        for (int i = y * R; i < (y + 1) * R && valid(i); ++i) {
+          int q = P[i];
+          if (q == i) continue;
+          int r = P[q];
+          if (r != q) {
+            P[i] = r;
+            changed = 1;
+          }
+        }
+      if (!__syncthreads_or(changed)) return;
+    }
+  }
+  // Step 1 (see above): every node's parent becomes its local root.
+  __device__ void local_roots(int dilate) {
+    for (int y = threadIdx.x; y < n; y += blockDim.x) {
+      int32_t* p = P + y * R;
+      for (int k = 0; k < R; ++k) p[k] = y * R + k;
+      if (y > 0)
+        meetings(S + y * R, E + y * R, S + (y - 1) * R, E + (y - 1) * R, 1,
+                 R, dilate, [&](int i, int j, bool first) {
+                   if (first) p[i] = (y - 1) * R + j;
+                 });
+    }
+    __syncthreads();
+    jump();
+    int united = 0;
+    for (int y = threadIdx.x + 1; y < n; y += blockDim.x)
+      meetings(S + y * R, E + y * R, S + (y - 1) * R, E + (y - 1) * R, 1, R,
+               dilate, [&](int i, int j, bool first) {
+                 if (first) return;
+                 unite_idx(P, y * R + i, (y - 1) * R + j);
+                 united = 1;
+               });
+    if (__syncthreads_or(united)) jump();
+  }
+  // Step 2: the block's first and last rows, with each run's local root (a
+  // frame node), value(its index) and rank[its index] (rank: optional),
+  // and the local root count.
+  template <typename Value>
+  __device__ void publish(const int32_t* rank, int count, Value value) {
+    int32_t* d = desc();
+    for (int t = threadIdx.x; t < 2 * R; t += blockDim.x) {
+      int32_t* e = d + t * kDescInts;
+      int i = (t < R ? 0 : n - 1) * R + t % R;
+      e[0] = n > 0 ? S[i] : kBig;
+      if (n == 0 || !valid(i)) continue;
+      e[1] = E[i];
+      e[2] = g0 + root(i);
+      e[3] = value(root(i));
+      e[4] = rank != nullptr ? rank[root(i)] : 0;
+    }
+    if (threadIdx.x == 0) d[2 * R * kDescInts] = count;
+  }
+};
 
-  // Step 1's find: every ancestor is this block's; halves the path.
-  __device__ int find_local(int x) {
-    volatile int32_t* p = P;
-    while (true) {
-      int q = p[x - g0];
-      if (q == x) return x;
-      int r = p[q - g0];
-      if (r == q) return q;
-      p[x - g0] = r;
-      x = r;
-    }
+// Step 3: every block's published rows, copied from the cluster, and their
+// union-find.  Run v is slot v % R of block v / (2R)'s first row (v % 2R <
+// R) or last row.
+struct Boundary {
+  FixBlock& f;
+  int32_t* copy;                 // [kFixCluster][lay.desc]
+  int32_t* uf;                   // [V] parents
+  unsigned long long* lo;        // [V] at a root: (smallest root << 32) | v
+  int32_t* cval;                 // [V] at a root: the component's value
+  int32_t* nf;                   // [V] 1: the first run of an absorbed root
+  int V, D;
+
+  __device__ explicit Boundary(FixBlock& f_)
+      : f(f_), copy(f_.raw + f_.lay.copy_at()), uf(f_.raw + f_.lay.uf_at()),
+        lo(reinterpret_cast<unsigned long long*>(f_.raw + f_.lay.min_at())),
+        cval(f_.raw + f_.lay.cval_at()), nf(f_.raw + f_.lay.nf_at()),
+        V(f_.lay.V), D(f_.lay.desc) {}
+  __device__ const int32_t* at(int v) const {
+    int o = v / (2 * f.R);
+    return copy + o * D + (v - o * 2 * f.R) * kDescInts;
   }
-  // Step 2's find, over the cluster, without stores.
-  __device__ int find_cluster(int x) {
-    while (true) {
-      int q = *(volatile int32_t*)at(P, x, true);
-      if (q == x) return x;
-      x = q;
+  __device__ bool valid(int v) const { return at(v)[0] < kBig; }
+  __device__ int local_root(int v) const { return at(v)[2]; }
+  __device__ int count(int o) const { return copy[o * D + 2 * f.R * kDescInts]; }
+
+  // Copies the published rows (one round of loads through the cluster's
+  // window), unites them, and reduces each component's smallest root and
+  // its value with `reduce` (atomicMin or atomicOr on cval, from `init`).
+  template <typename Reduce>
+  __device__ void solve(int dilate, int init, Reduce reduce) {
+    for (int t = threadIdx.x; t < kFixCluster * D; t += blockDim.x) {
+      int o = t / D;
+      copy[t] = f.cluster.map_shared_rank(f.desc(), o)[t - o * D];
     }
-  }
-  // unite (common.cuh) over the block's or the cluster's parents.
-  template <bool kCluster>
-  __device__ void unite_nodes(int a, int b) {
-    while (true) {
-      a = kCluster ? find_cluster(a) : find_local(a);
-      b = kCluster ? find_cluster(b) : find_local(b);
-      if (a == b) return;
-      if (a > b) {
-        int t = a;
-        a = b;
-        b = t;
-      }
-      int old = atomicMin(kCluster ? at(P, b, true) : P + (b - g0), a);
-      if (old == b) return;
-      b = old;
-    }
-  }
-  // The runs of the block's row y united with the row above's, by one warp.
-  template <bool kCluster>
-  __device__ void link_row(int y, int dilate) {
-    const int32_t *s1 = S + y * R, *e1 = E + y * R;
-    const int32_t *s0 = s1 - R, *e0 = e1 - R;
-    for (int p = threadIdx.x & 31; p < R * R; p += 32) {
-      int i = p / R, j = p - i * R;
-      int s = s1[i], su = s0[j];
-      if (s < kBig && su < kBig && su - dilate <= e1[i] &&
-          e0[j] + dilate >= s)
-        unite_nodes<kCluster>(g0 + y * R + i, g0 + (y - 1) * R + j);
-    }
-  }
-  // Steps 1-3 (see above); the block's parents are then its nodes' roots.
-  __device__ void union_find(int dilate) {
-    int warp = threadIdx.x >> 5, warps = blockDim.x >> 5, N = n * R;
-    for (int y = warp + 1; y < n; y += warps) link_row<false>(y, dilate);
-    cluster.sync();
-    if (warp == 0 && n > 0 && y0 > 0) link_row<true>(0, dilate);
-    cluster.sync();
-    for (int i = threadIdx.x; i < N; i += blockDim.x)
-      if (P[i] < g0) P[i] = find_cluster(P[i]);
-    __syncthreads();
-    volatile int32_t* p = P;
-    for (int i = threadIdx.x; i < N; i += blockDim.x) {
-      int x = g0 + i, q = p[i];
-      while (q != x && q >= g0) {
-        x = q;
-        q = p[x - g0];
-      }
-      p[i] = q;
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      uf[v] = v;
+      lo[v] = ~0ull;
+      cval[v] = init;
+      nf[v] = 0;
     }
     __syncthreads();
+    int R = f.R;
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      if (!valid(v)) continue;
+      for (int u = v - v % (2 * R); u < v; ++u)   // the block's first run
+        if (valid(u) && local_root(u) == local_root(v)) {   // of that root
+          unite_idx(uf, v, u);
+          break;
+        }
+    }
+    for (int o = threadIdx.x; o < kFixCluster; o += blockDim.x) {
+      int y = f.first_row(o);
+      if (y == 0 || f.first_row(o + 1) == y) continue;
+      int p = f.owner(y - 1);     // the block of the row above
+      const int32_t* top = at(o * 2 * R);
+      const int32_t* above = at(p * 2 * R + R);
+      meetings(top, top + 1, above, above + 1, kDescInts, R, dilate,
+               [&](int i, int j, bool) {
+                 unite_idx(uf, o * 2 * R + i, p * 2 * R + R + j);
+               });
+    }
+    __syncthreads();
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      if (!valid(v)) continue;
+      int r = find_idx(uf, v);
+      uf[v] = r;
+      atomicMin(lo + r, (unsigned long long)local_root(v) << 32 | v);
+      reduce(cval + r, at(v)[3]);
+    }
+    __syncthreads();
   }
+  // The component's smallest local root, and its run.
+  __device__ int min_root(int v) const { return (int)(lo[uf[v]] >> 32); }
+  __device__ int min_run(int v) const { return (int)(lo[uf[v]] & 0xFFFFFFFFu); }
 };
 
 // A cluster per frame: F = 0 for the background runs 4-connected to a run
@@ -559,25 +679,32 @@ __global__ void __launch_bounds__(kScanThreads)
     k_flood_fix(int H, int W, int R, const int* active, const int32_t* S,
                 const int32_t* E, int32_t* F) {
   if (active != nullptr && active[blockIdx.y] == 0) return;
-  FixLayout lay(H, R, 0, 0);
-  FixBlock f(H, W, R, lay, S, E);
-  uint8_t* mark = reinterpret_cast<uint8_t*>(f.P + lay.nodes);
+  FixBlock f(H, W, R, 0, 0, S, E);
+  uint8_t* reach = reinterpret_cast<uint8_t*>(f.raw + f.lay.byte_at());
   int N = f.n * R;
   f.stage(S, E);
-  for (int i = threadIdx.x; i < N; i += blockDim.x) mark[i] = 0;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) reach[i] = 0;
   __syncthreads();
-  f.union_find(0);
+  f.local_roots(0);
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     int y = f.y0 + i / R;
     if (f.valid(i) &&
         (y == 0 || y == H - 1 || f.S[i] == 0 || f.E[i] == W - 1))
-      *f.at(mark, f.P[i]) = 1;
+      reach[f.root(i)] = 1;
   }
+  __syncthreads();
+  f.publish(nullptr, 0, [&](int r) { return (int)reach[r]; });
   f.cluster.sync();
+  Boundary bd(f);
+  bd.solve(0, 0, [](int32_t* a, int v) { atomicOr(a, v); });
+  f.cluster.sync();      // every block has copied the published rows
+  for (int v = f.c * 2 * R + threadIdx.x; v < (f.c + 1) * 2 * R;
+       v += blockDim.x)
+    if (bd.valid(v)) reach[bd.local_root(v) - f.g0] = bd.cval[bd.uf[v]];
+  __syncthreads();
   int32_t* out = F + f.base + f.g0;
   for (int i = threadIdx.x; i < N; i += blockDim.x)
-    out[i] = f.valid(i) && *f.at(mark, f.P[i]) ? 0 : 1;
-  f.cluster.sync();
+    out[i] = f.valid(i) && reach[f.root(i)] ? 0 : 1;
 }
 
 // One band's slot list from its presence mask (K bits), by one warp: the
@@ -610,66 +737,107 @@ __global__ void __launch_bounds__(kScanThreads)
     k_label_fix(int H, int W, int R, int band, int K, const int* active,
                 const int32_t* S, const int32_t* E, int32_t* L, int32_t* rl,
                 int32_t* nblobs, int32_t* slot_list, int32_t* slot_count) {
-  __shared__ int s_count, s_base, s_total;
+  __shared__ int s_first[kFixCluster + 1];   // each block's first rank
   int b = blockIdx.y;
   if (active != nullptr && active[b] == 0) return;
-  FixLayout lay(H, R, band, K);
-  FixBlock f(H, W, R, lay, S, E);
-  int32_t* rank = f.P + lay.nodes;
-  unsigned* pres = reinterpret_cast<unsigned*>(rank + lay.nodes);
-  int N = f.n * R, HW = H * W, Rb = (H + band - 1) / band;
+  FixBlock f(H, W, R, band, K, S, E);
+  const FixLayout& lay = f.lay;
+  int32_t* rank = f.raw + lay.rank_at();
+  int32_t* val = f.raw + lay.val_at();
+  unsigned* pres = reinterpret_cast<unsigned*>(f.raw + lay.pres_at());
+  uint8_t* fin = reinterpret_cast<uint8_t*>(f.raw + lay.byte_at());
+  int N = f.n * R, HW = H * W, Rb = (H + band - 1) / band, g0 = f.g0;
   int blo = f.y0 / band;
   int nb = f.n > 0 ? (f.y0 + f.n - 1) / band - blo + 1 : 0;
   f.stage(S, E);
   for (int i = threadIdx.x; i < nb * lay.words; i += blockDim.x) pres[i] = 0;
   __syncthreads();
-  f.union_find(1);
-  int32_t* Lf = L + f.base + f.g0;
-  for (int i = threadIdx.x; i < N; i += blockDim.x)
-    Lf[i] = f.valid(i) ? f.lin(f.P[i]) : HW;
-  // the roots of each thread's chunk of nodes, in raster order
+  f.local_roots(1);
+  // local roots ranked in raster order over each thread's chunk of nodes
   int q = (N + blockDim.x - 1) / blockDim.x;
   int lo = min(N, (int)threadIdx.x * q), hi = min(N, lo + q), cnt = 0;
-  for (int i = lo; i < hi; ++i) cnt += f.valid(i) && f.P[i] == f.g0 + i;
-  int total;
-  int off = block_exclusive_scan(cnt, &total);
-  if (threadIdx.x == 0) s_count = total;
-  f.cluster.sync();
-  if (threadIdx.x < 32) {
-    int lane = threadIdx.x;
-    int v = lane < kFixCluster ? *f.cluster.map_shared_rank(&s_count, lane)
-                               : 0;
-    int before = __reduce_add_sync(kFull, lane < f.c ? v : 0);
-    int all = __reduce_add_sync(kFull, v);
-    if (lane == 0) {
-      s_base = before;
-      s_total = all;
+  for (int i = lo; i < hi; ++i) cnt += f.valid(i) && f.root(i) == i;
+  int count;
+  int r = block_exclusive_scan(cnt, &count);
+  for (int i = lo; i < hi; ++i)
+    if (f.valid(i) && f.root(i) == i) {
+      rank[i] = r++;
+      val[i] = (f.y0 + i / R) * W + f.S[i];
+      fin[i] = 1;
     }
+  __syncthreads();
+  f.publish(rank, count, [&](int x) { return val[x]; });
+  f.cluster.sync();
+  Boundary bd(f);
+  bd.solve(1, 0x7FFFFFFF, [](int32_t* a, int v) { atomicMin(a, v); });
+  // absorbed roots: the first run of each local root whose component's
+  // smallest root is another block's or an earlier one
+  int V2 = 2 * R;
+  for (int v = threadIdx.x; v < lay.V; v += blockDim.x) {
+    if (!bd.valid(v) || bd.min_root(v) == bd.local_root(v)) continue;
+    bool first = true;
+    for (int u = v - v % V2; u < v && first; ++u)
+      first = !(bd.valid(u) && bd.local_root(u) == bd.local_root(v));
+    bd.nf[v] = first;
   }
   __syncthreads();
-  int r = s_base + off, count = s_total;
-  for (int i = lo; i < hi; ++i)
-    if (f.valid(i) && f.P[i] == f.g0 + i) {
-      rank[i] = r;
-      if (r < K) rl[(long long)b * K + r] = (f.y0 + i / R) * W + f.S[i];
-      ++r;
+  if (threadIdx.x < 32) {     // each block's first rank: earlier final roots
+    int lane = threadIdx.x, kept = 0;
+    if (lane < kFixCluster) {
+      kept = bd.count(lane);
+      for (int v = lane * V2; v < (lane + 1) * V2; ++v) kept -= bd.nf[v];
+    }
+    int incl = kept;
+    for (int d = 1; d < 32; d <<= 1) {
+      int t = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += t;
+    }
+    if (lane <= kFixCluster) s_first[lane] = incl - kept;
+  }
+  __syncthreads();
+  // The rank of root x of block o whose local rank is lr.
+  auto final_rank = [&](int o, int x, int lr) {
+    int k = s_first[o] + lr;
+    for (int v = o * V2; v < (o + 1) * V2; ++v)
+      k -= bd.nf[v] && bd.local_root(v) < x;
+    return k;
+  };
+  for (int v = f.c * V2 + threadIdx.x; v < (f.c + 1) * V2; v += blockDim.x) {
+    if (!bd.valid(v) || bd.min_root(v) == bd.local_root(v)) continue;
+    int x = bd.min_root(v), u = bd.min_run(v), i = bd.local_root(v) - g0;
+    fin[i] = 0;
+    val[i] = bd.cval[bd.uf[v]];
+    rank[i] = final_rank(u / V2, x, bd.at(u)[4]);
+  }
+  __syncthreads();
+  int total = s_first[kFixCluster];
+  for (int i = threadIdx.x; i < N; i += blockDim.x)
+    if (f.valid(i) && f.root(i) == i && fin[i]) {
+      int k = final_rank(f.c, g0 + i, rank[i]);
+      rank[i] = k;
+      if (k < K) rl[(long long)b * K + k] = val[i];
     }
   if (f.c == 0) {
-    for (int k = count + threadIdx.x; k < K; k += blockDim.x)
+    for (int k = total + threadIdx.x; k < K; k += blockDim.x)
       rl[(long long)b * K + k] = HW;
-    if (threadIdx.x == 0) nblobs[b] = count;
+    if (threadIdx.x == 0) nblobs[b] = total;
   }
-  f.cluster.sync();
-  // each run's slot in its band's mask; the first band's bits go to the
-  // block holding that band's first row when that is an earlier block
+  __syncthreads();
+  int32_t* Lf = L + f.base + g0;
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    if (!f.valid(i)) continue;
-    int k = *f.at(rank, f.P[i]);
+    if (!f.valid(i)) {
+      Lf[i] = HW;
+      continue;
+    }
+    int root = f.root(i), k = rank[root];
+    Lf[i] = val[root];
     if (k < K)
       atomicOr(pres + ((f.y0 + i / R) / band - blo) * lay.words + (k >> 5),
                1u << (k & 31));
   }
   __syncthreads();
+  // the first band's bits go to the block holding its first row, when
+  // that is an earlier block
   if (nb > 0 && blo * band < f.y0) {
     int o = f.owner(blo * band);
     unsigned* dst = f.cluster.map_shared_rank(pres, o) +
@@ -899,8 +1067,7 @@ extern "C" int hd_flood_fix(int B, int H, int W, int R, const int* active,
                             int32_t* F, int* in_cluster, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   size_t smem = 0;
-  int err = cluster_bytes(k_flood_fix, FixLayout(H, R, 0, 0).flood_bytes(),
-                          &smem);
+  int err = cluster_bytes(k_flood_fix, FixLayout(H, R, 0, 0).bytes(), &smem);
   if (err) return err;
   *in_cluster = smem > 0;
   if (smem > 0) {
@@ -953,8 +1120,8 @@ extern "C" int hd_label_fix(int B, int H, int W, int R, int band, int K,
                             int* in_cluster, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   size_t smem = 0;
-  int err = cluster_bytes(k_label_fix,
-                          FixLayout(H, R, band, K).label_bytes(), &smem);
+  int err = cluster_bytes(k_label_fix, FixLayout(H, R, band, K).bytes(),
+                          &smem);
   if (err) return err;
   *in_cluster = smem > 0;
   if (smem > 0) {
