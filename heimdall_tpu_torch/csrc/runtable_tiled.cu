@@ -386,17 +386,20 @@ constexpr int kDescInts = 5;
 // A fix block's shared memory in 32-bit words, the same in every block of a
 // launch: the staged S and E (the row above, then the block's rows, moved
 // by up to 3 words to share the tables' 16-byte alignment); per node the
-// parent, the rank and the label value; the published rows and the copies
-// of every block's; the boundary union-find (parents, 64-bit minima, the
+// parent, the rank (first a list of the valid runs) and the label value;
+// the published rows and count, and the copies of every block's (runs,
+// then counts); the boundary union-find (parents, 64-bit minima, the
 // component's value, the absorbed roots); the band presence masks; then a
 // byte per node (the flood fix's reach, the label fix's final-root flag).
 struct FixLayout {
-  int rows, tab, nodes, desc, V, bands, words;
+  int rows, tab, nodes, ents, desc, copy, V, bands, words;
   __host__ __device__ FixLayout(int H, int R, int band, int K) {
     rows = (H + kFixCluster - 1) / kFixCluster;
     tab = ((rows + 1) * R + 6) & ~3;
     nodes = (rows * R + 3) & ~3;
-    desc = (2 * R * kDescInts + 1 + 3) & ~3;
+    ents = 2 * R * kDescInts;
+    desc = (ents + 1 + 3) & ~3;
+    copy = (kFixCluster * (ents + 1) + 3) & ~3;
     V = kFixCluster * 2 * R;
     bands = band > 0 ? rows / band + 2 : 0;
     words = (K + 31) / 32;
@@ -405,9 +408,7 @@ struct FixLayout {
   __host__ __device__ int val_at() const { return rank_at() + nodes; }
   __host__ __device__ int desc_at() const { return val_at() + nodes; }
   __host__ __device__ int copy_at() const { return desc_at() + desc; }
-  __host__ __device__ int uf_at() const {
-    return copy_at() + kFixCluster * desc;
-  }
+  __host__ __device__ int uf_at() const { return copy_at() + copy; }
   __host__ __device__ int min_at() const { return uf_at() + V; }  // 8-aligned
   __host__ __device__ int cval_at() const { return min_at() + 2 * V; }
   __host__ __device__ int nf_at() const { return cval_at() + V; }
@@ -535,26 +536,37 @@ struct FixBlock {
         E[k - R] = -kBig;
       }
   }
-  // Pointer jumping over the valid runs, a thread per row, until every
-  // parent is a root.
-  __device__ void jump() {
+  // The block's valid runs in raster order at list[0, m); returns m.
+  __device__ int list_runs(int32_t* list) {
+    int q = (n + blockDim.x - 1) / blockDim.x;
+    int lo = min(n, (int)threadIdx.x * q), hi = min(n, lo + q), cnt = 0;
+    for (int i = lo * R; i < hi * R; ++i) cnt += valid(i);
+    int m;
+    int pos = block_exclusive_scan(cnt, &m);
+    for (int i = lo * R; i < hi * R; ++i)
+      if (valid(i)) list[pos++] = i;
+    __syncthreads();
+    return m;
+  }
+  // Pointer jumping over the listed runs until every parent is a root.
+  __device__ void jump(const int32_t* list, int m) {
     while (true) {
       int changed = 0;
-      for (int y = threadIdx.x; y < n; y += blockDim.x)
-        for (int i = y * R; i < (y + 1) * R && valid(i); ++i) {
-          int q = P[i];
-          if (q == i) continue;
-          int r = P[q];
-          if (r != q) {
-            P[i] = r;
-            changed = 1;
-          }
+      for (int t = threadIdx.x; t < m; t += blockDim.x) {
+        int i = list[t], q = P[i];
+        if (q == i) continue;
+        int r = P[q];
+        if (r != q) {
+          P[i] = r;
+          changed = 1;
         }
+      }
       if (!__syncthreads_or(changed)) return;
     }
   }
   // Step 1 (see above): every node's parent becomes its local root.
-  __device__ void local_roots(int dilate) {
+  // list: scratch of the layout's nodes.
+  __device__ void local_roots(int dilate, int32_t* list) {
     for (int y = threadIdx.x; y < n; y += blockDim.x) {
       int32_t* p = P + y * R;
       for (int k = 0; k < R; ++k) p[k] = y * R + k;
@@ -565,7 +577,8 @@ struct FixBlock {
                  });
     }
     __syncthreads();
-    jump();
+    int m = list_runs(list);
+    jump(list, m);
     int united = 0;
     for (int y = threadIdx.x + 1; y < n; y += blockDim.x)
       meetings(S + y * R, E + y * R, S + (y - 1) * R, E + (y - 1) * R, 1, R,
@@ -574,7 +587,7 @@ struct FixBlock {
                  unite_idx(P, y * R + i, (y - 1) * R + j);
                  united = 1;
                });
-    if (__syncthreads_or(united)) jump();
+    if (__syncthreads_or(united)) jump(list, m);
   }
   // Step 2: the block's first and last rows, with each run's local root (a
   // frame node), value(its index) and rank[its index] (rank: optional),
@@ -601,34 +614,34 @@ struct FixBlock {
 // R) or last row.
 struct Boundary {
   FixBlock& f;
-  int32_t* copy;                 // [kFixCluster][lay.desc]
+  int32_t* copy;                 // [V][kDescInts], then [kFixCluster] counts
   int32_t* uf;                   // [V] parents
   unsigned long long* lo;        // [V] at a root: (smallest root << 32) | v
   int32_t* cval;                 // [V] at a root: the component's value
   int32_t* nf;                   // [V] 1: the first run of an absorbed root
-  int V, D;
+  int V;
 
   __device__ explicit Boundary(FixBlock& f_)
       : f(f_), copy(f_.raw + f_.lay.copy_at()), uf(f_.raw + f_.lay.uf_at()),
         lo(reinterpret_cast<unsigned long long*>(f_.raw + f_.lay.min_at())),
         cval(f_.raw + f_.lay.cval_at()), nf(f_.raw + f_.lay.nf_at()),
-        V(f_.lay.V), D(f_.lay.desc) {}
-  __device__ const int32_t* at(int v) const {
-    int o = v / (2 * f.R);
-    return copy + o * D + (v - o * 2 * f.R) * kDescInts;
-  }
+        V(f_.lay.V) {}
+  __device__ const int32_t* at(int v) const { return copy + v * kDescInts; }
   __device__ bool valid(int v) const { return at(v)[0] < kBig; }
   __device__ int local_root(int v) const { return at(v)[2]; }
-  __device__ int count(int o) const { return copy[o * D + 2 * f.R * kDescInts]; }
+  __device__ int count(int o) const { return copy[V * kDescInts + o]; }
 
   // Copies the published rows (one round of loads through the cluster's
   // window), unites them, and reduces each component's smallest root and
   // its value with `reduce` (atomicMin or atomicOr on cval, from `init`).
   template <typename Reduce>
   __device__ void solve(int dilate, int init, Reduce reduce) {
-    for (int t = threadIdx.x; t < kFixCluster * D; t += blockDim.x) {
-      int o = t / D;
-      copy[t] = f.cluster.map_shared_rank(f.desc(), o)[t - o * D];
+    int ents = f.lay.ents;
+    for (int t = threadIdx.x; t < kFixCluster * (ents + 1); t += blockDim.x) {
+      int o = t / (ents + 1), k = t - o * (ents + 1);
+      int x = f.cluster.map_shared_rank(f.desc(), o)[k];
+      if (k < ents) copy[o * ents + k] = x;
+      else copy[V * kDescInts + o] = x;
     }
     for (int v = threadIdx.x; v < V; v += blockDim.x) {
       uf[v] = v;
@@ -685,7 +698,7 @@ __global__ void __launch_bounds__(kScanThreads)
   f.stage(S, E);
   for (int i = threadIdx.x; i < N; i += blockDim.x) reach[i] = 0;
   __syncthreads();
-  f.local_roots(0);
+  f.local_roots(0, f.raw + f.lay.rank_at());
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     int y = f.y0 + i / R;
     if (f.valid(i) &&
@@ -752,7 +765,7 @@ __global__ void __launch_bounds__(kScanThreads)
   f.stage(S, E);
   for (int i = threadIdx.x; i < nb * lay.words; i += blockDim.x) pres[i] = 0;
   __syncthreads();
-  f.local_roots(1);
+  f.local_roots(1, rank);
   // local roots ranked in raster order over each thread's chunk of nodes
   int q = (N + blockDim.x - 1) / blockDim.x;
   int lo = min(N, (int)threadIdx.x * q), hi = min(N, lo + q), cnt = 0;
