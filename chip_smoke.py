@@ -104,12 +104,13 @@ Phases (each prints a line; any failure exits non-zero without a result):
      c. the same three at 1920x1080 BGR channel-major, batch 128 (the
         run-table route), with the same checks; prints how many frames took
         the tables and how many the bands;
-  5. times with CUDA events after warm-up: each kernel, its plain version
-     and its bound, and which of bytes and operations sets it (the f32
-     mean's 44 operations a pixel at one a lane and clock on 132 SMs x 128
-     FP32 lanes at clocks.max.sm); the main paths end to end (frames already
-     on the card), each beside its host time per call (run_device's return,
-     before the sync, no profiler):
+  5. times with CUDA events after warm-up, the timed runs queued behind a
+     spin kernel so that the host's time per call stays out: each kernel,
+     its plain version and its bound, and which of bytes and operations
+     sets it (the f32 mean's 44 operations a pixel at one a lane and clock
+     on 132 SMs x 128 FP32 lanes at clocks.max.sm); the main paths end to
+     end (frames already on the card), each beside its host time per call
+     (run_device's return, before the sync, no profiler):
      640x480x3, 1920x1080 Mono8, and 1920x1080 BGR through the run tables
      and through the band route, on the bench batch and on a mixed batch
      whose every fourth frame is adversarial (most of those overflow the
@@ -227,6 +228,9 @@ PRIM_OPS = {
     "masked_ladder5": 10, "nbmin_guard": 6, "nbmin_masked_sub": 10,
     "or_and_mask": 2, "max_ladder_full": 20, "sublane_mask_add": 2}
 H100_SMS = 132
+# Clock cycles of the spin kernel that cuda_ms queues its runs behind (about
+# 10 ms at the H100's 1980 MHz).
+QUEUE_SPIN_CYCLES = 20_000_000
 # torch.profiler traces taken before a traced count or listing fails: the
 # card has returned two incomplete traces in a row (cuda_kernels).
 TRACE_TRIES = 8
@@ -244,10 +248,14 @@ def fail(msg):
 
 
 def cuda_ms(fn, iters):
-    """Mean milliseconds of fn() over iters runs, timed with CUDA events."""
+    """Mean milliseconds of fn() over iters runs, timed with CUDA events on
+    the card alone: a spin kernel (torch.cuda._sleep, about 10 ms) holds the
+    stream while the host queues the runs, so that a wrapper whose host
+    work outlasts its kernel is not timed by its host work."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
