@@ -440,29 +440,6 @@ __device__ void stage_words(int32_t* dst, const int32_t* src, int lo,
   for (int j = z + t; j < hi; j += nt) dst[j] = __ldg(src + j);
 }
 
-// Root of x in a parent array of local indices, without stores.
-__device__ __forceinline__ int find_idx(const volatile int32_t* p, int x) {
-  for (int q = p[x]; q != x; q = p[x]) x = q;
-  return x;
-}
-
-// unite (common.cuh) over a parent array of local indices.
-__device__ void unite_idx(int32_t* p, int a, int b) {
-  while (true) {
-    a = find_idx(p, a);
-    b = find_idx(p, b);
-    if (a == b) return;
-    if (a > b) {
-      int t = a;
-      a = b;
-      b = t;
-    }
-    int old = atomicMin(p + b, a);
-    if (old == b) return;
-    b = old;
-  }
-}
-
 // Calls meet(i, j, first) for each run i of row s1 / e1 that meets run j of
 // row s0 / e0 (first: j is the first run of s0 that i meets), walking the
 // two sorted rows with two pointers; run i's S is s1[i * step].
@@ -584,7 +561,7 @@ struct FixBlock {
       meetings(S + y * R, E + y * R, S + (y - 1) * R, E + (y - 1) * R, 1, R,
                dilate, [&](int i, int j, bool first) {
                  if (first) return;
-                 unite_idx(P, y * R + i, (y - 1) * R + j);
+                 unite(P, y * R + i, (y - 1) * R + j);
                  united = 1;
                });
     if (__syncthreads_or(united)) jump(list, m);
@@ -655,7 +632,7 @@ struct Boundary {
       if (!valid(v)) continue;
       for (int u = v - v % (2 * R); u < v; ++u)   // the block's first run
         if (valid(u) && local_root(u) == local_root(v)) {   // of that root
-          unite_idx(uf, v, u);
+          unite(uf, v, u);
           break;
         }
     }
@@ -667,13 +644,13 @@ struct Boundary {
       const int32_t* above = at(p * 2 * R + R);
       meetings(top, top + 1, above, above + 1, kDescInts, R, dilate,
                [&](int i, int j, bool) {
-                 unite_idx(uf, o * 2 * R + i, p * 2 * R + R + j);
+                 unite(uf, o * 2 * R + i, p * 2 * R + R + j);
                });
     }
     __syncthreads();
     for (int v = threadIdx.x; v < V; v += blockDim.x) {
       if (!valid(v)) continue;
-      int r = find_idx(uf, v);
+      int r = find_root(uf, v);
       uf[v] = r;
       atomicMin(lo + r, (unsigned long long)local_root(v) << 32 | v);
       reduce(cval + r, at(v)[3]);
@@ -682,7 +659,9 @@ struct Boundary {
   }
   // The component's smallest local root, and its run.
   __device__ int min_root(int v) const { return (int)(lo[uf[v]] >> 32); }
-  __device__ int min_run(int v) const { return (int)(lo[uf[v]] & 0xFFFFFFFFu); }
+  __device__ int min_run(int v) const {
+    return (int)(lo[uf[v]] & 0xFFFFFFFFu);
+  }
 };
 
 // A cluster per frame: F = 0 for the background runs 4-connected to a run

@@ -36,11 +36,12 @@ wrappers of ops/ccl_tiled.py do.  The two union-finds (``flood_fix``,
 ``label_fix``) spread each frame over a cluster of blocks with its tables in
 shared memory, or, for frames whose tables do not fit, run one block per
 frame over global scratch; ``.last_path`` keeps the last call's choice
-("cluster", "scratch", or "plain" on the CPU).  ``fill_label_runtable_tiled`` composes
-them with the density guards of JAX's function, decided per frame on the
-device: a frame with a background row of more than r_bg runs, or a filled
-foreground row of more than r_fg runs, takes the band route of
-ops/ccl_tiled.py instead, into the same outputs.
+("cluster", "scratch", or "plain" on the CPU).
+``fill_label_runtable_tiled`` composes them with the density guards of
+JAX's function, decided per frame on the device: a frame with a
+background row of more than r_bg runs, or a filled foreground row of more
+than r_fg runs, takes the band route of ops/ccl_tiled.py instead, into the
+same outputs.
 """
 
 import ctypes
