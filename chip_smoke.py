@@ -34,7 +34,13 @@ Phases (each prints a line; any failure exits non-zero without a result):
         diagonally at tile corners, a component whose least pixel lies in a
         later tile, all foreground, all background, noise) at the same
         sizes, bands 128, 48, 16, 2 and 1, connectivity 8 and 4, and with
-        active flags mixed over prefilled outputs;
+        active flags mixed over prefilled outputs; and the banded stats
+        and bbox sums on scene.window_case_masks (the whole frame, a disk
+        over all but the edge bands, full-height columns on the first and
+        last column, the corners, blobs ending on band edges, more blobs in
+        one band than slots, no blob) at 1920x1080 on random gray and
+        colour, bands 128, 16 and 1, K = 64, 4 and 1, gray only, BGR frames
+        and BGR planes, and with slot counts past K;
      c. the run-table 2 MP kernels (the preprocess with background tables,
         run extraction, border flood, fill + extraction, run labels,
         writeback) at 1920x1080: bench BGR frames NHWC and channel-major,
@@ -118,9 +124,12 @@ Phases (each prints a line; any failure exits non-zero without a result):
      CUDA kernels that one call of the fused detect and of the band labels
      launches, counted from a torch.profiler trace of that call (for the
      fused detect also at each phase 3a size, against what its C entry
-     reports); the B3 kernels and B2 (BGR) and the banded stats and bbox
-     sums (Mono8) also at the main path's batch of 128 (kernels only; the
-     plain versions at 32);
+     reports), and of one bbox sums call (one kernel); the B3 kernels and
+     B2 (BGR) and the banded stats (Mono8) also at the main path's batch
+     of 128 (kernels only; the plain versions at 32); the bbox sums at 128
+     on scripts/profile_bbox_sums.py's three inputs (bench Mono8, bench BGR
+     planes through the run tables, the window cases), each beside its
+     byte bound, its time on empty slot lists and one empty kernel's time;
      d. the profiling path, with the split kernels' launch counts set to 0
         just before and read just after: the port's profile_fused and
         profile_preprocess (batch 256, 10 iterations; each stage's us/frame
@@ -189,6 +198,11 @@ BAND_CCL_KERNELS = ("k_label_tiles", "k_label_merge", "k_label_write",
 # the labeling, and bands of 2 and 1 rows.
 LABEL_BANDS = (128, 48, 16, 2, 1)
 RT_BG, RT_FG = 8, 7           # the detector's run-table widths
+# Bands and slot counts of the window cases (bbox sums): the route's band,
+# bands that cut the windows into many pieces, and lists shorter than the
+# blobs of a band.
+WINDOW_BANDS = (128, 16, 1)
+WINDOW_KS = (K, 4, 1)
 # Table widths of the run cases: the detector's, the tests', and a
 # background width past a warp's 32 lanes (the fill extraction then reads
 # the flags from memory instead of a ballot).
@@ -228,9 +242,6 @@ PRIM_OPS = {
     "masked_ladder5": 10, "nbmin_guard": 6, "nbmin_masked_sub": 10,
     "or_and_mask": 2, "max_ladder_full": 20, "sublane_mask_add": 2}
 H100_SMS = 132
-# Clock cycles of the spin kernel that cuda_ms queues its runs behind (about
-# 10 ms at the H100's 1980 MHz).
-QUEUE_SPIN_CYCLES = 20_000_000
 # torch.profiler traces taken before a traced count or listing fails: the
 # card has returned two incomplete traces in a row (cuda_kernels).
 TRACE_TRIES = 8
@@ -248,20 +259,10 @@ def fail(msg):
 
 
 def cuda_ms(fn, iters):
-    """Mean milliseconds of fn() over iters runs, timed with CUDA events on
-    the card alone: a spin kernel (torch.cuda._sleep, about 10 ms) holds the
-    stream while the host queues the runs, so that a wrapper whose host
-    work outlasts its kernel is not timed by its host work."""
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean milliseconds of fn() over iters runs on the card alone, queued
+    behind a spin kernel (heimdall_tpu_torch/scripts/timing.py)."""
+    from heimdall_tpu_torch.scripts.timing import queued_ms
+    return queued_ms(fn, iters)
 
 
 def cuda_kernels(fn):
@@ -582,21 +583,54 @@ def stats_bytes(n):
     return n * H2 * W2 * 6 + n * 12 * K * 4
 
 
-def bbox_bytes(bbox, sl, sc, band):
-    """Bytes the bbox sums must move on these inputs: the gray pixels of
-    each listed (slot, band) pair's window in the band, the slot lists,
-    counts and bboxes, and 8 sums a slot out."""
+def check_window_cases(dev):
+    """Phase 3b's cases whose bbox windows attack the bbox sums' row walk
+    (scene.window_case_masks: the whole frame, a disk over all but the edge
+    bands, full-height columns on the first and last column, the corners,
+    blobs ending on band edges, more blobs in one band than slots, no blob)
+    at 1920x1080 on random gray and colour: the banded stats and the bbox
+    sums against their plain versions, bands WINDOW_BANDS, K WINDOW_KS,
+    without colour, with BGR frames and with BGR planes, and the bbox sums
+    also with the slot counts raised past K.  Returns the largest error (0
+    or the run fails)."""
+    import numpy as np
     import torch
-    n, R = sc.shape
-    listed = torch.arange(K, device=sc.device) < sc[..., None].long()
-    k_ids = torch.where(listed, sl.long(), 0)
-    bb = bbox.long().gather(2, k_ids.reshape(n, 1, -1).expand(
-        -1, 4, -1)).reshape(n, 4, R, K)
-    top = torch.arange(R, device=sc.device)[None, :, None] * band
-    rows = (torch.minimum(bb[:, 3], (top + band).clamp(max=H2) - 1)
-            - torch.maximum(bb[:, 1], top) + 1).clamp(min=0)
-    cols = (bb[:, 2] - bb[:, 0] + 1).clamp(min=0)
-    return int((rows * cols * listed).sum()) + n * (R * K + R + 8 * K) * 4
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import stats_tiled as st
+
+    masks = torch.from_numpy(np.stack(list(
+        scene.window_case_masks(H2, W2).values()))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    gray = torch.randint(0, 256, masks.shape, generator=gen, device=dev,
+                         dtype=torch.uint8)
+    frames = torch.randint(0, 256, (*masks.shape, 3), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    colors = {"gray": (None, False), "bgr": (frames, False),
+              "bgr_planes": (frames.permute(0, 3, 1, 2).contiguous(), True)}
+    err = 0
+    for band in WINDOW_BANDS:
+        errs = {}
+        for k in WINDOW_KS:
+            labels, rl, n, sl, sc = ct.connected_components_tiled(
+                masks, band=band, return_roots=k, band_slots=True)
+            for form, (color, cm) in colors.items():
+                stats = (labels, masks, gray, color, rl, n, k, cm)
+                sums = st.banded_stats(*stats)
+                e = max_abs_err(sums, st.banded_stats_reference(*stats))
+                for counts in (sc, sc + k):
+                    box = (sums[1], sl, counts, band, gray, color, cm)
+                    e = max(e, max_abs_err((st.bbox_sums(*box),),
+                                           (st.bbox_sums_reference(*box),)))
+                errs[f"k{k}_{form}"] = e
+        torch.cuda.synchronize()
+        phase(f"check 2MP window cases {H2}x{W2} band {band} ({len(masks)} "
+              f"masks): banded_stats + bbox_sums max_abs_err {errs}")
+        err = max(err, *errs.values())
+    if err:
+        fail("the bbox sums differ from their plain version on the window "
+             "cases")
+    return err
 
 
 def tiled_phases(dev, smi, argv):
@@ -609,6 +643,7 @@ def tiled_phases(dev, smi, argv):
     from heimdall_tpu_torch.ops import ccl_tiled as ct
     from heimdall_tpu_torch.ops import fused_kernels as fk
     from heimdall_tpu_torch.ops import stats_tiled as st
+    from heimdall_tpu_torch.scripts import profile_bbox_sums as pb
 
     band = TILED_BAND
     wrappers = {"preprocess": fk.preprocess, "flood_fill": ct.flood_fill,
@@ -638,6 +673,7 @@ def tiled_phases(dev, smi, argv):
         err = max(err, check_tiled(name, x, cm, k, band, mask))
     err = max(err, check_tile_cases(dev))
     err = max(err, check_label_cases(dev))
+    err = max(err, check_window_cases(dev))
 
     # -- 4b. the 2 MP main path --------------------------------------------
     frames = scene.make_frames(BATCH_2MP, H2, W2, seed=2)
@@ -719,13 +755,18 @@ def tiled_phases(dev, smi, argv):
         "band_ccl": px * 5 + small,                 # mask in, labels out
         "merge_bands": px * 8 + small,              # labels in and out
         "banded_stats": stats_bytes(TIME_BATCH_2MP),
-        "bbox_sums": bbox_bytes(bbox, sl, sc, band),
+        "bbox_sums": pb.window_bytes(bbox, sl, sc, band, 1),
     }
-    # the CUDA kernels of one band labeling call, from a trace of it
+    # the CUDA kernels of one band labeling and one bbox sums call, from a
+    # trace of each
     band_kernels = cuda_kernels(calls["band_ccl"][0])
     if band_kernels != dict.fromkeys(BAND_CCL_KERNELS, 1):
         fail(f"band_ccl launched {band_kernels}, not one each of "
              f"{BAND_CCL_KERNELS}")
+    box_kernels = cuda_kernels(calls["bbox_sums"][0])
+    phase(f"bbox_sums: CUDA kernels per call (traced) {box_kernels}")
+    if box_kernels != {"k_bbox_sums": 1}:
+        fail(f"bbox_sums launched {box_kernels}, not one k_bbox_sums")
     timings = {}
     for name, (kfn, pfn) in calls.items():
         if name == "merge_bands":      # merges in place: restore its input
@@ -744,33 +785,53 @@ def tiled_phases(dev, smi, argv):
                              else "operations", bytes=moved[name])
         if name == "band_ccl":
             timings[name]["cuda_kernels"] = band_kernels
+        if name == "bbox_sums":
+            timings[name]["cuda_kernels"] = box_kernels
         phase(f"{smi}: {name} {ms:.4f} ms per {TIME_BATCH_2MP} frames of "
               f"1920x1080 Mono8 ({ms / TIME_BATCH_2MP * 1e3:.3f} us/frame); "
               f"plain version {plain_ms:.2f} ms; bound "
               f"{timings[name]['bound_ms']:.4f} ms (by "
               f"{timings[name]['bound_by']}; {moved[name]} bytes)")
 
-    # B4a and B4b also at the main path's batch (kernels only)
+    # B4a also at the main path's batch (kernel only)
     kern = tiled_stages(x, False, K, band)
     gray, _ = kern["preprocess"]
     (filled,) = kern["flood_fill"]
-    labels, rl, n, sl, sc = kern["merge_bands"]
-    bbox = kern["banded_stats"][1]
+    labels, rl, n, _, _ = kern["merge_bands"]
     del kern
-    for name, fn, nbytes in (
-            ("banded_stats",
-             lambda: st.banded_stats(labels, filled, gray, None, rl, n, K),
-             stats_bytes(BATCH_2MP)),
-            ("bbox_sums", lambda: st.bbox_sums(bbox, sl, sc, band, gray),
-             bbox_bytes(bbox, sl, sc, band))):
-        fn()
-        ms = cuda_ms(fn, 10)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        timings[name].update(ms_batch_128=ms, bound_ms_batch_128=bound_ms)
-        phase(f"{smi}: {name} {ms:.4f} ms per {BATCH_2MP} frames of "
-              f"1920x1080 Mono8 ({ms / BATCH_2MP * 1e3:.3f} us/frame); bound "
-              f"{bound_ms:.4f} ms (by bytes; {nbytes} bytes)")
-    del gray, filled, labels, rl, n, sl, sc, bbox
+    ms = cuda_ms(lambda: st.banded_stats(labels, filled, gray, None, rl, n,
+                                         K), 10)
+    bound_ms = stats_bytes(BATCH_2MP) / HBM_BYTES_PER_S * 1e3
+    timings["banded_stats"].update(ms_batch_128=ms,
+                                   bound_ms_batch_128=bound_ms)
+    phase(f"{smi}: banded_stats {ms:.4f} ms per {BATCH_2MP} frames of "
+          f"1920x1080 Mono8 ({ms / BATCH_2MP * 1e3:.3f} us/frame); bound "
+          f"{bound_ms:.4f} ms (by bytes; {stats_bytes(BATCH_2MP)} bytes)")
+    del gray, filled, labels, rl, n
+
+    # B4b at the main path's batch on scripts/profile_bbox_sums.py's three
+    # inputs (bench Mono8, bench BGR through the run tables, the window
+    # cases), each beside its bound, its time on empty slot lists and one
+    # empty kernel's time
+    x_bgr = on(frames.transpose(0, 3, 1, 2))
+    res, floor = pb.measure(pb.make_inputs(x, x_bgr, band, K),
+                            {"bbox_sums": st.bbox_sums})
+    del x_bgr
+    inputs = {name: {"ms": r["ms"]["bbox_sums"],
+                     "empty_lists_ms": r["empty_lists_ms"]["bbox_sums"],
+                     "bound_ms": r["bound_ms"], "bytes": r["bytes"]}
+              for name, r in res.items()}
+    timings["bbox_sums"].update(
+        ms_batch_128=inputs["bench_mono8"]["ms"][0],
+        bound_ms_batch_128=inputs["bench_mono8"]["bound_ms"],
+        inputs_batch_128=inputs, launch_floor_ms=floor)
+    for name, r in inputs.items():
+        phase(f"{smi}: bbox_sums on {name}: {r['ms'][0]:.4f} / "
+              f"{r['ms'][1]:.4f} ms per {BATCH_2MP} frames of 1920x1080 "
+              f"({r['ms'][0] / BATCH_2MP * 1e3:.4f} us/frame); empty slot "
+              f"lists {r['empty_lists_ms'][0]:.4f} ms; bound "
+              f"{r['bound_ms']:.4f} ms (by bytes; {r['bytes']} bytes); one "
+              f"empty kernel {floor[0]:.4f} ms")
 
     det.run_device(x)
     torch.cuda.synchronize()
@@ -2195,7 +2256,8 @@ def main(argv):
                "library_ms": None,
                "library_note": "no single PyTorch call computes it",
                "batch": TIME_BATCH_2MP, "frame": frame}
-        for key in ("ms_batch_128", "bound_ms_batch_128", "cuda_kernels"):
+        for key in ("ms_batch_128", "bound_ms_batch_128", "cuda_kernels",
+                    "inputs_batch_128", "launch_floor_ms"):
             if key in t:
                 out[key] = t[key]
         return out

@@ -24,9 +24,18 @@
 // What bounds them on an H100 SXM: bytes.  B4a reads labels, mask and gray
 // (6 B/px; 9 with color), about 3.7 us (5.6) per 1920x1080 frame at
 // 3.35 TB/s.  B4b reads only the bbox windows of the blobs (C bytes per
-// window pixel), which is tiny on production frames.
+// window pixel), which is tiny on production frames: there one launch's
+// fixed cost bounds it.  So B4b's grid does not grow with K or the bands
+// (a cluster of 8 blocks a frame finds its listed pairs on the card), it
+// stores its outputs itself (no zero fill before it), and a large window's
+// rows are dealt out to the cluster's 64 warps, each walking a row with
+// 16-byte loads and 32-bit column offsets.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -140,39 +149,144 @@ __global__ void k_banded_stats(Frames f, Geom g, int K, const uint8_t* mask,
   }
 }
 
-// One block per (list position, band, frame): the bbox window of slot
-// slot_list[b, r, t] restricted to band r's rows, added to out[b, :, k].
+// B4b's launch: a cluster of kBoxCluster blocks per frame (the portable
+// cluster size), whose kBoxWarps warps share the frame's window rows.
+constexpr int kBoxCluster = 8;
+constexpr int kBoxWarps = kBoxCluster * kScanThreads / 32;
+
+// This lane's share of the sum of the n bytes at p: a byte head up to the
+// first 16-byte boundary (lanes 0-15), the rest 16 bytes a lane as one
+// uint4 added by __dp4a, a byte tail (lanes 16-31).
+__device__ __forceinline__ unsigned row_bytes(const uint8_t* p, int n,
+                                              int lane) {
+  int head = min((int)((16 - ((uintptr_t)p & 15)) & 15), n);
+  int body = (n - head) >> 4;
+  int tail = n - head - (body << 4);
+  unsigned s = 0;
+  if (lane < head)
+    s = p[lane];
+  else if (lane >= 16 && lane - 16 < tail)
+    s = p[n - tail + lane - 16];
+  const uint4* v = reinterpret_cast<const uint4*>(p + head);
+#pragma unroll 4
+  for (int i = lane; i < body; i += 32) {
+    uint4 q = __ldg(v + i);
+    s = __dp4a(q.x, 0x01010101u, s);
+    s = __dp4a(q.y, 0x01010101u, s);
+    s = __dp4a(q.z, 0x01010101u, s);
+    s = __dp4a(q.w, 0x01010101u, s);
+  }
+  return s;
+}
+
+// A cluster per frame: out[b, c, k] = the sum of plane c (gray, then b, g,
+// r) over slot k's bbox window within each band r that lists k, added over
+// those bands; rows 1-3 are 0 without color.  Every warp reads the frame's
+// band counts 32 at a time and its listed slots' windows 32 at a time, so
+// an empty band costs one lane's load.  The window rows of the listed
+// pairs are numbered in list order and row i goes to the cluster's warp i
+// mod kBoxWarps, so a window over many bands or rows is spread over all
+// of them and a run of small windows too.  A warp sums its row by
+// row_bytes (interleaved color a pixel a lane), reduces it with
+// __reduce_add_sync and adds it to its block's sums in shared memory;
+// the blocks add theirs into block 0's through the cluster's window, and
+// block 0 stores the frame's outputs.
 __global__ void k_bbox_sums(Frames f, Geom g, int K, const int32_t* bbox,
                             const int32_t* slot_list,
                             const int32_t* slot_count, const uint8_t* gray,
                             int32_t* out) {
-  int t = blockIdx.x, r = blockIdx.y, b = blockIdx.z;
-  long long br = (long long)b * g.R + r;
-  if (t >= min(slot_count[br], K)) return;
-  int k = slot_list[br * K + t];
+  extern __shared__ int s_sum[];     // [nc][K]: this block's sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = f.C == 3 ? 4 : 1;
+  const int b = blockIdx.x / kBoxCluster;
+  const int lane = threadIdx.x & 31;
+  const unsigned gw = cluster.block_rank() * (kScanThreads / 32) +
+                      (threadIdx.x >> 5);
+  for (int i = threadIdx.x; i < nc * K; i += blockDim.x) s_sum[i] = 0;
+  cluster.sync();      // block 0's sums are 0 before any block adds
+
   const int32_t* bb = bbox + (long long)b * 4 * K;
-  int x0 = bb[k], x1 = bb[2 * K + k];
-  int y0 = max(bb[K + k], r * g.band);
-  int y1 = min(bb[3 * K + k], min((r + 1) * g.band, g.H) - 1);
-  if (y0 > y1 || x0 > x1) return;
-  int bw = x1 - x0 + 1;
-  long long n = (long long)bw * (y1 - y0 + 1);
-  long long base = b * g.HW;
-  int acc[4] = {0, 0, 0, 0};
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-    long long p = (long long)(y0 + i / bw) * g.W + x0 + i % bw;
-    acc[0] += gray[base + p];
-    if (f.C == 3) {
-      const uint8_t* d = f.data + b * f.fstride + p * f.pstride;
-      acc[1] += d[0];
-      acc[2] += d[f.cstride];
-      acc[3] += d[2 * f.cstride];
+  const int32_t* sc = slot_count + (long long)b * g.R;
+  const uint8_t* gf = gray + b * g.HW;
+  const uint8_t* cf = f.C == 3 ? f.data + b * f.fstride : nullptr;
+  unsigned next = 0;   // window rows numbered so far (mod 2^32)
+  for (int r0 = 0; r0 < g.R; r0 += 32) {
+    int nr = r0 + lane < g.R ? min(sc[r0 + lane], K) : 0;
+    for (unsigned bands = __ballot_sync(kFull, nr > 0); bands;
+         bands &= bands - 1) {
+      int j = __ffs(bands) - 1;
+      int r = r0 + j, n = __shfl_sync(kFull, nr, j);
+      int top = r * g.band, bot = min(top + g.band, g.H) - 1;
+      const int32_t* sl = slot_list + ((long long)b * g.R + r) * K;
+      for (int t0 = 0; t0 < n; t0 += 32) {
+        int k = 0, x0 = 0, y0 = 0, bw = 0;
+        unsigned rows = 0;
+        if (t0 + lane < n) {
+          k = sl[t0 + lane];
+          x0 = bb[k];
+          int x1 = bb[2 * K + k];
+          y0 = max(bb[K + k], top);
+          int y1 = min(bb[3 * K + k], bot);
+          if (y0 <= y1 && x0 <= x1) {
+            rows = y1 - y0 + 1;
+            bw = x1 - x0 + 1;
+          }
+        }
+        unsigned incl = rows;          // rows of this lane's and earlier
+        for (int d = 1; d < 32; d <<= 1) {
+          unsigned v = __shfl_up_sync(kFull, incl, d);
+          if (lane >= d) incl += v;
+        }
+        unsigned first = next + incl - rows;
+        next += __shfl_sync(kFull, incl, 31);
+        for (unsigned todo = __ballot_sync(kFull, rows > 0); todo;
+             todo &= todo - 1) {
+          int s = __ffs(todo) - 1;
+          int ks = __shfl_sync(kFull, k, s), xs = __shfl_sync(kFull, x0, s);
+          int ys = __shfl_sync(kFull, y0, s), ws = __shfl_sync(kFull, bw, s);
+          unsigned nrows = __shfl_sync(kFull, rows, s);
+          unsigned i0 = (gw - __shfl_sync(kFull, first, s)) % kBoxWarps;
+          if (i0 >= nrows) continue;   // none of this window's rows
+          unsigned acc[4] = {0, 0, 0, 0};
+          for (unsigned i = i0; i < nrows; i += kBoxWarps) {
+            long long o = (long long)(ys + (int)i) * g.W + xs;
+            acc[0] += row_bytes(gf + o, ws, lane);
+            if (f.C != 3) continue;
+            const uint8_t* d = cf + o * f.pstride;
+            if (f.pstride == 1) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c)
+                acc[1 + c] += row_bytes(d + c * f.cstride, ws, lane);
+            } else {
+              for (int x = lane; x < ws; x += 32) {
+                const uint8_t* q = d + x * (int)f.pstride;
+                acc[1] += q[0];
+                acc[2] += q[f.cstride];
+                acc[3] += q[2 * f.cstride];
+              }
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (c == nc) break;
+            unsigned v = __reduce_add_sync(kFull, acc[c]);
+            if (lane == 0 && v) atomicAdd(&s_sum[c * K + ks], (int)v);
+          }
+        }
+      }
     }
   }
-  int32_t* o = out + (long long)b * 4 * K;
-  for (int c = 0; c < (f.C == 3 ? 4 : 1); ++c) {
-    int s = block_sum(acc[c]);
-    if (threadIdx.x == 0 && s) atomicAdd(&o[c * K + k], s);
+  __syncthreads();
+  if (cluster.block_rank() != 0) {
+    int* dst = cluster.map_shared_rank(s_sum, 0);
+    for (int i = threadIdx.x; i < nc * K; i += blockDim.x)
+      if (s_sum[i]) atomicAdd(dst + i, s_sum[i]);
+  }
+  cluster.sync();      // every block's sums are in block 0's
+  if (cluster.block_rank() == 0) {
+    int32_t* o = out + (long long)b * 4 * K;
+    for (int i = threadIdx.x; i < 4 * K; i += blockDim.x)
+      o[i] = i < nc * K ? s_sum[i] : 0;
   }
 }
 
@@ -209,20 +323,33 @@ extern "C" int hd_banded_stats(const uint8_t* color, int C, long long fstride,
 
 // bbox int32 [B, 4, K] (from hd_banded_stats), slot_list int32 [B, R, K],
 // slot_count int32 [B, R] with R = ceil(H / band), gray u8 [B, H, W], color
-// or none -> out int32 [B, 4, K], which the caller zeroes (rows 1-3 stay 0
-// without color).
+// or none -> out int32 [B, 4, K], every element written (rows 1-3 are 0
+// without color).  K <= kMaxSlots.
 extern "C" int hd_bbox_sums(const uint8_t* color, int C, long long fstride,
                             long long cstride, long long pstride, int B,
                             int H, int W, int band, int K,
                             const int32_t* bbox, const int32_t* slot_list,
                             const int32_t* slot_count, const uint8_t* gray,
                             int32_t* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+  if (B == 0) return 0;
   int R = (H + band - 1) / band;
   Geom g{H, W, (long long)H * W, band, R};
   Frames f{color, C, fstride, cstride, pstride};
-  k_bbox_sums<<<dim3(K, R, B), kScanThreads, 0, st>>>(
-      f, g, K, bbox, slot_list, slot_count, gray, out);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kBoxCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kBoxCluster * B);
+  cfg.blockDim = dim3(kScanThreads);
+  cfg.dynamicSmemBytes = (size_t)(C == 3 ? 4 : 1) * K * sizeof(int);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, k_bbox_sums, f, g, K, bbox,
+                                     slot_list, slot_count, gray, out);
+  if (e != cudaSuccess) return (int)e;
   HD_CHECK();
   return 0;
 }

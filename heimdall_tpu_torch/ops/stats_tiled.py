@@ -11,7 +11,8 @@ and run their plain PyTorch versions on CPU tensors:
   boundary, x, y, gray, b, g, r; the color rows stay 0 without color) and
   the inclusive bbox [B, 4, K] (x0, y0, x1, y1; unused slots W, H, -1, -1);
 * ``bbox_sums`` (B4b): per-slot sums of gray (and b, g, r) over the bbox
-  window [B, 4, K], visiting the (slot, band) pairs of the incidence lists.
+  window [B, 4, K], visiting the (slot, band) pairs of the incidence lists
+  (one launch that writes every output: no zero fill before it).
 
 The table itself comes from ops/blobs.py's ``table_from_sums``.  Sums are
 int32, as in the JAX package: ``check_sum_bound`` refuses frames whose
@@ -35,7 +36,7 @@ def check_sum_bound(H: int, W: int):
                          "blob statistics (H * W*(W-1)/2 < 2**31)")
 
 
-def _color_layout(color, channel_major: bool, B: int, H: int, W: int):
+def color_layout(color, channel_major: bool, B: int, H: int, W: int):
     """(C, frame stride, channel stride, pixel stride) of the color frames:
     [B, H, W, 3], or [B, 3, H, W] with channel_major; C = 1 without."""
     if color is None:
@@ -83,7 +84,7 @@ def banded_stats(labels, mask, gray, color, root_table, root_count,
 
     if not 1 <= K <= MAX_SLOTS:
         raise ValueError(f"max_blobs must be in 1..{MAX_SLOTS}, got {K}")
-    C, fs, cs, ps = _color_layout(color, channel_major, B, H, W)
+    C, fs, cs, ps = color_layout(color, channel_major, B, H, W)
     check_cuda(labels, "labels", (torch.int32,))
     check_cuda(mask, "mask", (torch.bool, torch.uint8), (B, H, W))
     check_cuda(gray, "gray", (torch.uint8,), (B, H, W))
@@ -150,16 +151,16 @@ def bbox_sums(bbox, slot_list, slot_count, band: int, gray, color=None,
                                    color, channel_major)
     from heimdall_tpu_torch.ops import _cuda
 
-    C, fs, cs, ps = _color_layout(color, channel_major, B, H, W)
+    C, fs, cs, ps = color_layout(color, channel_major, B, H, W)
     check_cuda(gray, "gray", (torch.uint8,))
     check_cuda(bbox, "bbox", (torch.int32,), (B, 4, K))
     check_cuda(slot_list, "slot_list", (torch.int32,), (B, R, K))
     check_cuda(slot_count, "slot_count", (torch.int32,), (B, R))
     if color is not None:
         check_cuda(color, "color", (torch.uint8,))
-    if K > 65535 or R > 65535:
-        raise ValueError(f"K={K} and R={R} must fit the kernel's grid")
-    out = torch.zeros((B, 4, K), dtype=torch.int32, device=gray.device)
+    if not 1 <= K <= MAX_SLOTS:
+        raise ValueError(f"the kernel takes 1..{MAX_SLOTS} slots, got {K}")
+    out = torch.empty((B, 4, K), dtype=torch.int32, device=gray.device)
     raise_on(_cuda.library("stats_tiled").hd_bbox_sums(
         0 if color is None else color.data_ptr(), C, fs, cs, ps, B, H, W,
         band, K, bbox.data_ptr(), slot_list.data_ptr(), slot_count.data_ptr(),

@@ -7,8 +7,10 @@ rectangle outline (100), its base disc (80) and one to three dark
 contaminant discs drawn from a seeded RandomState.  Beside it: the
 adversarial masks, the run-table check's masks, and the masks and frames
 that attack the 2 MP kernels' tiles (tile_case_masks, tile_case_frames),
-and the masks that attack the labeling's tiles (label_case_masks), shared
-by the tests and chip_smoke.py.
+the masks that attack the labeling's tiles (label_case_masks), the
+run-table cases (run_case_masks, fix_case_masks) and the masks whose bbox
+windows attack the bbox-window sums (window_case_masks), shared by the tests
+and chip_smoke.py.
 """
 
 import numpy as np
@@ -493,4 +495,61 @@ def fix_case_masks(h, w):
         "staircase_bg": ~_staircase(h, w, min(1, h - 1)),
         "comb": _comb(h, w, 0),
         "comb_bg": ~_comb(h, w, min(1, h - 1)),
+    }
+
+
+# Rows on which window_case_masks puts band edges: each is a band's first
+# row for bands of 16, 2 and 1 rows, and the multiples of 128 also for the
+# detector's band of 128.
+WINDOW_EDGES = (16, 32)
+WINDOW_BAND = 128
+
+
+def window_case_masks(h, w):
+    """Masks whose blobs' bbox windows attack the bbox-window sums (a window
+    walked a row at a time, its rows dealt out per band), bool [h, w] by
+    name (True = foreground; h, w >= 3):
+
+    * whole: one blob over the whole frame, one window over every band;
+    * disk: a filled disk of radius 0.37 h about the centre, whose window
+      spans every band of 128 rows but the first and the last at 1080 rows;
+    * columns: one-pixel-wide columns on column 0 and column w - 1 from the
+      first row to the last;
+    * corners: one-pixel blobs in the four corners;
+    * band_edges: at each row e of WINDOW_EDGES and the multiples of
+      WINDOW_BAND below h, a 2-column blob whose top row is e and one whose
+      bottom row is e - 1, and one blob over rows 16 .. 31 (a band of 16
+      exactly);
+    * crowded: one-pixel blobs on every other column of the middle row,
+      more blobs in one band than the slots of the lists (ceil(w / 2));
+    * empty: no blob."""
+    yy, xx = np.mgrid[:h, :w]
+    radius = max(1, int(0.37 * h))
+    disk = (yy - h // 2) ** 2 + (xx - w // 2) ** 2 <= radius ** 2
+    columns = np.zeros((h, w), bool)
+    columns[:, [0, w - 1]] = True
+    corners = np.zeros((h, w), bool)
+    corners[[0, 0, h - 1, h - 1], [0, w - 1, 0, w - 1]] = True
+    edges = np.zeros((h, w), bool)
+    rows = sorted(set(WINDOW_EDGES) | set(range(WINDOW_BAND, h,
+                                                WINDOW_BAND)))
+    x = 1
+    for e in (r for r in rows if r < h):
+        if x + 6 > w:
+            break
+        edges[e:e + 3, x:x + 2] = True              # top row on the edge
+        edges[max(e - 3, 0):e, x + 4:x + 6] = True  # bottom row above it
+        x += 8
+    if h >= 32 and x + 2 <= w:
+        edges[16:32, x:x + 2] = True
+    crowded = np.zeros((h, w), bool)
+    crowded[h // 2, ::2] = True
+    return {
+        "whole": np.ones((h, w), bool),
+        "disk": disk,
+        "columns": columns,
+        "corners": corners,
+        "band_edges": edges,
+        "crowded": crowded,
+        "empty": np.zeros((h, w), bool),
     }

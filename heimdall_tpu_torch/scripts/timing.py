@@ -1,5 +1,6 @@
 """What the port's profilers share: the bench batch on the card, stage
-timing with CUDA events, and the card's name and power limit.  The
+timing with CUDA events (also queued behind a spin kernel, so that only
+the card's time counts), and the card's name and power limit.  The
 profilers measure the card only: without one they exit with an error."""
 
 import subprocess
@@ -9,6 +10,10 @@ import torch
 
 from heimdall_tpu_torch import scene
 from heimdall_tpu_torch.perf.profiling import MetricType
+
+# Clock cycles of the spin kernel that queued_ms queues its runs behind
+# (about 10 ms at the H100's 1980 MHz).
+QUEUE_SPIN_CYCLES = 20_000_000
 
 
 def card() -> str:
@@ -63,3 +68,19 @@ def time_stage(session, name: str, fn, batch: int, iters: int) -> float:
     session.record(MetricType.EXECUTION_TIME, name, us, "us/frame",
                    batch=batch, iters=iters)
     return us
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean milliseconds of fn() over ``iters`` runs, timed with CUDA events
+    on the card alone: a spin kernel (torch.cuda._sleep, about 10 ms) holds
+    the stream while the host queues the runs, so that a wrapper whose host
+    work outlasts its kernel is not timed by its host work."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

@@ -68,6 +68,39 @@ def test_tiled_kernels_match_plain_versions(card, band, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("band", [128, 16, 1])
+@pytest.mark.parametrize("size", [(1080, 1920), (301, 517)])
+def test_bbox_sums_window_cases(card, size, band):
+    """The bbox sums on scene.window_case_masks (the whole frame, a disk
+    over all but the edge bands, full-height columns on the first and last
+    column, the corners, blobs ending on band edges, more blobs in one band
+    than slots, no blob) with random gray and colour: K 64, 4 and 1, gray
+    only, BGR frames and BGR planes, and slot counts past K."""
+    h, w = size
+    masks = torch.from_numpy(np.stack(list(
+        scene.window_case_masks(h, w).values()))).to(card)
+    rng = np.random.RandomState(h + band)
+    gray = torch.from_numpy(rng.randint(0, 256, tuple(masks.shape))
+                            .astype(np.uint8)).to(card)
+    frames = torch.from_numpy(rng.randint(0, 256, (*masks.shape, 3))
+                              .astype(np.uint8)).to(card)
+    colors = {None: (None, False), "bgr": (frames, False),
+              "bgr_planes": (frames.permute(0, 3, 1, 2).contiguous(), True)}
+    for k in (64, 4, 1):
+        lab, rl, n, sl, sc = ccl_tiled.connected_components_tiled(
+            masks, band=band, return_roots=k, band_slots=True)
+        for color, cm in colors.values():
+            args = (lab, masks, gray, color, rl, n, k, cm)
+            sums = stats_tiled.banded_stats(*args)
+            _equal(sums, stats_tiled.banded_stats_reference(*args))
+            for counts in (sc, sc + k):
+                box = (sums[1], sl, counts, band, gray, color, cm)
+                _equal((stats_tiled.bbox_sums(*box),),
+                       (stats_tiled.bbox_sums_reference(*box),))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_preprocess_matches_plain_version(card):
     frames = torch.from_numpy(scene.make_frames(3, 301, 517, seed=5)).to(card)
     _equal(fused_kernels.preprocess(frames, 15),
