@@ -149,134 +149,190 @@ __global__ void k_banded_stats(Frames f, Geom g, int K, const uint8_t* mask,
   }
 }
 
-// B4b's launch: a cluster of kBoxCluster blocks per frame (the portable
-// cluster size), whose kBoxWarps warps share the frame's window rows.
+// B4b's launch: a cluster of kBoxCluster blocks of kBoxThreads per frame,
+// at most 64 registers a thread, so that 8 blocks fit an SM and a batch of
+// 128 frames (1,024 blocks) runs in one wave; its kBoxWarps warps share
+// the frame's window rows.
 constexpr int kBoxCluster = 8;
-constexpr int kBoxWarps = kBoxCluster * kScanThreads / 32;
+constexpr int kBoxThreads = 128;
+constexpr int kBoxWarps = kBoxCluster * kBoxThreads / 32;
 
-// This lane's share of the sum of the n bytes at p: a byte head up to the
-// first 16-byte boundary (lanes 0-15), the rest 16 bytes a lane as one
-// uint4 added by __dp4a, a byte tail (lanes 16-31).
-__device__ __forceinline__ unsigned row_bytes(const uint8_t* p, int n,
-                                              int lane) {
-  int head = min((int)((16 - ((uintptr_t)p & 15)) & 15), n);
-  int body = (n - head) >> 4;
-  int tail = n - head - (body << 4);
-  unsigned s = 0;
-  if (lane < head)
-    s = p[lane];
-  else if (lane >= 16 && lane - 16 < tail)
-    s = p[n - tail + lane - 16];
-  const uint4* v = reinterpret_cast<const uint4*>(p + head);
-#pragma unroll 4
-  for (int i = lane; i < body; i += 32) {
-    uint4 q = __ldg(v + i);
-    s = __dp4a(q.x, 0x01010101u, s);
-    s = __dp4a(q.y, 0x01010101u, s);
-    s = __dp4a(q.z, 0x01010101u, s);
-    s = __dp4a(q.w, 0x01010101u, s);
+// Asks L2 for the 128-byte lines of the n bytes at p (a lane a line).
+__device__ __forceinline__ void prefetch_row(const uint8_t* p, int n,
+                                             int lane) {
+  uintptr_t base = (uintptr_t)p & ~(uintptr_t)127;
+  int lines = (int)(((uintptr_t)p & 127) + n + 127) >> 7;
+  for (int l = lane; l < lines; l += 32)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(base + 128 * l));
+}
+
+// This lane's shares of the sums of the n bytes of one row in each of NP
+// planes (p[c]): a byte head up to the plane's first 16-byte boundary
+// (lanes 0-15), then 16 bytes a lane as one uint4, the planes' loads
+// issued together and added by __dp4a, then a byte tail (lanes 16-31).
+// No load carries a predicate (a clamped index, the value selected
+// after), so that a lane has all of its head, tail and 2 x NP body loads
+// (4 for one plane) in flight at once.
+template <int NP>
+__device__ __forceinline__ void row_sums(const uint8_t* const* p, int n,
+                                         int lane, unsigned* acc) {
+  const uint4* v[NP];
+  int body[NP], most = 0;
+#pragma unroll
+  for (int c = 0; c < NP; ++c) {
+    int head = min((int)((16 - ((uintptr_t)p[c] & 15)) & 15), n);
+    body[c] = (n - head) >> 4;
+    int tail = n - head - (body[c] << 4);
+    bool in_head = lane < head;
+    bool in_tail = lane >= 16 && lane - 16 < tail;
+    unsigned e = p[c][in_head ? lane : in_tail ? n - tail + lane - 16 : 0];
+    acc[c] += in_head || in_tail ? e : 0;
+    // with no body, the aligned 16 bytes that hold p[c] (inside the plane)
+    v[c] = reinterpret_cast<const uint4*>(
+        body[c] ? p[c] + head : p[c] - ((uintptr_t)p[c] & 15));
+    most = max(most, body[c]);
   }
-  return s;
+#pragma unroll (NP == 1 ? 4 : 2)
+  for (int i = lane; i < most; i += 32) {
+    uint4 q[NP];
+#pragma unroll
+    for (int c = 0; c < NP; ++c)
+      q[c] = __ldg(v[c] + min(i, max(body[c] - 1, 0)));
+#pragma unroll
+    for (int c = 0; c < NP; ++c) {
+      if (i >= body[c]) q[c] = make_uint4(0, 0, 0, 0);
+      acc[c] = __dp4a(q[c].x, 0x01010101u, acc[c]);
+      acc[c] = __dp4a(q[c].y, 0x01010101u, acc[c]);
+      acc[c] = __dp4a(q[c].z, 0x01010101u, acc[c]);
+      acc[c] = __dp4a(q[c].w, 0x01010101u, acc[c]);
+    }
+  }
 }
 
 // A cluster per frame: out[b, c, k] = the sum of plane c (gray, then b, g,
 // r) over slot k's bbox window within each band r that lists k, added over
-// those bands; rows 1-3 are 0 without color.  Every warp reads the frame's
-// band counts 32 at a time and its listed slots' windows 32 at a time, so
-// an empty band costs one lane's load.  The window rows of the listed
-// pairs are numbered in list order and row i goes to the cluster's warp i
-// mod kBoxWarps, so a window over many bands or rows is spread over all
-// of them and a run of small windows too.  A warp sums its row by
-// row_bytes (interleaved color a pixel a lane), reduces it with
-// __reduce_add_sync and adds it to its block's sums in shared memory;
-// the blocks add theirs into block 0's through the cluster's window, and
-// block 0 stores the frame's outputs.
-__global__ void k_bbox_sums(Frames f, Geom g, int K, const int32_t* bbox,
-                            const int32_t* slot_list,
-                            const int32_t* slot_count, const uint8_t* gray,
-                            int32_t* out) {
+// those bands; rows 1-3 are 0 without color.
+//
+// Every warp walks the frame's listed (band, slot) pairs itself, 32 at a
+// time: the band counts of 32 bands in one load a lane, then a lane per
+// listed pair (its band found by a binary search over the counts' warp
+// scan) loads its slot and bbox, so the lists cost three dependent loads
+// per 32 pairs, not two per band.  The window rows of the pairs are
+// numbered in list order and row i goes to the cluster's warp i mod
+// kBoxWarps, so a window over many bands and a run of small windows both
+// spread over all of them.  A warp sums its row by row_sums (interleaved
+// color a pixel a lane), reduces it with __reduce_add_sync and adds it to
+// its block's sums in shared memory; the blocks add theirs into block 0's
+// through the cluster's window, and block 0 stores the frame's outputs.
+__global__ void __launch_bounds__(kBoxThreads, 8)
+    k_bbox_sums(Frames f, Geom g, int K, const int32_t* bbox,
+                const int32_t* slot_list, const int32_t* slot_count,
+                const uint8_t* gray, int32_t* out) {
   extern __shared__ int s_sum[];     // [nc][K]: this block's sums
   cg::cluster_group cluster = cg::this_cluster();
   const int nc = f.C == 3 ? 4 : 1;
   const int b = blockIdx.x / kBoxCluster;
   const int lane = threadIdx.x & 31;
-  const unsigned gw = cluster.block_rank() * (kScanThreads / 32) +
+  const unsigned gw = cluster.block_rank() * (kBoxThreads / 32) +
                       (threadIdx.x >> 5);
   for (int i = threadIdx.x; i < nc * K; i += blockDim.x) s_sum[i] = 0;
-  cluster.sync();      // block 0's sums are 0 before any block adds
+  __syncthreads();
+  // block 0's sums are 0 before another block adds to them: arrive now,
+  // wait only before adding
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 
   const int32_t* bb = bbox + (long long)b * 4 * K;
   const int32_t* sc = slot_count + (long long)b * g.R;
+  const int32_t* sl = slot_list + (long long)b * g.R * K;
   const uint8_t* gf = gray + b * g.HW;
   const uint8_t* cf = f.C == 3 ? f.data + b * f.fstride : nullptr;
   unsigned next = 0;   // window rows numbered so far (mod 2^32)
   for (int r0 = 0; r0 < g.R; r0 += 32) {
     int nr = r0 + lane < g.R ? min(sc[r0 + lane], K) : 0;
-    for (unsigned bands = __ballot_sync(kFull, nr > 0); bands;
-         bands &= bands - 1) {
-      int j = __ffs(bands) - 1;
-      int r = r0 + j, n = __shfl_sync(kFull, nr, j);
-      int top = r * g.band, bot = min(top + g.band, g.H) - 1;
-      const int32_t* sl = slot_list + ((long long)b * g.R + r) * K;
-      for (int t0 = 0; t0 < n; t0 += 32) {
-        int k = 0, x0 = 0, y0 = 0, bw = 0;
-        unsigned rows = 0;
-        if (t0 + lane < n) {
-          k = sl[t0 + lane];
-          x0 = bb[k];
-          int x1 = bb[2 * K + k];
-          y0 = max(bb[K + k], top);
-          int y1 = min(bb[3 * K + k], bot);
-          if (y0 <= y1 && x0 <= x1) {
-            rows = y1 - y0 + 1;
-            bw = x1 - x0 + 1;
-          }
+    int upto = nr;     // pairs listed in bands r0 .. r0 + lane
+    for (int d = 1; d < 32; d <<= 1) {
+      int v = __shfl_up_sync(kFull, upto, d);
+      if (lane >= d) upto += v;
+    }
+    int pairs = __shfl_sync(kFull, upto, 31);
+    for (int p0 = 0; p0 < pairs; p0 += 32) {
+      int p = p0 + lane, j = 0;  // j: the first band lane with upto > p
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(kFull, upto, j + step - 1) <= p) j += step;
+      int t = p - __shfl_sync(kFull, upto, j) + __shfl_sync(kFull, nr, j);
+      int k = 0, x0 = 0, y0 = 0, bw = 0;
+      unsigned rows = 0;
+      if (p < pairs) {
+        int r = r0 + j, top = r * g.band;
+        k = sl[(long long)r * K + t];
+        x0 = bb[k];
+        int x1 = bb[2 * K + k];
+        y0 = max(bb[K + k], top);
+        int y1 = min(bb[3 * K + k], min(top + g.band, g.H) - 1);
+        if (y0 <= y1 && x0 <= x1) {
+          rows = y1 - y0 + 1;
+          bw = x1 - x0 + 1;
         }
-        unsigned incl = rows;          // rows of this lane's and earlier
-        for (int d = 1; d < 32; d <<= 1) {
-          unsigned v = __shfl_up_sync(kFull, incl, d);
-          if (lane >= d) incl += v;
-        }
-        unsigned first = next + incl - rows;
-        next += __shfl_sync(kFull, incl, 31);
-        for (unsigned todo = __ballot_sync(kFull, rows > 0); todo;
-             todo &= todo - 1) {
-          int s = __ffs(todo) - 1;
-          int ks = __shfl_sync(kFull, k, s), xs = __shfl_sync(kFull, x0, s);
-          int ys = __shfl_sync(kFull, y0, s), ws = __shfl_sync(kFull, bw, s);
-          unsigned nrows = __shfl_sync(kFull, rows, s);
-          unsigned i0 = (gw - __shfl_sync(kFull, first, s)) % kBoxWarps;
-          if (i0 >= nrows) continue;   // none of this window's rows
-          unsigned acc[4] = {0, 0, 0, 0};
-          for (unsigned i = i0; i < nrows; i += kBoxWarps) {
-            long long o = (long long)(ys + (int)i) * g.W + xs;
-            acc[0] += row_bytes(gf + o, ws, lane);
-            if (f.C != 3) continue;
-            const uint8_t* d = cf + o * f.pstride;
-            if (f.pstride == 1) {
-#pragma unroll
+      }
+      unsigned incl = rows;            // rows of this lane's and earlier
+      for (int d = 1; d < 32; d <<= 1) {
+        unsigned v = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += v;
+      }
+      unsigned first = next + incl - rows;
+      next += __shfl_sync(kFull, incl, 31);
+      for (unsigned todo = __ballot_sync(kFull, rows > 0); todo;
+           todo &= todo - 1) {
+        int s = __ffs(todo) - 1;
+        int ks = __shfl_sync(kFull, k, s), xs = __shfl_sync(kFull, x0, s);
+        int ys = __shfl_sync(kFull, y0, s), ws = __shfl_sync(kFull, bw, s);
+        unsigned nrows = __shfl_sync(kFull, rows, s);
+        unsigned i0 = (gw - __shfl_sync(kFull, first, s)) % kBoxWarps;
+        if (i0 >= nrows) continue;     // none of this window's rows
+        unsigned acc[4] = {0, 0, 0, 0};
+        for (unsigned i = i0; i < nrows; i += kBoxWarps) {
+          long long o = (long long)(ys + (int)i) * g.W + xs;
+          if (i + kBoxWarps < nrows) {   // this warp's next row, into L2
+            long long on = o + (long long)kBoxWarps * g.W;
+            prefetch_row(gf + on, ws, lane);
+            if (f.C == 3 && f.pstride == 1) {
               for (int c = 0; c < 3; ++c)
-                acc[1 + c] += row_bytes(d + c * f.cstride, ws, lane);
-            } else {
-              for (int x = lane; x < ws; x += 32) {
-                const uint8_t* q = d + x * (int)f.pstride;
-                acc[1] += q[0];
-                acc[2] += q[f.cstride];
-                acc[3] += q[2 * f.cstride];
-              }
+                prefetch_row(cf + on + c * f.cstride, ws, lane);
+            } else if (f.C == 3) {
+              prefetch_row(cf + on * f.pstride, (int)f.pstride * ws, lane);
             }
           }
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (c == nc) break;
-            unsigned v = __reduce_add_sync(kFull, acc[c]);
-            if (lane == 0 && v) atomicAdd(&s_sum[c * K + ks], (int)v);
+          if (f.C != 3) {
+            const uint8_t* q[1] = {gf + o};
+            row_sums<1>(q, ws, lane, acc);
+          } else if (f.pstride == 1) {
+            const uint8_t* d = cf + o;
+            const uint8_t* q[4] = {gf + o, d, d + f.cstride,
+                                   d + 2 * f.cstride};
+            row_sums<4>(q, ws, lane, acc);
+          } else {
+            const uint8_t* q[1] = {gf + o};
+            row_sums<1>(q, ws, lane, acc);
+            const uint8_t* d = cf + o * f.pstride;
+            for (int x = lane; x < ws; x += 32) {
+              const uint8_t* e = d + x * (int)f.pstride;
+              acc[1] += e[0];
+              acc[2] += e[f.cstride];
+              acc[3] += e[2 * f.cstride];
+            }
           }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (c == nc) break;
+          unsigned v = __reduce_add_sync(kFull, acc[c]);
+          if (lane == 0 && v) atomicAdd(&s_sum[c * K + ks], (int)v);
         }
       }
     }
   }
   __syncthreads();
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
   if (cluster.block_rank() != 0) {
     int* dst = cluster.map_shared_rank(s_sum, 0);
     for (int i = threadIdx.x; i < nc * K; i += blockDim.x)
@@ -342,7 +398,7 @@ extern "C" int hd_bbox_sums(const uint8_t* color, int C, long long fstride,
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kBoxCluster * B);
-  cfg.blockDim = dim3(kScanThreads);
+  cfg.blockDim = dim3(kBoxThreads);
   cfg.dynamicSmemBytes = (size_t)(C == 3 ? 4 : 1) * K * sizeof(int);
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
