@@ -26,16 +26,12 @@
 // 3.35 TB/s.  B4b reads only the bbox windows of the blobs (C bytes per
 // window pixel), which is tiny on production frames: there one launch's
 // fixed cost bounds it.  So B4b's grid does not grow with K or the bands
-// (a cluster of 8 blocks a frame finds its listed pairs on the card), it
-// stores its outputs itself (no zero fill before it), and a large window's
-// rows are dealt out to the cluster's 64 warps, each walking a row with
-// 16-byte loads and 32-bit column offsets.
-
-#include <cooperative_groups.h>
+// (a block a frame finds its listed pairs on the card), it stores its
+// outputs itself (no zero fill before it), and a large window's rows are
+// dealt out to the block's 32 warps, each walking a row with 16-byte loads
+// and 32-bit column offsets.
 
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -149,13 +145,11 @@ __global__ void k_banded_stats(Frames f, Geom g, int K, const uint8_t* mask,
   }
 }
 
-// B4b's launch: a cluster of kBoxCluster blocks of kBoxThreads per frame,
-// at most 64 registers a thread, so that 8 blocks fit an SM and a batch of
-// 128 frames (1,024 blocks) runs in one wave; its kBoxWarps warps share
-// the frame's window rows.
-constexpr int kBoxCluster = 8;
-constexpr int kBoxThreads = 128;
-constexpr int kBoxWarps = kBoxCluster * kBoxThreads / 32;
+// B4b's launch: one block of kBoxThreads per frame, at most 64 registers a
+// thread, so that a batch of up to 132 frames runs in one wave; its
+// kBoxWarps warps share the frame's window rows.
+constexpr int kBoxThreads = 1024;
+constexpr int kBoxWarps = kBoxThreads / 32;
 
 // Asks L2 for the 128-byte lines of the n bytes at p (a lane a line).
 __device__ __forceinline__ void prefetch_row(const uint8_t* p, int n,
@@ -209,7 +203,7 @@ __device__ __forceinline__ void row_sums(const uint8_t* const* p, int n,
   }
 }
 
-// A cluster per frame: out[b, c, k] = the sum of plane c (gray, then b, g,
+// A block per frame: out[b, c, k] = the sum of plane c (gray, then b, g,
 // r) over slot k's bbox window within each band r that lists k, added over
 // those bands; rows 1-3 are 0 without color.
 //
@@ -218,28 +212,23 @@ __device__ __forceinline__ void row_sums(const uint8_t* const* p, int n,
 // listed pair (its band found by a binary search over the counts' warp
 // scan) loads its slot and bbox, so the lists cost three dependent loads
 // per 32 pairs, not two per band.  The window rows of the pairs are
-// numbered in list order and row i goes to the cluster's warp i mod
-// kBoxWarps, so a window over many bands and a run of small windows both
-// spread over all of them.  A warp sums its row by row_sums (interleaved
-// color a pixel a lane), reduces it with __reduce_add_sync and adds it to
-// its block's sums in shared memory; the blocks add theirs into block 0's
-// through the cluster's window, and block 0 stores the frame's outputs.
-__global__ void __launch_bounds__(kBoxThreads, 8)
+// numbered in list order and row i goes to warp i mod kBoxWarps, so a
+// window over many bands and a run of small windows both spread over all
+// of them.  A warp sums its row by row_sums (interleaved color a pixel a
+// lane), asking L2 for its next row meanwhile, reduces it with
+// __reduce_add_sync and adds it to the block's sums in shared memory,
+// which the block then stores: every output written once, no zero fill.
+__global__ void __launch_bounds__(kBoxThreads, 1)
     k_bbox_sums(Frames f, Geom g, int K, const int32_t* bbox,
                 const int32_t* slot_list, const int32_t* slot_count,
                 const uint8_t* gray, int32_t* out) {
-  extern __shared__ int s_sum[];     // [nc][K]: this block's sums
-  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ int s_sum[];     // [nc][K]: the frame's sums
   const int nc = f.C == 3 ? 4 : 1;
-  const int b = blockIdx.x / kBoxCluster;
+  const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
-  const unsigned gw = cluster.block_rank() * (kBoxThreads / 32) +
-                      (threadIdx.x >> 5);
+  const unsigned gw = threadIdx.x >> 5;
   for (int i = threadIdx.x; i < nc * K; i += blockDim.x) s_sum[i] = 0;
   __syncthreads();
-  // block 0's sums are 0 before another block adds to them: arrive now,
-  // wait only before adding
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 
   const int32_t* bb = bbox + (long long)b * 4 * K;
   const int32_t* sc = slot_count + (long long)b * g.R;
@@ -332,18 +321,9 @@ __global__ void __launch_bounds__(kBoxThreads, 8)
     }
   }
   __syncthreads();
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-  if (cluster.block_rank() != 0) {
-    int* dst = cluster.map_shared_rank(s_sum, 0);
-    for (int i = threadIdx.x; i < nc * K; i += blockDim.x)
-      if (s_sum[i]) atomicAdd(dst + i, s_sum[i]);
-  }
-  cluster.sync();      // every block's sums are in block 0's
-  if (cluster.block_rank() == 0) {
-    int32_t* o = out + (long long)b * 4 * K;
-    for (int i = threadIdx.x; i < 4 * K; i += blockDim.x)
-      o[i] = i < nc * K ? s_sum[i] : 0;
-  }
+  int32_t* o = out + (long long)b * 4 * K;
+  for (int i = threadIdx.x; i < 4 * K; i += blockDim.x)
+    o[i] = i < nc * K ? s_sum[i] : 0;
 }
 
 }  // namespace
@@ -391,21 +371,9 @@ extern "C" int hd_bbox_sums(const uint8_t* color, int C, long long fstride,
   int R = (H + band - 1) / band;
   Geom g{H, W, (long long)H * W, band, R};
   Frames f{color, C, fstride, cstride, pstride};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kBoxCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kBoxCluster * B);
-  cfg.blockDim = dim3(kBoxThreads);
-  cfg.dynamicSmemBytes = (size_t)(C == 3 ? 4 : 1) * K * sizeof(int);
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, k_bbox_sums, f, g, K, bbox,
-                                     slot_list, slot_count, gray, out);
-  if (e != cudaSuccess) return (int)e;
+  k_bbox_sums<<<B, kBoxThreads, (size_t)(C == 3 ? 4 : 1) * K * sizeof(int),
+                (cudaStream_t)stream>>>(f, g, K, bbox, slot_list, slot_count,
+                                        gray, out);
   HD_CHECK();
   return 0;
 }
