@@ -120,7 +120,8 @@ Phases (each prints a line; any failure exits non-zero without a result):
      640x480x3, 1920x1080 Mono8, and 1920x1080 BGR through the run tables
      and through the band route, on the bench batch and on a mixed batch
      whose every fourth frame is adversarial (most of those overflow the
-     tables and fall back; both routes must give the same table); the
+     tables and fall back; both routes must give the same table, and the
+     bbox sums on its stats inputs equal their plain version); the
      CUDA kernels that one call of the fused detect and of the band labels
      launches, counted from a torch.profiler trace of that call (for the
      fused detect also at each phase 3a size, against what its C entry
@@ -1279,6 +1280,21 @@ def runtable_phases(dev, smi, argv):
     phase(f"mixed batch 2MP BGR: frames on the run tables {n_mixed}, on the "
           f"band route {BATCH_2MP - n_mixed}; table, confidence and gates "
           f"equal to the band route's")
+    # the bbox sums on the mixed batch's own stats inputs
+    binary, gray, *tables = pt.contamination_preprocess_tiled(
+        mixed, CONTRAST, True, bg_tables=RT_BG)
+    filled, labels, rl, n, sl, sc = rt.fill_label_runtable_tiled(
+        binary, band, max_blobs=K, r_bg=RT_BG, r_fg=RT_FG,
+        pre_extracted=tables)
+    bbox = st.banded_stats(labels, filled, gray, mixed, rl, n, K, True)[1]
+    box = (bbox, sl, sc, band, gray, mixed, True)
+    box_err = max_abs_err((st.bbox_sums(*box),),
+                          (st.bbox_sums_reference(*box),))
+    phase(f"mixed batch 2MP BGR: bbox_sums max_abs_err {box_err}")
+    if box_err:
+        fail("the bbox sums differ from their plain version on the mixed "
+             "batch")
+    del binary, gray, tables, filled, labels, rl, n, sl, sc, bbox, box
     e2e = {}
     for key, label, fn in (
             ("2mp_bgr_runtable", "bench, run tables (run_device)",

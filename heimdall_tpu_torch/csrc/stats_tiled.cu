@@ -29,7 +29,9 @@
 // (a block a frame finds its listed pairs on the card), it stores its
 // outputs itself (no zero fill before it), and a large window's rows are
 // dealt out to the block's 32 warps, each walking a row with 16-byte loads
-// and 32-bit column offsets.
+// and 32-bit column offsets.  A frame's windows are read by one SM, so a
+// window over the whole frame goes at one SM's rate (about 64 GB/s on an
+// H100, PERF.md), under the card's.
 
 #include "common.cuh"
 

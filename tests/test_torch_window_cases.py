@@ -128,3 +128,29 @@ def test_window_cases_do_what_they_are_for(size):
     assert cases["crowded"].sum() == -(-w // 2)
     if w >= 130:
         assert cases["crowded"].sum() > 64
+
+
+def test_window_bytes_counts_the_listed_windows():
+    """The B4b byte bound of scripts/profile_bbox_sums.py: C bytes of each
+    listed (slot, band) window's pixels within the band, each listed slot
+    id, the band counts, the bboxes and 4 sums a slot."""
+    from heimdall_tpu_torch.scripts.profile_bbox_sums import window_bytes
+    # slot 0: columns 1-3, rows 2-5; slot 1 unused
+    bbox = torch.tensor([[[1, 8], [2, 8], [3, -1], [5, -1]]],
+                        dtype=torch.int32)
+    slot_list = torch.tensor([[[0, 1], [0, 1]]], dtype=torch.int32)
+    slot_count = torch.tensor([[1, 1]], dtype=torch.int32)
+    # 3 columns x (rows 2-3 in band 0 + rows 4-5 in band 1) = 12 pixels
+    assert window_bytes(bbox, slot_list, slot_count, 4, 4) == (
+        12 * 4 + (2 + 2 + 4 * 2 + 4 * 2) * 4)
+    assert window_bytes(bbox, slot_list, slot_count, 4, 1) == (
+        12 + (2 + 2 + 4 * 2 + 4 * 2) * 4)
+
+
+def test_profile_bbox_sums_needs_a_card(monkeypatch):
+    from heimdall_tpu_torch.scripts import profile_bbox_sums
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        profile_bbox_sums.main([])
+    with pytest.raises(SystemExit, match="usage"):
+        profile_bbox_sums.main(["x"])
