@@ -586,7 +586,8 @@ def stats_bytes(n):
 
 def check_window_cases(dev):
     """Phase 3b's cases whose bbox windows attack the bbox sums' row walk
-    (scene.window_case_masks: the whole frame, a disk over all but the edge
+    (scripts/profile_bbox_sums.py's window_case_checks on
+    scene.window_case_masks: the whole frame, a disk over all but the edge
     bands, full-height columns on the first and last column, the corners,
     blobs ending on band edges, more blobs in one band than slots, no blob)
     at 1920x1080 on random gray and colour: the banded stats and the bbox
@@ -594,40 +595,24 @@ def check_window_cases(dev):
     without colour, with BGR frames and with BGR planes, and the bbox sums
     also with the slot counts raised past K.  Returns the largest error (0
     or the run fails)."""
-    import numpy as np
     import torch
-    from heimdall_tpu_torch import scene
-    from heimdall_tpu_torch.ops import ccl_tiled as ct
     from heimdall_tpu_torch.ops import stats_tiled as st
+    from heimdall_tpu_torch.scripts import profile_bbox_sums as pb
 
-    masks = torch.from_numpy(np.stack(list(
-        scene.window_case_masks(H2, W2).values()))).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(12)
-    gray = torch.randint(0, 256, masks.shape, generator=gen, device=dev,
-                         dtype=torch.uint8)
-    frames = torch.randint(0, 256, (*masks.shape, 3), generator=gen,
-                           device=dev, dtype=torch.uint8)
-    colors = {"gray": (None, False), "bgr": (frames, False),
-              "bgr_planes": (frames.permute(0, 3, 1, 2).contiguous(), True)}
-    err = 0
-    for band in WINDOW_BANDS:
-        errs = {}
-        for k in WINDOW_KS:
-            labels, rl, n, sl, sc = ct.connected_components_tiled(
-                masks, band=band, return_roots=k, band_slots=True)
-            for form, (color, cm) in colors.items():
-                stats = (labels, masks, gray, color, rl, n, k, cm)
-                sums = st.banded_stats(*stats)
-                e = max_abs_err(sums, st.banded_stats_reference(*stats))
-                for counts in (sc, sc + k):
-                    box = (sums[1], sl, counts, band, gray, color, cm)
-                    e = max(e, max_abs_err((st.bbox_sums(*box),),
-                                           (st.bbox_sums_reference(*box),)))
-                errs[f"k{k}_{form}"] = e
-        torch.cuda.synchronize()
-        phase(f"check 2MP window cases {H2}x{W2} band {band} ({len(masks)} "
-              f"masks): banded_stats + bbox_sums max_abs_err {errs}")
-        err = max(err, *errs.values())
+    errs = {}
+    for band, name, stats, boxes in pb.window_case_checks(
+            H2, W2, WINDOW_BANDS, WINDOW_KS, dev, seed=12):
+        sums = st.banded_stats(*stats)
+        e = max_abs_err(sums, st.banded_stats_reference(*stats))
+        for box in boxes:
+            e = max(e, max_abs_err((st.bbox_sums(sums[1], *box),),
+                                   (st.bbox_sums_reference(sums[1], *box),)))
+        errs.setdefault(band, {})[name] = e
+    torch.cuda.synchronize()
+    for band, e in errs.items():
+        phase(f"check 2MP window cases {H2}x{W2} band {band}: banded_stats "
+              f"+ bbox_sums max_abs_err {e}")
+    err = max(max(e.values()) for e in errs.values())
     if err:
         fail("the bbox sums differ from their plain version on the window "
              "cases")
@@ -815,13 +800,8 @@ def tiled_phases(dev, smi, argv):
     # cases), each beside its bound, its time on empty slot lists and one
     # empty kernel's time
     x_bgr = on(frames.transpose(0, 3, 1, 2))
-    res, floor = pb.measure(pb.make_inputs(x, x_bgr, band, K),
-                            {"bbox_sums": st.bbox_sums})
+    inputs, floor = pb.measure(pb.make_inputs(x, x_bgr, band, K))
     del x_bgr
-    inputs = {name: {"ms": r["ms"]["bbox_sums"],
-                     "empty_lists_ms": r["empty_lists_ms"]["bbox_sums"],
-                     "bound_ms": r["bound_ms"], "bytes": r["bytes"]}
-              for name, r in res.items()}
     timings["bbox_sums"].update(
         ms_batch_128=inputs["bench_mono8"]["ms"][0],
         bound_ms_batch_128=inputs["bench_mono8"]["bound_ms"],

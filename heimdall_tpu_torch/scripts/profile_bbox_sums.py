@@ -9,37 +9,32 @@ batch on three inputs:
 * window_cases: scene.window_case_masks(1080, 1920) repeated over the batch
   (one blob over the whole frame, a disk over 7 of 9 bands, ...), labeled
   by the band route, with random gray and BGR planes: large windows.
+  --cases a,b,... repeats only the named cases (a name may come again),
+  e.g. --cases whole for a batch whose every frame is one window.
 
 Each beside its byte bound (window_bytes: C bytes a window pixel, C = 1 or
-4, the lists, counts and bboxes read, 4 sums a slot written, at 3.35 TB/s),
-one empty kernel's time (torch.cuda._sleep(0): one launch's floor) and the
-kernel's time on the same batch with every slot list empty.  Every run is
-queued behind a spin kernel, so only the card's time counts.
+4, the listed slot ids, the band counts and each listed slot's bbox read,
+4 sums a slot written, at 3.35 TB/s), one empty kernel's time
+(torch.cuda._sleep(0): one launch's floor) and the kernel's time on the
+same batch with every slot list empty.  Every run is queued behind a spin
+kernel, so only the card's time counts.
 
     python -m heimdall_tpu_torch.scripts.profile_bbox_sums [batch] [iters]
-        [--against OTHER.cu]
+        [--cases a,b,...]
 
---against times a second version of csrc/stats_tiled.cu with the same C
-entry hd_bbox_sums (an earlier commit's, whose caller zeroes the output
-first) on the same inputs, built with the port's nvcc flags, its zero fill
-included; the two take turns (this, other, this, other).  Prints the card
-(nvidia-smi's name and power limit), a line per measurement and one JSON
-line.  Exits with an error where there is no card.
+Prints the card (nvidia-smi's name and power limit), a line per
+measurement and one JSON line.  Exits with an error where there is no
+card.
 """
 
-import ctypes
-import hashlib
 import json
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from heimdall_tpu_torch import scene
 from heimdall_tpu_torch.detectors.contamination_detector import TILED_BAND
-from heimdall_tpu_torch.ops import _cuda
 from heimdall_tpu_torch.ops import ccl_tiled as ct
 from heimdall_tpu_torch.ops import fused_kernels as fk
 from heimdall_tpu_torch.ops import preprocess_tiled as pt
@@ -54,14 +49,15 @@ CONTRAST = 15
 RT_BG, RT_FG = 8, 7    # the detector's run-table widths
 HBM_BYTES_PER_S = 3.35e12
 USAGE = ("usage: python -m heimdall_tpu_torch.scripts.profile_bbox_sums "
-         "[batch] [iters] [--against OTHER.cu]")
+         "[batch] [iters] [--cases a,b,...]")
 
 
 def window_bytes(bbox, slot_list, slot_count, band: int, channels: int):
     """Bytes the bbox sums must move on these inputs: `channels` bytes (1,
     or 4 with colour) of each pixel of each listed (slot, band) pair's
     window within the band, each listed slot id, the band counts and the
-    bboxes read, and 4 int32 sums a slot written."""
+    bbox (16 bytes) of each slot listed in some band read, and 4 int32 sums
+    a slot written.  The bboxes of slots that no band lists are not read."""
     n, R = slot_count.shape
     Kb = bbox.shape[-1]
     listed = (torch.arange(Kb, device=bbox.device)
@@ -74,8 +70,11 @@ def window_bytes(bbox, slot_list, slot_count, band: int, channels: int):
             - torch.maximum(bb[:, 1], top) + 1).clamp(min=0)
     cols = (bb[:, 2] - bb[:, 0] + 1).clamp(min=0)
     pixels = int((rows * cols * listed).sum())
-    return (pixels * channels
-            + (int(listed.sum()) + n * (R + 4 * Kb + 4 * Kb)) * 4)
+    seen = torch.zeros((n, Kb + 1), dtype=torch.bool, device=bbox.device)
+    seen.scatter_(1, torch.where(listed, ids, Kb).reshape(n, -1), True)
+    boxes = int(seen[:, :Kb].sum())
+    return (pixels * channels + boxes * 16
+            + (int(listed.sum()) + n * (R + 4 * Kb)) * 4)
 
 
 def bench_frames(batch: int):
@@ -88,10 +87,12 @@ def bench_frames(batch: int):
     return mono, bgr
 
 
-def make_inputs(mono, bgr, band: int = TILED_BAND, k: int = K):
+def make_inputs(mono, bgr, band: int = TILED_BAND, k: int = K, cases=None):
     """{input: (bbox_sums arguments, channels)} for the three inputs, made
     by the detector's kernels from the bench frames `mono` and `bgr` (on the
-    card) and from the window cases at the same size and batch."""
+    card) and from the window cases at the same size and batch (`cases`: the
+    names of scene.window_case_masks repeated over the batch; all of them
+    by default)."""
     out = {}
     gray, binary = fk.preprocess(mono, CONTRAST)
     filled = ct.fill_holes_tiled(binary, band=band)
@@ -110,8 +111,9 @@ def make_inputs(mono, bgr, band: int = TILED_BAND, k: int = K):
 
     B, h, w = mono.shape
     dev = mono.device
-    cases = torch.from_numpy(np.stack(list(
-        scene.window_case_masks(h, w).values()))).to(dev)
+    named = scene.window_case_masks(h, w)
+    cases = torch.from_numpy(np.stack(
+        [named[c] for c in (cases or named)])).to(dev)
     masks = cases[torch.arange(B, device=dev) % len(cases)]
     gen = torch.Generator(device=dev).manual_seed(0)
     gray = torch.randint(0, 256, (B, h, w), generator=gen, device=dev,
@@ -125,48 +127,39 @@ def make_inputs(mono, bgr, band: int = TILED_BAND, k: int = K):
     return out
 
 
-def other_bbox_sums(source: Path):
-    """bbox_sums of another version of csrc/stats_tiled.cu (same C entry;
-    the caller zeroes the output, as before the kernel stored it all),
-    built with the port's nvcc flags beside the port's libraries."""
-    key = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
-        key.update(header.read_bytes())
-    key.update(" ".join(_cuda.NVCC_FLAGS).encode())
-    _cuda.BUILD_DIR.mkdir(exist_ok=True)
-    lib_path = _cuda.BUILD_DIR / f"other_stats-{key.hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o",
-                        str(lib_path), str(source)], check=True)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.hd_bbox_sums.argtypes = _cuda.SIGNATURES["stats_tiled"][
-        "hd_bbox_sums"]
-    lib.hd_bbox_sums.restype = ctypes.c_int
-
-    def run(bbox, slot_list, slot_count, band, gray, color=None,
-            channel_major=False):
-        B, h, w = gray.shape
-        Kb = bbox.shape[-1]
-        C, fs, cs, ps = st.color_layout(color, channel_major, B, h, w)
-        out = torch.zeros((B, 4, Kb), dtype=torch.int32, device=gray.device)
-        err = lib.hd_bbox_sums(
-            0 if color is None else color.data_ptr(), C, fs, cs, ps, B, h,
-            w, band, Kb, bbox.data_ptr(), slot_list.data_ptr(),
-            slot_count.data_ptr(), gray.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"hd_bbox_sums of {source}: CUDA error {err}")
-        return out
-
-    return run
+def window_case_checks(h: int, w: int, bands, ks, dev, seed: int = 0):
+    """The cases on which the banded stats and the bbox sums are held
+    against their plain versions: scene.window_case_masks(h, w) on random
+    gray and BGR bytes (a torch.Generator on `dev` seeded `seed`), labeled
+    by the band route at each band of `bands` and K of `ks`, without colour,
+    with BGR frames and with BGR planes.  Yields (band, name, banded_stats
+    arguments, [bbox_sums arguments after the bbox, with the labeling's slot
+    counts and with the counts raised past K])."""
+    masks = torch.from_numpy(np.stack(list(
+        scene.window_case_masks(h, w).values()))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gray = torch.randint(0, 256, masks.shape, generator=gen, device=dev,
+                         dtype=torch.uint8)
+    frames = torch.randint(0, 256, (*masks.shape, 3), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    colors = {"gray": (None, False), "bgr": (frames, False),
+              "bgr_planes": (frames.permute(0, 3, 1, 2).contiguous(), True)}
+    for band in bands:
+        for k in ks:
+            labels, rl, n, sl, sc = ct.connected_components_tiled(
+                masks, band=band, return_roots=k, band_slots=True)
+            for form, (color, cm) in colors.items():
+                yield (band, f"k{k}_{form}",
+                       (labels, masks, gray, color, rl, n, k, cm),
+                       [(sl, counts, band, gray, color, cm)
+                        for counts in (sc, sc + k)])
 
 
-def measure(inputs, kernels, iters: int = 10):
-    """{input: {"bytes", "bound_ms", "ms": {kernel: [ms, ...]},
-    "empty_lists_ms": {kernel: [ms, ...]}}} and one empty kernel's ms, each
-    kernel of `kernels` ({name: bbox_sums-like function}) timed in turns
-    twice (a, b, a, b) after a warm-up call; every kernel's output must
-    equal the plain version's."""
+def measure(inputs, iters: int = 10):
+    """{input: {"bytes", "bound_ms", "ms": [ms, ms], "empty_lists_ms": [ms,
+    ms]}} and one empty kernel's ms twice: bbox_sums timed twice on each
+    input and on it with every slot list empty, after a call whose output
+    must equal the plain version's."""
     floor = [queued_ms(lambda: torch.cuda._sleep(0), iters)
              for _ in range(2)]
     out = {}
@@ -175,28 +168,26 @@ def measure(inputs, kernels, iters: int = 10):
         res = {"bytes": window_bytes(*args[:4], channels)}
         res["bound_ms"] = res["bytes"] / HBM_BYTES_PER_S * 1e3
         for key, a in (("ms", args), ("empty_lists_ms", empty)):
-            want = st.bbox_sums_reference(*a)
-            for kname, fn in kernels.items():
-                if not torch.equal(fn(*a), want):
-                    raise SystemExit(f"{kname} differs from the plain "
-                                     f"version on {name} ({key})")
-            res[key] = {}
-            for _ in range(2):
-                for kname, fn in kernels.items():
-                    res[key].setdefault(kname, []).append(
-                        queued_ms(lambda: fn(*a), iters))
+            if not torch.equal(st.bbox_sums(*a), st.bbox_sums_reference(*a)):
+                raise SystemExit(f"bbox_sums differs from the plain version "
+                                 f"on {name} ({key})")
+            res[key] = [queued_ms(lambda: st.bbox_sums(*a), iters)
+                        for _ in range(2)]
         out[name] = res
     return out, floor
 
 
 def main(argv) -> int:
-    against = None
-    if "--against" in argv:
-        i = argv.index("--against")
+    cases = None
+    if "--cases" in argv:
+        i = argv.index("--cases")
         if i + 1 >= len(argv):
             raise SystemExit(USAGE)
-        against = Path(argv[i + 1])
+        cases = argv[i + 1].split(",")
         argv = argv[:i] + argv[i + 2:]
+        known = scene.window_case_masks(3, 3)
+        if any(c not in known for c in cases):
+            raise SystemExit(f"{USAGE}\nwindow cases: {', '.join(known)}")
     if len(argv) > 2 or any(not a.isdigit() for a in argv):
         raise SystemExit(USAGE)
     batch = int(argv[0]) if argv else BATCH
@@ -204,25 +195,21 @@ def main(argv) -> int:
     require_card()
     smi = card()
     print(smi, flush=True)
-    kernels = {"bbox_sums": st.bbox_sums}
-    if against is not None:
-        kernels["other"] = other_bbox_sums(against)
-    inputs = make_inputs(*bench_frames(batch))
+    inputs = make_inputs(*bench_frames(batch), cases=cases)
     torch.cuda.synchronize()
-    res, floor = measure(inputs, kernels, iters)
+    res, floor = measure(inputs, iters)
     for name, r in res.items():
         for key in ("ms", "empty_lists_ms"):
-            for kname, ms in r[key].items():
-                print(f"{smi}: {name} {key} {kname} "
-                      f"{' / '.join(f'{m:.4f}' for m in ms)} ms per "
-                      f"{batch} frames ({ms[0] / batch * 1e3:.4f} us/frame); "
-                      f"bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes)",
-                      flush=True)
+            ms = r[key]
+            print(f"{smi}: {name} {key} "
+                  f"{' / '.join(f'{m:.4f}' for m in ms)} ms per {batch} "
+                  f"frames ({ms[0] / batch * 1e3:.4f} us/frame); bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bytes']} bytes)", flush=True)
     print(f"{smi}: one empty kernel {' / '.join(f'{m:.4f}' for m in floor)}"
           f" ms", flush=True)
     print(json.dumps({"card": smi, "batch": batch, "iters": iters,
-                      "against": None if against is None else str(against),
-                      "launch_floor_ms": floor, "inputs": res}), flush=True)
+                      "cases": cases, "launch_floor_ms": floor,
+                      "inputs": res}), flush=True)
     return 0
 
 

@@ -19,6 +19,7 @@ from heimdall_tpu_torch.detectors.contamination_detector import (
     contamination_program)
 from heimdall_tpu_torch.ops import ccl_tiled, stats_tiled
 from heimdall_tpu_torch.ops import fused_kernels
+from heimdall_tpu_torch.scripts import profile_bbox_sums
 
 
 @pytest.fixture
@@ -71,32 +72,21 @@ def test_tiled_kernels_match_plain_versions(card, band, k):
 @pytest.mark.parametrize("band", [128, 16, 1])
 @pytest.mark.parametrize("size", [(1080, 1920), (301, 517)])
 def test_bbox_sums_window_cases(card, size, band):
-    """The bbox sums on scene.window_case_masks (the whole frame, a disk
-    over all but the edge bands, full-height columns on the first and last
+    """The bbox sums on scripts/profile_bbox_sums.py's window_case_checks
+    (scene.window_case_masks: the whole frame, a disk over all but the edge
+    bands, full-height columns on the first and last
     column, the corners, blobs ending on band edges, more blobs in one band
     than slots, no blob) with random gray and colour: K 64, 4 and 1, gray
-    only, BGR frames and BGR planes, and slot counts past K."""
+    only, BGR frames and BGR planes, and slot counts past K; the banded
+    stats on them too."""
     h, w = size
-    masks = torch.from_numpy(np.stack(list(
-        scene.window_case_masks(h, w).values()))).to(card)
-    rng = np.random.RandomState(h + band)
-    gray = torch.from_numpy(rng.randint(0, 256, tuple(masks.shape))
-                            .astype(np.uint8)).to(card)
-    frames = torch.from_numpy(rng.randint(0, 256, (*masks.shape, 3))
-                              .astype(np.uint8)).to(card)
-    colors = {None: (None, False), "bgr": (frames, False),
-              "bgr_planes": (frames.permute(0, 3, 1, 2).contiguous(), True)}
-    for k in (64, 4, 1):
-        lab, rl, n, sl, sc = ccl_tiled.connected_components_tiled(
-            masks, band=band, return_roots=k, band_slots=True)
-        for color, cm in colors.values():
-            args = (lab, masks, gray, color, rl, n, k, cm)
-            sums = stats_tiled.banded_stats(*args)
-            _equal(sums, stats_tiled.banded_stats_reference(*args))
-            for counts in (sc, sc + k):
-                box = (sums[1], sl, counts, band, gray, color, cm)
-                _equal((stats_tiled.bbox_sums(*box),),
-                       (stats_tiled.bbox_sums_reference(*box),))
+    for _, _, args, boxes in profile_bbox_sums.window_case_checks(
+            h, w, (band,), (64, 4, 1), card, seed=h + band):
+        sums = stats_tiled.banded_stats(*args)
+        _equal(sums, stats_tiled.banded_stats_reference(*args))
+        for box in boxes:
+            _equal((stats_tiled.bbox_sums(sums[1], *box),),
+                   (stats_tiled.bbox_sums_reference(sums[1], *box),))
     torch.cuda.synchronize()
 
 

@@ -133,18 +133,54 @@ def test_window_cases_do_what_they_are_for(size):
 def test_window_bytes_counts_the_listed_windows():
     """The B4b byte bound of scripts/profile_bbox_sums.py: C bytes of each
     listed (slot, band) window's pixels within the band, each listed slot
-    id, the band counts, the bboxes and 4 sums a slot."""
+    id, the band counts, 16 bytes of bbox for each slot that some band
+    lists (once, however many bands list it) and 4 sums a slot."""
     from heimdall_tpu_torch.scripts.profile_bbox_sums import window_bytes
-    # slot 0: columns 1-3, rows 2-5; slot 1 unused
+    # slot 0: columns 1-3, rows 2-5, listed in bands 0 and 1; slot 1 unused
     bbox = torch.tensor([[[1, 8], [2, 8], [3, -1], [5, -1]]],
                         dtype=torch.int32)
     slot_list = torch.tensor([[[0, 1], [0, 1]]], dtype=torch.int32)
     slot_count = torch.tensor([[1, 1]], dtype=torch.int32)
     # 3 columns x (rows 2-3 in band 0 + rows 4-5 in band 1) = 12 pixels
     assert window_bytes(bbox, slot_list, slot_count, 4, 4) == (
-        12 * 4 + (2 + 2 + 4 * 2 + 4 * 2) * 4)
+        12 * 4 + 16 + (2 + 2 + 4 * 2) * 4)
     assert window_bytes(bbox, slot_list, slot_count, 4, 1) == (
-        12 + (2 + 2 + 4 * 2 + 4 * 2) * 4)
+        12 + 16 + (2 + 2 + 4 * 2) * 4)
+    # a second frame listing no slot reads its counts and writes its sums
+    two = [torch.cat([t, t]) for t in (bbox, slot_list, slot_count)]
+    two[2][1] = 0
+    assert window_bytes(*two, 4, 1) == (
+        12 + 16 + (2 + 2 + 4 * 2) * 4 + (2 + 4 * 2) * 4)
+
+
+def test_window_case_checks_cover_every_form():
+    """profile_bbox_sums.window_case_checks, the case set that chip_smoke.py
+    and tests/test_torch_tiled_cuda.py hold the kernels to: every band, K
+    and colour form, the BGR planes the frames' channel-major copy, and
+    counts as labeled and past K; on the CPU its bbox sums are the plain
+    version's."""
+    from heimdall_tpu_torch.scripts.profile_bbox_sums import (
+        window_case_checks)
+    seen = []
+    for band, name, stats, boxes in window_case_checks(
+            37, 53, (16, 1), (8, 1), torch.device("cpu"), seed=3):
+        labels, masks, gray, color, rl, n, k, cm = stats
+        seen.append((band, name))
+        assert masks.shape == gray.shape == (7, 37, 53)
+        if name.endswith("bgr_planes"):
+            assert cm and color.shape == (7, 3, 37, 53)
+        elif name.endswith("bgr"):
+            assert not cm and color.shape == (7, 37, 53, 3)
+        else:
+            assert color is None
+        (sl, sc, *_), (sl2, past, *_) = boxes
+        assert sl2 is sl and torch.equal(past, sc + k)
+        bbox = stats_tiled.banded_stats(*stats)[1]
+        for box in boxes:
+            assert torch.equal(stats_tiled.bbox_sums(bbox, *box),
+                               stats_tiled.bbox_sums_reference(bbox, *box))
+    assert seen == [(b, f"k{k}_{f}") for b in (16, 1) for k in (8, 1)
+                    for f in ("gray", "bgr", "bgr_planes")]
 
 
 def test_profile_bbox_sums_needs_a_card(monkeypatch):
@@ -154,3 +190,5 @@ def test_profile_bbox_sums_needs_a_card(monkeypatch):
         profile_bbox_sums.main([])
     with pytest.raises(SystemExit, match="usage"):
         profile_bbox_sums.main(["x"])
+    with pytest.raises(SystemExit, match="window cases: whole"):
+        profile_bbox_sums.main(["--cases", "whole,nothing"])
