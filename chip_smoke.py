@@ -110,6 +110,27 @@ Phases (each prints a line; any failure exits non-zero without a result):
      c. the same three at 1920x1080 BGR channel-major, batch 128 (the
         run-table route), with the same checks; prints how many frames took
         the tables and how many the bands;
+     d. the system path, with every wrapper's count set to 0 just before
+        and read just after, and every plain version guarded (none may run
+        on a CUDA tensor): the five PipelineFactory types through
+        process_batch on 8 bench frames at 1920x1080 BGR (the first 2
+        frames' result image, contour_count and line_count equal to the
+        CPU path; each type's ms per batch, and its host syncs with
+        device_only under sync-debug "warn", none but Canny's convergence
+        checks); ContaminationInspector.
+        inspect_batch on 32 simulation frames (seed 0, defect probability
+        0.3) at 1920x1080 and at 640x480 (the first 2 frames' defects, and
+        those of 2 scene.ring_frames, equal to the CPU path; one call from
+        numpy and one from the card under sync-debug "warn", host syncs
+        and tables downloaded per call; ms per batch and frames/s from
+        numpy; from frames on the card the host's ms per call until its
+        work is queued and the pipeline's and the detector's share by CUDA
+        events); a
+        System with one inspector station (reject on) on a 1920x1080
+        simulation camera for 3 s (every result a success); main -s
+        --duration 3 (both stations past 0 frames) and main --diagnose;
+        the CUDA kernels of one 2 MP inspect_batch and one bottle_base call
+        and of one 640x480 inspect_batch, traced;
   5. times with CUDA events after warm-up, the timed runs queued behind a
      spin kernel so that the host's time per call stays out: each kernel,
      its plain version and its bound, and which of bytes and operations
@@ -162,8 +183,9 @@ Phases (each prints a line; any failure exits non-zero without a result):
         launches); then each variant's us/op/frame beside its plain
         version's, its bound (operations) and, for the cumsum variants,
         the torch.cumsum step's;
-  6. JSON lines: each route's end-to-end and host ms per call, and every
-     kernel with its check and times;
+  6. JSON lines: each route's end-to-end and host ms per call, the system
+     path's times and traced launches, and every kernel with its check,
+     times and launches on the system path;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
 DIR/fused_detect_profile.txt, DIR/tiled_2mp_profile.txt (Mono8) and
@@ -212,6 +234,15 @@ FILL_R = ((RT_BG, RT_FG), (12, 10), (40, RT_FG))
 # The B3 kernels, timed at the main path's batch as well.
 B3_KERNELS = ("run_extract", "flood_fix", "fill_extract", "label_fix",
               "writeback")
+# The system path (phase 4d): the pipelines' batch, the station's batch
+# (tpu.batch_size's default) and the five PipelineFactory types.
+PIPE_BATCH = 8
+SYSTEM_BATCH = 32
+PIPELINE_TYPES = ("basic", "bottle_base", "sidewall", "preform",
+                  "contamination")
+# the types whose Canny stage asks the host whether its hysteresis has
+# converged (one sync every 16 rounds); the others make none
+CANNY_TYPES = ("basic", "sidewall")
 # Published peaks of one H100 SXM (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS_PER_S = 495e12
@@ -266,7 +297,7 @@ def cuda_ms(fn, iters):
     return queued_ms(fn, iters)
 
 
-def cuda_kernels(fn):
+def cuda_kernels(fn, runs=1):
     """The repo's CUDA kernels (their names start with k_) that one call of
     fn launches, counted from a torch.profiler trace of that call:
     {kernel name: launches}.  The card can leave a trace's first one or two
@@ -274,7 +305,12 @@ def cuda_kernels(fn):
     with three PyTorch kernels to lose, then runs fn between two kernels
     that no wrapper launches (torch.cuda._sleep's spin kernel), each behind
     a sync; it counts only when both spins were recorded, else it is taken
-    again, up to TRACE_TRIES times."""
+    again, up to TRACE_TRIES times.  With runs=2, fn runs twice, each call
+    behind its own spin and the last followed by a third, and the kernels
+    between the last two spins are counted: a call of a few hundred
+    kernels can lose everything before it from its trace (the system
+    path's calls, phase 4d), and the second call is then still
+    bracketed."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -290,13 +326,17 @@ def cuda_kernels(fn):
                 torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        if sum("spin" in n for n in names) == 2:
+            for _ in range(runs):
+                fn()
+                torch.cuda.synchronize()
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        spins = [i for i, n in enumerate(names) if "spin" in n]
+        if len(spins) == runs + 1 or (runs > 1 and len(spins) >= 2):
+            names = names[spins[-2]:spins[-1]]
             break
         phase(f"trace {attempt} recorded {[n[:40] for n in names]}, not "
               f"both spin kernels: tracing again")
@@ -1321,6 +1361,299 @@ def runtable_phases(dev, smi, argv):
     return err, {n: launches[n] for n in new}, timings, e2e
 
 
+def _defect_rows(results):
+    """Per frame, each defect's type, position, size, confidence, bbox and
+    scores (Defect.to_dict), for exact comparison."""
+    return [[d.to_dict() for d in r.defects] for r in results]
+
+
+def system_phases(dev, smi):
+    """Phase 4d, the system path on the card: the five PipelineFactory types
+    on 1920x1080 BGR batches, ContaminationInspector.inspect_batch at
+    1920x1080 and 640x480, a System with one inspector station, and main
+    -s and --diagnose.  Every wrapper's launch count is set to 0 just before
+    and read just after, and no plain version may run on a CUDA tensor in
+    between.  Returns ({wrapper: launches}, {kernel: traced launches of one
+    2 MP inspect_batch and one bottle_base call}, {kernel: traced launches
+    of one 640x480 inspect_batch}, the phase's times)."""
+    import warnings
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import main as cli
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.core.acquisition import SimulationImageSource
+    from heimdall_tpu_torch.core.pipeline import PipelineFactory
+    from heimdall_tpu_torch.core.system import System
+    from heimdall_tpu_torch.detectors import contamination_detector as cd
+    from heimdall_tpu_torch.inspection import ContaminationInspector
+    from heimdall_tpu_torch.ops import ccl
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    from heimdall_tpu_torch.ops import preprocess_tiled as pt
+    from heimdall_tpu_torch.ops import runtable_tiled as rt
+    from heimdall_tpu_torch.ops import stats_tiled as st
+
+    wrappers = {"preprocess": fk.preprocess, "flood_fill": ct.flood_fill,
+                "band_ccl": ct.band_ccl, "merge_bands": ct.merge_bands,
+                "banded_stats": st.banded_stats, "bbox_sums": st.bbox_sums,
+                "fused_detect": fk.contamination_fused}
+    # the BGR run-table route: the inspector's detector sees Mono8 frames,
+    # so these stay at 0
+    others = {"preprocess_tiled": pt.contamination_preprocess_tiled,
+              "run_extract": rt.run_extract, "flood_fix": rt.flood_fix,
+              "fill_extract": rt.fill_extract, "label_fix": rt.label_fix,
+              "writeback": rt.writeback}
+    plain_on_card = []
+
+    def guard(fn, name):
+        def guarded(*args, **kwargs):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in list(args) + list(kwargs.values())):
+                plain_on_card.append(name)
+            return fn(*args, **kwargs)
+        return guarded
+
+    plains = [(m, n, getattr(m, n)) for m, n in (
+        (ccl, "connected_components"), (ccl, "fill_holes"),
+        (ct, "connected_components"), (ct, "fill_holes"),
+        (ct, "flood_reference"), (ct, "band_ccl_reference"),
+        (ct, "merge_reference"), (st, "banded_stats_reference"),
+        (st, "bbox_sums_reference"), (fk, "preprocess_reference"),
+        (fk, "contamination_fused_reference"))]
+    tables = []
+    download_table = cd.download_table
+
+    def counted_download(*args):
+        tables.append(1)
+        return download_table(*args)
+
+    def count_syncs(fn):
+        """Host syncs of one call of fn, by CUDA sync-debug "warn"."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(c.message) for c in caught)
+
+    def sim(n, h, w):
+        src = SimulationImageSource("cam", {"width": w, "height": h,
+                                            "seed": 0,
+                                            "defect_probability": 0.3})
+        src.open()
+        return src.read_batch(n)[1]
+
+    times = {"card": smi}
+    torch.cuda.synchronize()
+    for w in list(wrappers.values()) + list(others.values()):
+        w.launches = 0
+    for m, n, f in plains:
+        setattr(m, n, guard(f, f"{m.__name__}.{n}"))
+    cd.download_table = counted_download
+    try:
+        # -- the five pipeline types, batch 8 at 1920x1080 BGR -------------
+        frames8 = scene.make_frames(PIPE_BATCH, H2, W2, seed=2)
+        x8 = torch.from_numpy(frames8).to(dev)
+        pipes = {t: PipelineFactory.create_pipeline(t, t)
+                 for t in PIPELINE_TYPES}
+        times["process_batch_ms"] = {}
+        times["process_batch_device_only_syncs"] = syncs = {}
+        for t, p in pipes.items():
+            got = p.process_batch(x8)
+            got2 = p.process_batch(frames8[:2])
+            want = PipelineFactory.create_pipeline(
+                t, t, device="cpu").process_batch(frames8[:2])
+            same = (np.array_equal(got["result_image"][:2],
+                                   want["result_image"])
+                    and np.array_equal(got2["result_image"],
+                                       want["result_image"])
+                    and got2.get("contour_count") == want.get(
+                        "contour_count")
+                    and got.get("line_count") == got2.get("line_count")
+                    == want.get("line_count")
+                    and np.array_equal(got2.get("lines", 0),
+                                       want.get("lines", 0)))
+            if not same:
+                fail(f"pipeline {t} on the card differs from the CPU path")
+            for _ in range(2):
+                p.process_batch(x8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                p.process_batch(x8)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+            times["process_batch_ms"][t] = ms
+            syncs[t] = count_syncs(
+                lambda: p.process_batch(x8, device_only=True))
+            if syncs[t] and t not in CANNY_TYPES:
+                fail(f"pipeline {t} made {syncs[t]} host syncs with "
+                     f"device_only")
+            phase(f"system path: pipeline {t}: first 2 frames equal to the "
+                  f"CPU path (image, contour_count "
+                  f"{want.get('contour_count')}, line_count "
+                  f"{want.get('line_count')}); {smi}: process_batch "
+                  f"{ms:.3f} ms per batch of {PIPE_BATCH} 1920x1080 BGR "
+                  f"(frames on the card, results downloaded); host syncs "
+                  f"with device_only {syncs[t]}")
+        traced_2mp = cuda_kernels(lambda: pipes["bottle_base"].process_batch(
+            x8, device_only=True), runs=2)
+
+        # -- the inspector at 1920x1080 and 640x480 -------------------------
+        times["inspect_batch"] = {}
+        traced_640 = {}
+        for h, w in ((H2, W2), (480, 640)):
+            size = f"{w}x{h}"
+            frames = sim(SYSTEM_BATCH, h, w)
+            xs = torch.from_numpy(frames).to(dev)
+            insp = ContaminationInspector("insp")
+            cpu = ContaminationInspector("insp", device="cpu")
+            rings = scene.ring_frames(2, h, w, seed=3)
+            checked = []
+            for name, batch in (("simulation", frames), ("rings", rings)):
+                got = _defect_rows(insp.inspect_batch(batch)[:2])
+                want = _defect_rows(cpu.inspect_batch(batch[:2]))
+                if got != want:
+                    fail(f"inspect_batch {size} {name}: defects differ "
+                         f"from the CPU path")
+                checked.append(sum(map(len, want)))
+            syncs = {}
+            for form, arg in (("numpy", frames), ("on the card", xs)):
+                del tables[:]
+                syncs[form] = (count_syncs(lambda: insp.inspect_batch(arg)),
+                               len(tables))
+            for _ in range(2):
+                insp.inspect_batch(frames)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                insp.inspect_batch(frames)
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+            # on frames already on the card: the pipeline's and the
+            # detector's share by CUDA events, and the host's time until
+            # both are queued (before the table's download waits)
+            det = insp.detectors[0]
+            pipe_ms = det_ms = host = 0.0
+            for _ in range(3):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev[0].record()
+                ctx = insp.pipeline.process_batch(xs, device_only=True)
+                ev[1].record()
+                out = det.run_device(ctx["result_image"])
+                ev[2].record()
+                host += (time.perf_counter() - t0) / 3 * 1e3
+                download_table(*out[:3])
+                pipe_ms += ev[0].elapsed_time(ev[1]) / 3
+                det_ms += ev[1].elapsed_time(ev[2]) / 3
+            times["inspect_batch"][size] = {
+                "ms": ms, "frames_per_s": SYSTEM_BATCH / ms * 1e3,
+                "host_ms": host, "pipeline_ms": pipe_ms,
+                "detector_ms": det_ms, "syncs_numpy": syncs["numpy"][0],
+                "syncs_on_card": syncs["on the card"][0],
+                "tables_downloaded": syncs["numpy"][1]}
+            phase(f"system path: inspect_batch {size}: first 2 frames' "
+                  f"defects equal to the CPU path (simulation {checked[0]}, "
+                  f"rings {checked[1]} defects); host syncs per call "
+                  f"{syncs['numpy'][0]} from numpy, {syncs['on the card'][0]}"
+                  f" from the card, tables downloaded per call "
+                  f"{syncs['numpy'][1]}")
+            phase(f"{smi}: inspect_batch {size} {ms:.3f} ms per batch of "
+                  f"{SYSTEM_BATCH} (numpy frames, upload included) = "
+                  f"{SYSTEM_BATCH / ms * 1e3:.1f} frames/s; from frames on "
+                  f"the card: host {host:.3f} ms per call until its work "
+                  f"is queued; pipeline {pipe_ms:.3f} ms, detector "
+                  f"{det_ms:.3f} ms (CUDA events)")
+            traced = cuda_kernels(lambda: insp.inspect_batch(xs), runs=2)
+            if h == H2:
+                for k, n in traced.items():
+                    traced_2mp[k] = traced_2mp.get(k, 0) + n
+            else:
+                traced_640 = traced
+
+        # -- a System with one inspector station ----------------------------
+        sysm = System()
+        sysm.config.add_camera("cam", {
+            "type": "simulation", "width": W2, "height": H2, "seed": 0,
+            "defect_probability": 0.3})
+        sysm.add_station("insp", {"camera_id": "cam",
+                                  "inspector": "contamination",
+                                  "reject": True})
+        station = sysm.stations["insp"]
+        seen = []
+        inspect = station.inspector.inspect_batch
+
+        def recording(*args, **kwargs):
+            out = inspect(*args, **kwargs)
+            seen.extend(out)
+            return out
+
+        station.inspector.inspect_batch = recording
+        sysm.start()
+        time.sleep(3)
+        sysm.stop()
+        st_status = sysm.get_status()["stations"]["insp"]
+        if not (station.frames_processed > 0 and
+                len(seen) == station.frames_processed
+                and all(r.success for r in seen)):
+            fail(f"the inspector station processed {len(seen)} frames, not "
+                 f"all successfully")
+        times["station_avg_processing_ms"] = {
+            "inspector_1920x1080": st_status["avg_processing_time"] * 1e3}
+        phase(f"system path: inspector station (1920x1080, batch "
+              f"{station.batch_size}, reject on): "
+              f"{station.frames_processed} frames in 3 s, every result a "
+              f"success, {station.defects_detected} defects, rejects "
+              f"scheduled {station.rejector.stats()['scheduled']}; {smi}: "
+              f"avg_processing_time "
+              f"{st_status['avg_processing_time'] * 1e3:.3f} ms/frame")
+
+        # -- main -s and --diagnose -----------------------------------------
+        status = {}
+        rc = cli.main(["-s", "--duration", "3"], status)
+        stations = status.get("stations", {})
+        if rc != 0 or not all(s["frames_processed"] > 0
+                              for s in stations.values()):
+            fail(f"main -s returned {rc} with stations {stations}")
+        for sid, s in stations.items():
+            times["station_avg_processing_ms"][sid] = (
+                s["avg_processing_time"] * 1e3)
+        phase(f"system path: main -s --duration 3 returned 0; "
+              + "; ".join(f"{sid} {s['frames_processed']} frames, "
+                          f"avg_processing_time "
+                          f"{s['avg_processing_time'] * 1e3:.3f} ms/frame"
+                          for sid, s in stations.items()) + f" ({smi})")
+        if cli.main(["--diagnose"]) != 0:
+            fail("main --diagnose did not pass on the card")
+    finally:
+        for m, n, f in plains:
+            setattr(m, n, f)
+        cd.download_table = download_table
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    idle = {n: w.launches for n, w in others.items()}
+    phase(f"system path launched {launches}; the run-table route {idle}; "
+          f"traced CUDA kernels of one 2 MP inspect_batch and one "
+          f"bottle_base call {traced_2mp}, of one 640x480 inspect_batch "
+          f"{traced_640}")
+    if plain_on_card:
+        fail(f"plain versions ran on the card: {sorted(set(plain_on_card))}")
+    if not all(launches.values()):
+        fail("the system path did not go through every kernel of its path")
+    want = set(BAND_CCL_KERNELS) | {"k_preprocess", "k_fill_tiles",
+                                    "k_fill_merge", "k_fill_write",
+                                    "k_banded_stats", "k_bbox_sums"}
+    if not want <= set(traced_2mp) or set(traced_640) != set(FUSED_KERNELS):
+        fail(f"the system path's traces lack kernels of its path: 2 MP "
+             f"{sorted(want - set(traced_2mp))}, 640x480 "
+             f"{sorted(set(FUSED_KERNELS) ^ set(traced_640))}")
+    return launches, traced_2mp, traced_640, times
+
+
 def check_split(name, x, k, ct=CONTRAST):
     """Phase 3d on one case: the label kernel at every stage and the stats
     kernel on its labels against their plain versions, and B6a(B6b(x))
@@ -2193,6 +2526,9 @@ def main(argv):
     # -- 3c-5 for the run-table 2 MP route ---------------------------------
     err3, launches3, times3, e2e3 = runtable_phases(dev, smi, argv)
 
+    # -- 4d: the system path -------------------------------------------------
+    launches4, traced4, traced4_640, times4 = system_phases(dev, smi)
+
     # -- 3d, 5d: the split kernels and the profiling path --------------------
     split, t_roll, roll_launches = split_phases(dev, smi, cases)
 
@@ -2290,8 +2626,19 @@ def main(argv):
         design="foreground tile labeling over 32x128 shared-memory tiles "
                "(tile_uf.cuh): labels written once, edges merged in the "
                "label plane, root tables from each band's first root")
-    print(json.dumps({"path_kernels": [entry("merge_bands"),
-                                       entry("preprocess")]}), flush=True)
+    path_kernels = [entry("merge_bands"), entry("preprocess")]
+    # the system path's launches (phase 4d): wrapper calls, and the CUDA
+    # kernels traced in one 2 MP inspect_batch and one bottle_base call
+    for k in kernels + path_kernels:
+        if k["name"] in launches4:
+            k["launches_system_path"] = launches4[k["name"]]
+    for k in kernels:
+        if k["name"] == "fused_detect":
+            k["cuda_kernels_system_path_640x480"] = traced4_640
+    print(json.dumps({"path_kernels": path_kernels}), flush=True)
+    print(json.dumps({"system_path": dict(
+        times4, cuda_kernels_2mp=traced4, cuda_kernels_640x480=traced4_640,
+        launches=launches4)}), flush=True)
     print(json.dumps({"end_to_end": dict(
         {"640x480x3": {"ms": e2e_s * 1e3, "host_ms": e2e_host}}, **e2e2,
         **e2e3), "batch": {"640x480x3": BATCH, "2mp": BATCH_2MP},

@@ -119,6 +119,31 @@ def config_from_reference(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in (cfg or {}).items() if k not in TPU_TUNING_KEYS}
 
 
+_NUMPY_DTYPES = {torch.bool: np.bool_, torch.int32: np.int32,
+                 torch.int64: np.int64}
+
+
+def download_table(table: BlobTable, conf: torch.Tensor,
+                   accepted: torch.Tensor):
+    """(BlobTable, confidence, accepted) as numpy arrays, in one transfer:
+    every [N, K] field packed as int32 words (float32 by its bits) into one
+    device tensor, with n_blobs as one more row."""
+    n, k = conf.shape
+    fields = list(table[:-1]) + [conf, accepted]
+    words = [f.view(torch.int32) if f.dtype == torch.float32
+             else f.to(torch.int32) for f in fields]
+    last = torch.zeros((n, k), dtype=torch.int32, device=conf.device)
+    last[:, 0] = table.n_blobs
+    host = torch.stack(words + [last], 1).cpu().numpy()
+    out = [np.ascontiguousarray(host[:, i]).view(np.float32)
+           if f.dtype == torch.float32
+           else host[:, i].astype(_NUMPY_DTYPES[f.dtype])
+           for i, f in enumerate(fields)]
+    tbl = BlobTable(*out[:-2], host[:, -1, 0].astype(
+        _NUMPY_DTYPES[table.n_blobs.dtype]))
+    return tbl, out[-2], out[-1]
+
+
 def _label_of_blob(labels: np.ndarray, bbox) -> int:
     """Recover the CCL label value of the blob occupying bbox
     (copy of heimdall_tpu/core/pipeline.py::_label_of_blob)."""
@@ -225,17 +250,22 @@ class ContaminationDetector(DefectDetector):
         """Single-image reference-compatible API."""
         return self.detect_batch(np.asarray(image)[None], context)[0]
 
-    def detect_batch(self, images: np.ndarray,
+    def detect_batch(self, images,
                      context: Dict[str, Any] = None) -> List[List[Defect]]:
-        """Batched detection: one device call for the whole batch."""
-        images = np.asarray(images)
+        """Batched detection: one device call for the whole batch.
+
+        images: a numpy array, or a tensor (on the detector's device it is
+        used in place).  The blob table, confidences and gates come back in
+        one download; the label planes in a second, only when contours or
+        exact geometry are wanted."""
+        if not isinstance(images, torch.Tensor):
+            images = np.asarray(images)
         want_contours = (self.include_contours or self.exact_geometry) and (
             context is None or context.get("include_contours", True))
         out = self.run_device(images, return_labels=want_contours)
-        table = BlobTable(*(t.cpu().numpy() for t in out[0]))
+        table, conf, accepted = download_table(*out[:3])
         labels_np = out[3].cpu().numpy() if want_contours else None
-        return self._table_to_defects(table, out[1].cpu().numpy(),
-                                      out[2].cpu().numpy(), labels_np)
+        return self._table_to_defects(table, conf, accepted, labels_np)
 
     def _candidate_slots(self, i, table, conf, accepted, valid):
         """Blob slots worth host-side work for frame i under "auto" exact

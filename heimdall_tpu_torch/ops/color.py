@@ -34,3 +34,11 @@ def bgr_to_gray(image: torch.Tensor) -> torch.Tensor:
     if image.dim() >= 3 and image.shape[-1] == 3:
         return gray_from_planes(image[..., 0], image[..., 1], image[..., 2])
     return image
+
+
+def gray_to_bgr(image: torch.Tensor) -> torch.Tensor:
+    """Grayscale [..., H, W] -> BGR [..., H, W, 3] by channel replication
+    (a trailing 3-channel axis is returned as is)."""
+    if image.dim() >= 3 and image.shape[-1] == 3:
+        return image
+    return torch.stack([image, image, image], dim=-1)

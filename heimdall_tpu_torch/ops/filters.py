@@ -1,4 +1,5 @@
-"""Smoothing filters with OpenCV numeric parity (port of heimdall_tpu/ops/filters.py).
+"""Smoothing and gradient filters with OpenCV numeric parity (port of
+heimdall_tpu/ops/filters.py).
 
 OpenCV's uint8 Gaussian path quantizes the float64 kernel to Q8 fixed point
 by cumulative (error-diffusion) rounding (``_q8_taps_bitexact``), runs the
@@ -154,3 +155,125 @@ def gaussian_mean_u8(image: torch.Tensor, ksize: int, sigma: float = 0.0,
     mf = _sep_conv_f32(image.to(torch.float32), f32_taps(ksize, sigma),
                        border)
     return torch.round(mf).to(torch.int32)
+
+
+def box_blur(image: torch.Tensor, ksize: int, border: str = "reflect101",
+             normalize: bool = True) -> torch.Tensor:
+    """cv2.blur / cv2.boxFilter parity on uint8 input: the int32 window sum,
+    or with ``normalize`` the mean rounded half up (ksize odd: no ties)."""
+    if image.dtype != torch.uint8:
+        raise ValueError(f"box_blur takes uint8, got {image.dtype}")
+    ones = [1] * ksize
+
+    def run(x):
+        acc = _sep_conv_i32(x.to(torch.int32), ones, ones, border)
+        if not normalize:
+            return acc
+        n2 = ksize * ksize
+        return torch.div(acc + n2 // 2, n2, rounding_mode="floor").clamp(
+            0, 255).to(torch.uint8)
+
+    return _filter_channels(image, run)
+
+
+def box_mean_u8(image: torch.Tensor, ksize: int,
+                border: str = "replicate") -> torch.Tensor:
+    """Local box mean as int32 in [0, 255] (the inner mean of
+    cv2.adaptiveThreshold(ADAPTIVE_THRESH_MEAN_C)), rounded half up."""
+    ones = [1] * ksize
+    acc = _sep_conv_i32(image.to(torch.int32), ones, ones, border)
+    n2 = ksize * ksize
+    return torch.div(acc + n2 // 2, n2, rounding_mode="floor").clamp(0, 255)
+
+
+def sobel(image: torch.Tensor, dx: int, dy: int,
+          border: str = "replicate") -> torch.Tensor:
+    """3x3 Sobel derivative, int32 output (cv2.Sobel CV_16S semantics)."""
+    smooth = [1, 2, 1]
+    deriv = [-1, 0, 1]
+    x = image.to(torch.int32)
+    if dx == 1 and dy == 0:
+        return _sep_conv_i32(x, smooth, deriv, border)
+    if dx == 0 and dy == 1:
+        return _sep_conv_i32(x, deriv, smooth, border)
+    raise ValueError("sobel supports (dx,dy) in {(1,0),(0,1)}")
+
+
+# tan(22.5 deg) in Q15 — the constant OpenCV's Canny NMS uses.
+_TG22 = 13573
+# Hysteresis rounds run between two convergence checks (each check is one
+# host sync).  A round at the fixpoint changes nothing, so running past it
+# leaves the output identical to a check after every round.
+HYSTERESIS_CHECK_EVERY = 16
+
+
+def _shift(a: torch.Tensor, di: int, dj: int) -> torch.Tensor:
+    """a[..., i + di, j + dj], zero (False) outside the frame."""
+    H, W = a.shape[-2], a.shape[-1]
+    p = _pad2d(a, 1, 1, "constant", 0)
+    return p[..., 1 + di:1 + di + H, 1 + dj:1 + dj + W]
+
+
+def _dilate8(a: torch.Tensor) -> torch.Tensor:
+    """3x3 binary dilation of a bool plane (outside the frame is False)."""
+    H, W = a.shape[-2], a.shape[-1]
+    p = _pad2d(a, 1, 1, "constant", False)
+    rows = p[..., 0:W] | p[..., 1:W + 1] | p[..., 2:W + 2]
+    return rows[..., 0:H, :] | rows[..., 1:H + 1, :] | rows[..., 2:H + 2, :]
+
+
+def canny(image: torch.Tensor, threshold1: float, threshold2: float,
+          aperture_size: int = 3, l2_gradient: bool = False,
+          max_hysteresis_iters: int = 64) -> torch.Tensor:
+    """Canny edge detection following OpenCV's algorithm (uint8 0/255).
+
+    3x3 Sobel (replicate border), L1 or L2 magnitude, OpenCV's integer
+    sector logic for non-maximum suppression with its tie-breaking (> / >=
+    on the horizontal and vertical sectors, strict > on both diagonal
+    neighbours), and hysteresis by growing the strong edges through the
+    weak candidates to the fixpoint.  The growth runs on the tensors'
+    device and asks the host whether it has converged once every
+    HYSTERESIS_CHECK_EVERY rounds.  ``max_hysteresis_iters`` is accepted
+    for the JAX signature; like the JAX loop, the growth always reaches
+    the fixpoint."""
+    del max_hysteresis_iters
+    if aperture_size != 3:
+        raise NotImplementedError("only aperture_size=3 is supported")
+    low, high = min(threshold1, threshold2), max(threshold1, threshold2)
+    gx = sobel(image, 1, 0)
+    gy = sobel(image, 0, 1)
+    if l2_gradient:
+        m = gx * gx + gy * gy
+        # cv2: clamp to 32767, square only positive thresholds, then floor
+        low, high = min(32767.0, low), min(32767.0, high)
+        low = low * low if low > 0 else low
+        high = high * high if high > 0 else high
+    else:
+        m = gx.abs() + gy.abs()
+    low, high = int(math.floor(low)), int(math.floor(high))
+
+    # All products fit in int32: |sobel| <= 1020, 1020 * tan-constants < 2^31.
+    xs = gx.abs()
+    ys_15 = gy.abs() << 15
+    tg22x = xs * _TG22
+    tg67x = tg22x + (xs << 16)
+    horiz = ys_15 < tg22x
+    vert = ys_15 > tg67x
+    same_sign = (gx ^ gy) >= 0     # gradient in the main diagonal direction
+
+    keep_h = (m > _shift(m, 0, -1)) & (m >= _shift(m, 0, 1))
+    keep_v = (m > _shift(m, -1, 0)) & (m >= _shift(m, 1, 0))
+    keep_d1 = (m > _shift(m, -1, -1)) & (m > _shift(m, 1, 1))   # "\"
+    keep_d2 = (m > _shift(m, -1, 1)) & (m > _shift(m, 1, -1))   # "/"
+    keep = torch.where(horiz, keep_h, torch.where(
+        vert, keep_v, torch.where(same_sign, keep_d1, keep_d2)))
+
+    cand = keep & (m > low)
+    edges = cand & (m > high)
+    while True:
+        for _ in range(HYSTERESIS_CHECK_EVERY):
+            prev = edges
+            edges = edges | (_dilate8(edges) & cand)
+        if torch.equal(edges, prev):
+            break
+    return torch.where(edges, 255, 0).to(torch.uint8)

@@ -553,3 +553,22 @@ def window_case_masks(h, w):
         "crowded": crowded,
         "empty": np.zeros((h, w), bool),
     }
+
+
+def ring_frames(n, h, w, seed=0):
+    """[n, h, w, 3] uint8 frames for the contamination inspector: dark
+    rings (0-39) with light centres (150-255) on a light ground (215), one
+    for every 5,000 pixels (at least 2).  The inspector's pipeline turns a
+    ring into a white annulus around a black hole, which its detector then
+    finds as a defect; the bench and simulation frames give it few."""
+    rng = np.random.RandomState(seed)
+    frames = np.full((n, h, w, 3), 215, np.uint8)
+    yy, xx = np.ogrid[:h, :w]
+    for i in range(n):
+        for _ in range(max(2, h * w // 5000)):
+            y, x = rng.randint(14, h - 14), rng.randint(14, w - 14)
+            r = rng.randint(8, 14)
+            d = (yy - y) ** 2 + (xx - x) ** 2
+            frames[i][d <= r * r] = rng.randint(0, 40)
+            frames[i][d <= (r - 5) ** 2] = rng.randint(150, 256)
+    return frames
