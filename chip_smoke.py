@@ -131,6 +131,24 @@ Phases (each prints a line; any failure exits non-zero without a result):
         --duration 3 (both stations past 0 frames) and main --diagnose;
         the CUDA kernels of one 2 MP inspect_batch and one bottle_base call
         and of one 640x480 inspect_batch, traced;
+     e. the line path, with every wrapper's count set to 0 just before
+        and read just after and every plain version guarded: the native
+        library loaded, FrameRing on its ring and its camera producer
+        running; the config #4 stream (50 SimulationImageSource frames,
+        640x480, seed 1, defect probability 1.0, at 25 fps) through
+        runtime/feeder.py's DeviceFeeder (pinned uploads) in push mode,
+        then pull mode, with read -> verdict p50/p99; examples/
+        line_simulation's main (4 simulated GigE cameras, 8 sets a batch,
+        3 s) at 640x480 and 1920x1080 Mono8, and latency_main (one set a
+        batch, 3 s): bottles/h, per-bottle p50/p95/p99, the floor (upload
+        + no-op kernel + fetch), rejects, PASS or below against 90,000
+        BPH and 10 ms; every stream frame's verdict (push and pull) and
+        the first 4 batches' of each run equal to the plain versions'
+        (contamination_fused_reference at 640x480, the band route's on
+        the CPU at 1920x1080); the CUDA kernels of one line verdict_device
+        call, traced (B1's 11); UniformityCalibrator.apply_on_device on
+        the card equal to the CPU; one line batch's upload, pageable
+        against the pinned slots, in MB/s;
   5. times with CUDA events after warm-up, the timed runs queued behind a
      spin kernel so that the host's time per call stays out: each kernel,
      its plain version and its bound, and which of bytes and operations
@@ -184,8 +202,9 @@ Phases (each prints a line; any failure exits non-zero without a result):
         version's, its bound (operations) and, for the cumsum variants,
         the torch.cumsum step's;
   6. JSON lines: each route's end-to-end and host ms per call, the system
-     path's times and traced launches, and every kernel with its check,
-     times and launches on the system path;
+     path's times and traced launches, the line path's figures, and every
+     kernel with its check, times and launches on the system path and on
+     the line path;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
 DIR/fused_detect_profile.txt, DIR/tiled_2mp_profile.txt (Mono8) and
@@ -240,6 +259,15 @@ PIPE_BATCH = 8
 SYSTEM_BATCH = 32
 PIPELINE_TYPES = ("basic", "bottle_base", "sidewall", "preform",
                   "contamination")
+# The line path (phase 4e): the JAX bench's config #4 stream (frames, rate,
+# feeder depth) and line runs (sets a batch, seconds), and the batches of
+# each run held against the plain versions.
+STREAM_FRAMES = 50
+STREAM_FPS = 25
+STREAM_IN_FLIGHT = 3
+LINE_SETS = 8
+LINE_SECONDS = 3.0
+CHECK_BATCHES = 4
 # the types whose Canny stage asks the host whether its hysteresis has
 # converged (one sync every 16 rounds); the others make none
 CANNY_TYPES = ("basic", "sidewall")
@@ -1361,6 +1389,44 @@ def runtable_phases(dev, smi, argv):
     return err, {n: launches[n] for n in new}, timings, e2e
 
 
+def guard_plains():
+    """Wrap every plain version of the detector's and the pipelines' kernels
+    so that a call on a CUDA tensor is recorded (the paths of phases 4d and
+    4e must run none); returns the list of names recorded.
+    guard_plains.restore() puts the plain versions back."""
+    import torch
+    from heimdall_tpu_torch.ops import ccl
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    from heimdall_tpu_torch.ops import stats_tiled as st
+    on_card = []
+
+    def guard(fn, name):
+        def guarded(*args, **kwargs):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in list(args) + list(kwargs.values())):
+                on_card.append(name)
+            return fn(*args, **kwargs)
+        return guarded
+
+    plains = [(m, n, getattr(m, n)) for m, n in (
+        (ccl, "connected_components"), (ccl, "fill_holes"),
+        (ct, "connected_components"), (ct, "fill_holes"),
+        (ct, "flood_reference"), (ct, "band_ccl_reference"),
+        (ct, "merge_reference"), (st, "banded_stats_reference"),
+        (st, "bbox_sums_reference"), (fk, "preprocess_reference"),
+        (fk, "contamination_fused_reference"))]
+    for m, n, f in plains:
+        setattr(m, n, guard(f, f"{m.__name__}.{n}"))
+
+    def restore():
+        for m, n, f in plains:
+            setattr(m, n, f)
+
+    guard_plains.restore = restore
+    return on_card
+
+
 def _defect_rows(results):
     """Per frame, each defect's type, position, size, confidence, bbox and
     scores (Defect.to_dict), for exact comparison."""
@@ -1386,7 +1452,6 @@ def system_phases(dev, smi):
     from heimdall_tpu_torch.core.system import System
     from heimdall_tpu_torch.detectors import contamination_detector as cd
     from heimdall_tpu_torch.inspection import ContaminationInspector
-    from heimdall_tpu_torch.ops import ccl
     from heimdall_tpu_torch.ops import ccl_tiled as ct
     from heimdall_tpu_torch.ops import fused_kernels as fk
     from heimdall_tpu_torch.ops import preprocess_tiled as pt
@@ -1403,23 +1468,6 @@ def system_phases(dev, smi):
               "run_extract": rt.run_extract, "flood_fix": rt.flood_fix,
               "fill_extract": rt.fill_extract, "label_fix": rt.label_fix,
               "writeback": rt.writeback}
-    plain_on_card = []
-
-    def guard(fn, name):
-        def guarded(*args, **kwargs):
-            if any(isinstance(t, torch.Tensor) and t.is_cuda
-                   for t in list(args) + list(kwargs.values())):
-                plain_on_card.append(name)
-            return fn(*args, **kwargs)
-        return guarded
-
-    plains = [(m, n, getattr(m, n)) for m, n in (
-        (ccl, "connected_components"), (ccl, "fill_holes"),
-        (ct, "connected_components"), (ct, "fill_holes"),
-        (ct, "flood_reference"), (ct, "band_ccl_reference"),
-        (ct, "merge_reference"), (st, "banded_stats_reference"),
-        (st, "bbox_sums_reference"), (fk, "preprocess_reference"),
-        (fk, "contamination_fused_reference"))]
     tables = []
     download_table = cd.download_table
 
@@ -1450,9 +1498,8 @@ def system_phases(dev, smi):
     torch.cuda.synchronize()
     for w in list(wrappers.values()) + list(others.values()):
         w.launches = 0
-    for m, n, f in plains:
-        setattr(m, n, guard(f, f"{m.__name__}.{n}"))
     cd.download_table = counted_download
+    plain_on_card = guard_plains()
     try:
         # -- the five pipeline types, batch 8 at 1920x1080 BGR -------------
         frames8 = scene.make_frames(PIPE_BATCH, H2, W2, seed=2)
@@ -1630,8 +1677,7 @@ def system_phases(dev, smi):
         if cli.main(["--diagnose"]) != 0:
             fail("main --diagnose did not pass on the card")
     finally:
-        for m, n, f in plains:
-            setattr(m, n, f)
+        guard_plains.restore()
         cd.download_table = download_table
     torch.cuda.synchronize()
     launches = {n: w.launches for n, w in wrappers.items()}
@@ -1652,6 +1698,295 @@ def system_phases(dev, smi):
              f"{sorted(want - set(traced_2mp))}, 640x480 "
              f"{sorted(set(FUSED_KERNELS) ^ set(traced_640))}")
     return launches, traced_2mp, traced_640, times
+
+
+def plain_verdict(det, x, channel_major=False):
+    """verdict_device's flags and confidences on a 640x480-class batch x by
+    the fused kernel's plain version (contamination_fused_reference, on x's
+    device), then det's table, gates and reduction."""
+    import torch
+    from heimdall_tpu_torch.ops import blobs
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    out = fk.contamination_fused_reference(
+        x, int(det.contrast_threshold), det.max_blobs, channel_major)
+    mono = x.dim() == 3 or (channel_major and x.shape[1] == 1)
+    table = blobs.table_from_sums(*out[:4],
+                                  use_color=det.use_color and not mono)
+    conf, accepted = fk.gate(table, float(det.min_contaminant_size),
+                             float(det.max_contaminant_size),
+                             float(det.min_confidence), det.formula)
+    return (accepted.any(dim=1),
+            torch.where(accepted, conf, 0.0).max(dim=1).values)
+
+
+def line_phases(dev, smi):
+    """Phase 4e, the production line on the card: the native ring and
+    producer; the JAX bench's config #4 stream (50 SimulationImageSource
+    frames, 640x480, seed 1, defect probability 1.0, at 25 fps) through
+    DeviceFeeder in push mode, then pull mode; examples/line_simulation's
+    main at 640x480 and 1920x1080 Mono8 (8 sets a batch) and latency_main
+    (one set a batch).  Every wrapper's launch count is set to 0 just
+    before and read just after, and no plain version may run on a CUDA
+    tensor in between.  Then the checks: each stream frame's verdict, and
+    the first 4 batches' of each line run, equal to the plain versions'
+    (contamination_fused_reference at 640x480, the band route's plain
+    versions on the CPU at 1920x1080); the CUDA kernels of one line
+    verdict_device call, traced; UniformityCalibrator.apply_on_device on
+    the card against the CPU; one line batch's upload, pageable against
+    the pinned slots.  Returns ({wrapper: launches}, the phase's
+    figures)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import native_bridge
+    from heimdall_tpu_torch.core.acquisition import SimulationImageSource
+    from heimdall_tpu_torch.detectors.contamination_detector import (
+        ContaminationDetector)
+    from heimdall_tpu_torch.examples import line_simulation as ls
+    from heimdall_tpu_torch.lighting.calibration import UniformityCalibrator
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    from heimdall_tpu_torch.ops import stats_tiled as st
+    from heimdall_tpu_torch.runtime.feeder import (DeviceFeeder, FrameRing,
+                                                   NativeCameraFeeder,
+                                                   PinnedUploader)
+
+    # -- the native runtime ------------------------------------------------
+    if native_bridge._load() is None:
+        fail("native/libheimdall_native.so did not load")
+    ring = FrameRing(4, (480, 640))
+    native_ring = ring._ring is not None
+    ring.close()
+    with NativeCameraFeeder(width=640, height=480, fps=200, capacity=16,
+                            seed=1) as cam:
+        got = cam.ring.pop_batch(4, timeout_s=2.0)
+        cam_stats = cam.stats()
+    if not native_ring or got.shape != (4, 480, 640) or \
+            "frames_produced" not in cam_stats:
+        fail(f"the native ring or producer is not in use (ring "
+             f"{native_ring}, batch {got.shape}, stats {sorted(cam_stats)})")
+    phase(f"line path: native library loaded; FrameRing on the native "
+          f"ring; the native producer gave a batch {got.shape}")
+
+    wrappers = {"preprocess": fk.preprocess, "flood_fill": ct.flood_fill,
+                "band_ccl": ct.band_ccl, "merge_bands": ct.merge_bands,
+                "banded_stats": st.banded_stats, "bbox_sums": st.bbox_sums,
+                "fused_detect": fk.contamination_fused}
+    det = ContaminationDetector(config={"include_contours": False})
+    det_line = ContaminationDetector(config={"include_contours": False,
+                                             "use_color": False})
+
+    def stream(push):
+        """Config #4: the 25 fps stream through DeviceFeeder; returns
+        (frames, {frame: (flags, confs)}, read->verdict ms per frame)."""
+        src = SimulationImageSource("bench", {"width": 640, "height": 480,
+                                              "seed": 1,
+                                              "defect_probability": 1.0})
+        src.open()
+        uploader = PinnedUploader(STREAM_IN_FLIGHT + 1, dev)
+        frames, results, lat = [], {}, []
+
+        def step(frame):
+            x = uploader.upload(frame.transpose(2, 0, 1)[None])
+            return det.verdict_device(x, channel_major=True)
+
+        def on_done(out, meta):
+            i, t_read = meta
+            lat.append((time.perf_counter() - t_read) * 1e3)
+            results[i] = out
+
+        feeder = DeviceFeeder(step, STREAM_IN_FLIGHT,
+                              on_done=on_done if push else None)
+        t_next = time.perf_counter()
+        for i in range(STREAM_FRAMES):
+            now = time.perf_counter()
+            if now < t_next:
+                time.sleep(t_next - now)
+            t_next = max(t_next + 1 / STREAM_FPS, time.perf_counter())
+            t1 = time.perf_counter()
+            _, frame = src.read()
+            frames.append(frame)
+            out = feeder.submit(frame, meta=(i, t1))
+            if out is not None:
+                on_done(*out)
+        if push:
+            feeder.close()
+        else:
+            for out, meta in feeder.drain():
+                on_done(out, meta)
+        return frames, results, np.asarray(lat)
+
+    warm = np.zeros((1, 3, 480, 640), np.uint8)
+    det.verdict_device(torch.from_numpy(warm).to(dev), channel_major=True)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    plain_on_card = guard_plains()
+    try:
+        frames, push_out, push_ms = stream(True)
+        _, pull_out, pull_ms = stream(False)
+        bph, p99, d640 = ls.main(LINE_SECONDS, LINE_SETS, return_detail=True,
+                                 device=dev, keep_batches=CHECK_BATCHES)
+        bph2, p99_2, d2mp = ls.main(LINE_SECONDS, LINE_SETS, width=W2,
+                                    height=H2, return_detail=True,
+                                    device=dev, keep_batches=CHECK_BATCHES)
+        lat = ls.latency_main(LINE_SECONDS, return_detail=True, device=dev,
+                              keep_batches=CHECK_BATCHES)
+    finally:
+        guard_plains.restore()
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    phase(f"line path launched {launches}")
+    if plain_on_card:
+        fail(f"plain versions ran on the card: {sorted(set(plain_on_card))}")
+    if not all(launches.values()):
+        fail("the line path did not go through every kernel of its path")
+
+    # -- verdicts against the plain versions -------------------------------
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.stack(frames).transpose(0, 3, 1, 2))).to(dev)
+    want = [t.cpu().numpy() for t in plain_verdict(det, x, True)]
+    for name, out in (("push", push_out), ("pull", pull_out)):
+        got = [np.concatenate([out[i][j] for i in range(STREAM_FRAMES)])
+               for j in range(2)]
+        if len(out) != STREAM_FRAMES or not all(
+                np.array_equal(g, w) for g, w in zip(got, want)):
+            fail(f"the stream's {name} verdicts differ from the plain "
+                 f"version's")
+    rejected = int(want[0].sum())
+
+    def held(batches, name, on_cpu=False):
+        cpu = ContaminationDetector(config={"include_contours": False,
+                                            "use_color": False},
+                                    device="cpu")
+        memo = {}
+        for frames_b, flags, confs in batches:
+            if on_cpu:    # the band route's plain versions, each frame once
+                for f in frames_b:
+                    if f.tobytes() not in memo:
+                        memo[f.tobytes()] = [t.numpy() for t in
+                                             cpu.verdict_device(f[None])]
+                want_b = [np.concatenate([memo[f.tobytes()][j]
+                                          for f in frames_b])
+                          for j in range(2)]
+            else:
+                want_b = [t.cpu().numpy() for t in plain_verdict(
+                    det_line, torch.from_numpy(frames_b).to(dev))]
+            if not (np.array_equal(flags, want_b[0])
+                    and np.array_equal(confs, want_b[1])):
+                fail(f"{name}: verdicts differ from the plain versions'")
+        return sum(len(b[0]) for b in batches)
+
+    n640 = held(d640["batches"], "line 640x480")
+    n2mp = held(d2mp["batches"], "line 1920x1080", on_cpu=True)
+    nlat = held(lat["batches"], "latency mode")
+    phase(f"line path: verdicts equal to the plain versions' on the "
+          f"stream's {STREAM_FRAMES} frames (push and pull, {rejected} "
+          f"rejected) and on the first {CHECK_BATCHES} batches of each "
+          f"line run ({n640}, {n2mp} and {nlat} frames)")
+
+    figures = {"card": smi, "native_ring": native_ring}
+    figures["stream_640x480"] = {
+        "frames": STREAM_FRAMES, "fps": STREAM_FPS,
+        "max_in_flight": STREAM_IN_FLIGHT,
+        "push_read_to_verdict_ms": {"p50": float(np.percentile(push_ms, 50)),
+                                    "p99": float(np.percentile(push_ms, 99)),
+                                    "max": float(push_ms.max())},
+        "pull_read_to_verdict_ms": {"p50": float(np.percentile(pull_ms, 50)),
+                                    "p99": float(np.percentile(pull_ms, 99))},
+        "rejected": rejected}
+    s = figures["stream_640x480"]
+    phase(f"{smi}: config #4 stream, {STREAM_FRAMES} frames 640x480 at "
+          f"{STREAM_FPS} fps: read -> verdict push p50 "
+          f"{s['push_read_to_verdict_ms']['p50']:.3f} ms, p99 "
+          f"{s['push_read_to_verdict_ms']['p99']:.3f} ms; pull (a verdict "
+          f"{STREAM_IN_FLIGHT} frames later) p50 "
+          f"{s['pull_read_to_verdict_ms']['p50']:.3f} ms")
+    for key, (b, p, d) in (("line_640x480", (bph, p99, d640)),
+                           ("line_1920x1080", (bph2, p99_2, d2mp))):
+        figures[key] = {
+            "bph": b, "p50_ms": d["p50_ms"], "p95_ms": d["p95_ms"],
+            "p99_ms": p, "floor_ms": d["floor_ms"], "net_bph": d["net_bph"],
+            "bottles": d["bottles"], "rejects": d["rejects"],
+            "n_batches": d["n_batches"], "acquire_s": d["acquire_s"],
+            "elapsed_s": d["elapsed_s"], "sets_per_batch": LINE_SETS,
+            "bph_pass": b >= ls.TARGET_BPH,
+            "deadline_pass": p < ls.DEADLINE_MS}
+        phase(f"{smi}: {key} ({LINE_SETS} sets a batch, {LINE_SECONDS} s): "
+              f"{b:,.0f} BPH ({'PASS' if b >= ls.TARGET_BPH else 'below'} "
+              f"90,000); per-bottle p50 {d['p50_ms']:.3f} / p95 "
+              f"{d['p95_ms']:.3f} / p99 {p:.3f} ms "
+              f"({'PASS' if p < ls.DEADLINE_MS else 'above'} 10 ms); floor "
+              f"{d['floor_ms']:.3f} ms a batch; rejects {d['rejects']} of "
+              f"{d['bottles']}; acquisition+assembly {d['acquire_s']:.2f} s "
+              f"of {d['elapsed_s']:.2f} s")
+    figures["latency_640x480"] = {k: v for k, v in lat.items()
+                                  if k != "batches"}
+    figures["latency_640x480"]["deadline_pass"] = lat["p99_ms"] < \
+        ls.DEADLINE_MS
+    phase(f"{smi}: latency mode 640x480 (one set a batch): {lat['bottles']} "
+          f"bottles, per-bottle p50 {lat['p50_ms']:.3f} / p95 "
+          f"{lat['p95_ms']:.3f} / p99 {lat['p99_ms']:.3f} ms "
+          f"({'PASS' if lat['p99_ms'] < ls.DEADLINE_MS else 'above'} 10 "
+          f"ms); floor p50 {lat['floor_ms']:.3f} ms; rejects "
+          f"{lat['rejects']}")
+
+    # -- the CUDA kernels of one line verdict_device call --------------------
+    xb = torch.from_numpy(d640["batches"][0][0]).to(dev)
+    traced = cuda_kernels(lambda: det_line.verdict_device(xb), runs=2)
+    if traced != dict.fromkeys(FUSED_KERNELS, 1):
+        fail(f"one line verdict_device call launched {traced}, not one "
+             f"each of {FUSED_KERNELS}")
+    figures["cuda_kernels_verdict_640x480"] = traced
+
+    # -- the uniformity correction on the card -------------------------------
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[:480, :640]
+    vignette = 1.0 - 0.4 * (((yy - 240) / 240) ** 2 + ((xx - 320) / 320) ** 2)
+    flat = np.clip(200 * vignette + rng.randn(8, 480, 640) * 2, 0,
+                   255).astype(np.uint8)
+    cal = UniformityCalibrator(smoothing_kernel=31)
+    cal.build_map(flat)
+    bgr = rng.randint(0, 256, (4, 480, 640, 3), np.uint8)
+    for name, batch in (("mono8", flat), ("bgr", bgr)):
+        on_card = cal.apply_on_device(torch.from_numpy(batch).to(dev))
+        on_cpu = cal.apply_on_device(torch.from_numpy(batch))
+        if not (on_card.is_cuda and torch.equal(on_card.cpu(), on_cpu)):
+            fail(f"apply_on_device ({name}) on the card differs from the CPU")
+    if not np.array_equal(cal.apply_on_device(torch.from_numpy(flat).to(
+            dev)).cpu().numpy(), cal.apply(flat)):
+        fail("apply_on_device differs from apply")
+    phase("line path: UniformityCalibrator.apply_on_device on the card "
+          "equal to the CPU (Mono8 and BGR) and to apply")
+
+    # -- one line batch's upload: pageable against the pinned slots ---------
+    def rate(fn, nbytes, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+            torch.cuda.synchronize()
+        return nbytes / ((time.perf_counter() - t0) / iters) / 1e6
+
+    figures["upload_mb_s"] = {}
+    for h, w in ((480, 640), (H2, W2)):
+        batch = np.random.RandomState(1).randint(
+            0, 256, (4 * LINE_SETS, h, w), np.uint8)
+        up = PinnedUploader(2, dev)
+        shape = batch.shape
+        r = {"bytes": batch.nbytes,
+             "pageable": rate(lambda: torch.from_numpy(batch).to(dev),
+                              batch.nbytes),
+             "pinned_with_host_copy": rate(lambda: up.upload(batch),
+                                           batch.nbytes),
+             "pinned_slot": rate(lambda: up.upload(up.host_slot(shape)),
+                                 batch.nbytes)}
+        figures["upload_mb_s"][f"{w}x{h}"] = r
+        phase(f"{smi}: upload of one line batch {shape} ({batch.nbytes / 1e6:.1f}"
+              f" MB): pageable {r['pageable']:.0f} MB/s, pinned slot "
+              f"{r['pinned_slot']:.0f} MB/s, pinned with the host copy "
+              f"into the slot {r['pinned_with_host_copy']:.0f} MB/s")
+    return launches, figures
 
 
 def check_split(name, x, k, ct=CONTRAST):
@@ -2529,6 +2864,9 @@ def main(argv):
     # -- 4d: the system path -------------------------------------------------
     launches4, traced4, traced4_640, times4 = system_phases(dev, smi)
 
+    # -- 4e: the line path ---------------------------------------------------
+    launches4e, line = line_phases(dev, smi)
+
     # -- 3d, 5d: the split kernels and the profiling path --------------------
     split, t_roll, roll_launches = split_phases(dev, smi, cases)
 
@@ -2635,10 +2973,15 @@ def main(argv):
     for k in kernels:
         if k["name"] == "fused_detect":
             k["cuda_kernels_system_path_640x480"] = traced4_640
+    # the line path's launches (phase 4e); 0 for kernels off that path
+    for k in kernels + path_kernels:
+        k["launches_line_path"] = launches4e.get(k["name"], 0)
     print(json.dumps({"path_kernels": path_kernels}), flush=True)
     print(json.dumps({"system_path": dict(
         times4, cuda_kernels_2mp=traced4, cuda_kernels_640x480=traced4_640,
         launches=launches4)}), flush=True)
+    print(json.dumps({"line_path": dict(line, launches=launches4e)}),
+          flush=True)
     print(json.dumps({"end_to_end": dict(
         {"640x480x3": {"ms": e2e_s * 1e3, "host_ms": e2e_host}}, **e2e2,
         **e2e3), "batch": {"640x480x3": BATCH, "2mp": BATCH_2MP},

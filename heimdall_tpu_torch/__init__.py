@@ -36,14 +36,24 @@ Layers (mirroring heimdall_tpu):
   detectors/   Defect model + ContaminationDetector
   inspection/  Inspector framework -> InspectionResult;
                ContaminationInspector
-  runtime/     PLC client and RejectionController, diagnostics
+  runtime/     PLC client and RejectionController, diagnostics, the
+               frame ring and feeders (pinned-slot uploads), recovery,
+               the RT scheduler, ipc, Modbus/TCP, net
+  native_bridge  the C++ host runtime (native/libheimdall_native.so)
+               with fallbacks to the port's pipelines and detector
   models/      training-data capture
   perf/        metrics, profiling sessions (torch.profiler traces), reports
-  camera/      the camera HAL with its simulated cameras
+  camera/      the camera HAL with its simulated cameras, the 4-camera
+               GigE system, the Aravis hardware backend
+  lighting/    controllers, sync, calibration (the uniformity map on the
+               device), monitoring
   scripts/     profile_fused, profile_preprocess, ...: stage timings on
                the card
   examples/    performance_analysis: a profiling session around the
-               simulated camera and the detector
+               simulated camera and the detector; line_simulation (the
+               4-camera line: bottles/h and per-bottle latency),
+               realtime_processing, gige_bottle_inspection,
+               pet_bottle_inspection
   utils/       numpy drawing and host contour tracing
   config/      simulation.yaml, the simulated line of ``main -s``
   main.py      the command-line entry point

@@ -6,3 +6,10 @@ from heimdall_tpu_torch.camera.hal import (
     PixelFormat,
     TriggerMode,
 )
+from heimdall_tpu_torch.camera.gige import (
+    Frame,
+    FrameSet,
+    GigESystem,
+    SyncManager,
+    SyncMode,
+)

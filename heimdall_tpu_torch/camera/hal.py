@@ -7,8 +7,8 @@ factory with simulated backends, and frame→ndarray conversion.  Real
 GigE/Aravis hardware plugs in by registering a backend; everything in
 this repo is simulated (as in the reference, where every hardware
 interaction is a fake — SURVEY.md §4 "Fake backends").  The real-hardware
-backend "aravis-hw" (heimdall_tpu/camera/aravis.py) and the GigE system
-(gige.py) belong to the runtime slice of the port (ROADMAP.md, A7).
+backend "aravis-hw" drives a GigE camera through the native shim
+(camera/aravis.py).
 """
 
 import enum
@@ -290,6 +290,10 @@ class CameraFactory:
     @classmethod
     def create(cls, backend: str, camera_id: str,
                config: Dict[str, Any] = None) -> Camera:
+        if backend == "aravis-hw":
+            # real GigE hardware through the native dlopen shim
+            from heimdall_tpu_torch.camera.aravis import AravisHardwareCamera
+            return AravisHardwareCamera(camera_id, config)
         camera_cls = cls._BACKENDS.get(backend)
         if camera_cls is None:
             raise CameraError(CameraError.Kind.NOT_FOUND,

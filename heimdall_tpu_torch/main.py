@@ -23,7 +23,7 @@ from heimdall_tpu_torch.core.system import System
 
 DASHBOARD_MISSING = ("--dashboard needs heimdall_tpu_torch/serving/"
                      "dashboard.py, which is not ported yet (ROADMAP.md "
-                     "§A.3)")
+                     "§A.2)")
 
 
 def parse_args(argv=None):

@@ -175,9 +175,13 @@ class TestCameraHAL:
         assert infos[0].model == "acA1920-50gm"
 
     @pytest.mark.parametrize("backend", ["nope", "aravis-hw"])
-    def test_unknown_backend(self, backend):
+    def test_unknown_backend(self, backend, monkeypatch):
+        # "aravis-hw" is the real-hardware backend: on a host without
+        # libaravis (its shim reports none) its camera raises at initialize
+        from heimdall_tpu_torch.camera import aravis
+        monkeypatch.setattr(aravis, "_load_shim", lambda: None)
         with pytest.raises(CameraError):
-            CameraFactory.create(backend, "x")
+            CameraFactory.create(backend, "x").initialize()
 
 
 class TestPerformanceAnalysis:

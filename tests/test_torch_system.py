@@ -359,7 +359,7 @@ def test_main_diagnose_on_cpu(capsys):
 def test_main_dashboard_exits_with_its_message(capsys):
     assert tmain.main(["-s", "--dashboard", "--device", "cpu"]) != 0
     err = capsys.readouterr().err
-    assert "dashboard" in err and "ROADMAP.md §A.3" in err
+    assert "dashboard" in err and "ROADMAP.md §A.2" in err
 
 
 @NO_CARD
