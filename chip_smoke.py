@@ -149,6 +149,28 @@ Phases (each prints a line; any failure exits non-zero without a result):
         call, traced (B1's 11); UniformityCalibrator.apply_on_device on
         the card equal to the CPU; one line batch's upload, pageable
         against the pinned slots, in MB/s;
+     f. the serving path, with every wrapper's count set to 0 just before
+        and read just after and every plain version guarded: the
+        dashboard at its defaults (640x480, batch 4) on the card: /,
+        /api/stats, /api/latest, /metrics, two /api/stream events with
+        rising seq, a settings POST and a 404, the CLI's status, set,
+        latest and metrics against it, its fps and per-frame EMA, stop
+        with no loop thread left; main -s --dashboard --duration 3 (its
+        dashboard past 0 frames); ResultsViewer on a temporary results
+        directory; MultiClassDefectDetector.detect_batch on 32 bench
+        frames at 640x480 (the fused kernel) and 8 at 1920x1080 Mono8 (the
+        band route), the first 2 frames' defects equal to the CPU path;
+        the models at full width from seeded weights (UNet base 16,
+        classifier width 32, AE width 16) on 8 frames at 640x480:
+        DefectSegmenter.predict within 1e-5 of the CPU path,
+        SegmentationDetector on the card's map (the band route's kernels)
+        equal to the CPU path on that map, QuantizedSegmenter within 1e-6,
+        DefectClassifier on extract_blob_patches of the detector's table
+        and AnomalyDetector.score within 1e-2 (bf16); demosaic (4 Bayer
+        patterns) and yuv422_to_bgr at 1920x1080 equal to the CPU path;
+        each timed in ms per batch by CUDA events; the fused kernel, the
+        band route's preprocess, fill, labels, merge, banded stats and
+        bbox sums must each have launched;
   5. times with CUDA events after warm-up, the timed runs queued behind a
      spin kernel so that the host's time per call stays out: each kernel,
      its plain version and its bound, and which of bytes and operations
@@ -202,9 +224,10 @@ Phases (each prints a line; any failure exits non-zero without a result):
         version's, its bound (operations) and, for the cumsum variants,
         the torch.cumsum step's;
   6. JSON lines: each route's end-to-end and host ms per call, the system
-     path's times and traced launches, the line path's figures, and every
-     kernel with its check, times and launches on the system path and on
-     the line path;
+     path's times and traced launches, the line path's figures, the
+     serving path's figures (times, launches, the card), and every kernel
+     with its check, times and launches on the system path, the line path
+     and the serving path;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
 DIR/fused_detect_profile.txt, DIR/tiled_2mp_profile.txt (Mono8) and
@@ -268,6 +291,17 @@ STREAM_IN_FLIGHT = 3
 LINE_SETS = 8
 LINE_SECONDS = 3.0
 CHECK_BATCHES = 4
+# The serving path (phase 4f): the multi-class detector's batches at
+# 640x480 and 1920x1080 Mono8 and the models' batch; the float32 UNet's
+# tolerance against the CPU path (cuDNN sums in another order; 1.2e-7 read
+# on an H100) and the bf16 models' (the classifier's probabilities and the
+# autoencoder's relative scores; 2.3e-5 and 0 read on frame 0 of an H100):
+# a few times the readings, so that a missing bf16 step shows
+SERVE_BATCH = 32
+SERVE_BATCH_2MP = 8
+MODEL_BATCH = 8
+UNET_TOL = 1e-5
+BF16_TOL = 1e-4
 # the types whose Canny stage asks the host whether its hysteresis has
 # converged (one sync every 16 rounds); the others make none
 CANNY_TYPES = ("basic", "sidewall")
@@ -1427,10 +1461,15 @@ def guard_plains():
     return on_card
 
 
-def _defect_rows(results):
+def _defect_lists(defects):
     """Per frame, each defect's type, position, size, confidence, bbox and
     scores (Defect.to_dict), for exact comparison."""
-    return [[d.to_dict() for d in r.defects] for r in results]
+    return [[d.to_dict() for d in r] for r in defects]
+
+
+def _defect_rows(results):
+    """_defect_lists of inspection results."""
+    return _defect_lists([r.defects for r in results])
 
 
 def system_phases(dev, smi):
@@ -1986,6 +2025,355 @@ def line_phases(dev, smi):
               f" MB): pageable {r['pageable']:.0f} MB/s, pinned slot "
               f"{r['pinned_slot']:.0f} MB/s, pinned with the host copy "
               f"into the slot {r['pinned_with_host_copy']:.0f} MB/s")
+    return launches, figures
+
+
+def _http(port, path, data=None):
+    """(status, body) of one request to a server of this process."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data,
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def _sse_events(port, n, start):
+    """The first n server-sent events of the dashboard's /api/stream, the
+    stream opened before start() is called."""
+    import socket
+    sock = socket.create_connection(("127.0.0.1", port), timeout=10)
+    try:
+        sock.sendall(b"GET /api/stream HTTP/1.1\r\nHost: localhost\r\n"
+                     b"Accept: text/event-stream\r\n\r\n")
+        sock.settimeout(120)
+        start()
+        buf, events = b"", []
+        while len(events) < n:
+            chunk = sock.recv(65536)
+            if not chunk:
+                fail("the dashboard's event stream closed early")
+            buf += chunk
+            while b"\n\n" in buf:
+                block, buf = buf.split(b"\n\n", 1)
+                events += [json.loads(line[6:]) for line in
+                           block.splitlines() if line.startswith(b"data: ")]
+    finally:
+        sock.close()
+    return events[:n]
+
+
+def serving_phases(dev, smi):
+    """Phase 4f, the serving path on the card: the dashboard (every
+    endpoint, two server-sent events, the CLI against it, stop with no loop
+    thread left), main -s --dashboard, the results viewer, the multi-class
+    detector at 640x480 and 1920x1080 Mono8, the models at full width
+    (DefectSegmenter, SegmentationDetector on the card's mask,
+    QuantizedSegmenter, DefectClassifier on the detector's blob patches,
+    AnomalyDetector) and demosaic/YUV at 1920x1080.  Every wrapper's launch
+    count is set to 0 just before and read just after, and no plain version
+    may run on a CUDA tensor in between.  Returns ({wrapper: launches}, the
+    phase's figures)."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import cli, scene
+    from heimdall_tpu_torch import main as tmain
+    from heimdall_tpu_torch.detectors.contamination_detector import (
+        download_table)
+    from heimdall_tpu_torch.detectors.multi_defect import (
+        MultiClassDefectDetector)
+    from heimdall_tpu_torch.models import (AnomalyDetector, DefectClassifier,
+                                           DefectSegmenter,
+                                           QuantizedSegmenter,
+                                           SegmentationDetector,
+                                           extract_blob_patches)
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import demosaic
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    from heimdall_tpu_torch.ops import preprocess_tiled as pt
+    from heimdall_tpu_torch.ops import runtable_tiled as rt
+    from heimdall_tpu_torch.ops import stats_tiled as st
+    from heimdall_tpu_torch.serving import DashboardServer, ResultsViewer
+    from heimdall_tpu_torch.serving import dashboard
+
+    wrappers = {"preprocess": fk.preprocess, "flood_fill": ct.flood_fill,
+                "band_ccl": ct.band_ccl, "merge_bands": ct.merge_bands,
+                "banded_stats": st.banded_stats, "bbox_sums": st.bbox_sums,
+                "fused_detect": fk.contamination_fused,
+                "preprocess_tiled": pt.contamination_preprocess_tiled,
+                "run_extract": rt.run_extract, "flood_fix": rt.flood_fix,
+                "fill_extract": rt.fill_extract, "label_fix": rt.label_fix,
+                "writeback": rt.writeback}
+    must = ("fused_detect", "preprocess", "flood_fill", "band_ccl",
+            "merge_bands", "banded_stats", "bbox_sums")
+    figures = {"card": smi, "ms": {}}
+    ms = figures["ms"]
+
+    def timed(name, fn, iters=3):
+        fn()
+        ms[name] = cuda_ms_only(lambda: None, fn, iters)
+        return ms[name]
+
+    def loop_threads():
+        return [t for t in threading.enumerate()
+                if t.name == "dashboard-loop"]
+
+    def quiet(fn):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = fn()
+        return rc, out.getvalue()
+
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    plain_on_card = guard_plains()
+    try:
+        # -- the dashboard at its defaults (640x480, batch 4) ---------------
+        srv = DashboardServer(port=0, device=dev)
+        srv.start_background()
+        try:
+            port = srv.port
+            code, page = _http(port, "/")
+            stats0 = json.loads(_http(port, "/api/stats")[1])
+            events = _sse_events(
+                port, 2, lambda: _http(port, "/api/start", b""))
+            if not (code == 200 and b"Heimdall" in page
+                    and stats0["running"] is False
+                    and events[0]["seq"] < events[1]["seq"]
+                    and events[1]["stats"]["frames_processed"] > 0):
+                fail(f"dashboard: page {code}, first stats {stats0}, "
+                     f"events {[e['seq'] for e in events]}")
+            latest = json.loads(_http(port, "/api/latest")[1])
+            code_m, metrics = _http(port, "/metrics")
+            code_s, settings = _http(port, "/api/settings",
+                                     json.dumps({"min_confidence": 0.3})
+                                     .encode())
+            code_404, _ = _http(port, "/no/such/path")
+            rc_status, out_status = quiet(lambda: cli.main(
+                ["--port", str(port), "status"]))
+            rc_set, _ = quiet(lambda: cli.main(
+                ["--port", str(port), "set", "batch_size", "4"]))
+            rc_latest, out_latest = quiet(lambda: cli.main(
+                ["--port", str(port), "latest"]))
+            rc_metrics, out_metrics = quiet(lambda: cli.main(
+                ["--port", str(port), "metrics"]))
+            if not ("defect_count" in latest and code_m == 200
+                    and b"heimdall_frames_total" in metrics
+                    and code_s == 200
+                    and json.loads(settings)["settings"]["batch_size"] == 4
+                    and code_404 == 404
+                    and rc_status == rc_set == rc_latest == rc_metrics == 0
+                    and json.loads(out_status)["running"] is True
+                    and "defect_count" in json.loads(out_latest)
+                    and "heimdall_frames_total" in out_metrics):
+                fail(f"dashboard endpoints or CLI: latest {sorted(latest)}, "
+                     f"metrics {code_m}, settings {code_s}, 404 "
+                     f"{code_404}, CLI {rc_status, rc_set, rc_latest}")
+            time.sleep(2)
+            stats = json.loads(_http(port, "/api/stats")[1])
+            stopped = json.loads(_http(port, "/api/stop", b"")[1])
+        finally:
+            srv.shutdown()
+        if stopped != {"stopped": True, "running": False} or loop_threads():
+            fail(f"dashboard stop: {stopped}, loop threads {loop_threads()}")
+        figures["dashboard"] = {k: stats[k] for k in (
+            "frames_processed", "defects_detected", "fps",
+            "avg_processing_time")}
+        figures["dashboard"]["has_image"] = "image" in latest
+        phase(f"serving path: dashboard (640x480, batch 4) served /, "
+              f"/api/stats, /api/latest, /metrics, two events (seq "
+              f"{events[0]['seq']}, {events[1]['seq']}), settings and a "
+              f"404; the CLI's status, set, latest and metrics; stopped "
+              f"with no loop thread left; {stats['frames_processed']} "
+              f"frames; {smi}: fps {stats['fps']:.1f}, per-frame EMA "
+              f"{stats['avg_processing_time'] * 1e3:.3f} ms; preview image "
+              f"{'yes' if 'image' in latest else 'no (no cv2)'}")
+
+        # -- main -s --dashboard, its server on a free port (main imports
+        # DashboardServer when it starts one; a fixed port would meet
+        # another run's dashboard) ------------------------------------------
+        servers, real_server = [], dashboard.DashboardServer
+
+        class FreePort(real_server):
+            def __init__(self, port=0, **kwargs):
+                super().__init__(port=0, **kwargs)
+                servers.append(self)
+
+        status = {}
+        dashboard.DashboardServer = FreePort
+        try:
+            rc = tmain.main(["-s", "--dashboard", "--duration", "3"], status)
+        finally:
+            dashboard.DashboardServer = real_server
+        served = status.get("dashboard", {}).get("frames_processed", 0)
+        if rc != 0 or served == 0 or loop_threads() or len(servers) != 1:
+            fail(f"main -s --dashboard returned {rc}, its dashboard "
+                 f"served {served} frames")
+        figures["main_dashboard_frames"] = served
+        phase(f"serving path: main -s --dashboard --duration 3 returned 0;"
+              f" its dashboard processed {served} frames")
+
+        # -- the results viewer ---------------------------------------------
+        with tempfile.TemporaryDirectory() as results:
+            for i in (1, 2):
+                for kind in ("original", "processed", "visualization"):
+                    with open(os.path.join(results, f"{kind}_{i}.jpg"),
+                              "wb") as fh:
+                        fh.write(bytes([i]) * 64)
+            viewer = ResultsViewer(results, port=0)
+            viewer.start_background()
+            try:
+                images = json.loads(_http(viewer.port, "/api/images")[1])
+                code, body = _http(viewer.port, "/images/original_2.jpg")
+            finally:
+                viewer.shutdown()
+        if images["count"] != 6 or code != 200 or body != bytes([2]) * 64:
+            fail(f"results viewer: {images}, image {code}")
+        phase("serving path: ResultsViewer served 2 inspection sets of 3")
+
+        # -- the multi-class detector ----------------------------------------
+        multi = MultiClassDefectDetector(device=dev)
+        multi_cpu = MultiClassDefectDetector(device="cpu")
+        f640 = scene.make_frames(SERVE_BATCH, seed=0)
+        f2mp = np.ascontiguousarray(scene.make_frames(
+            SERVE_BATCH_2MP, H2, W2, seed=2)[..., 1])
+        figures["multi_class_defects_first_2"] = {}
+        for size, frames in (("640x480x3", f640), ("1920x1080_mono8", f2mp)):
+            got = multi.detect_batch(frames)
+            want = multi_cpu.detect_batch(frames[:2])
+            if _defect_lists(got[:2]) != _defect_lists(want):
+                fail(f"multi-class {size}: the first 2 frames' defects "
+                     f"differ from the CPU path")
+            t = timed(f"multi_class_{size}",
+                      lambda: multi.detect_batch(frames))
+            kinds = {}
+            for d in sum(got, []):
+                kinds[d.defect_type] = kinds.get(d.defect_type, 0) + 1
+            figures["multi_class_defects_first_2"][size] = sum(map(len,
+                                                                   want))
+            phase(f"serving path: MultiClassDefectDetector {size}: first 2 "
+                  f"frames equal to the CPU path; kinds {kinds}; {smi}: "
+                  f"{t:.3f} ms per batch of {len(frames)}")
+
+        # -- the models at full width ------------------------------------------
+        frames = scene.ring_frames(MODEL_BATCH, 480, 640, seed=3)
+        seg = DefectSegmenter(base=16, seed=0, device=dev)
+        prob = seg.predict(frames)
+        seg_cpu = DefectSegmenter(base=16, seed=0, device="cpu")
+        err = float(np.abs(prob - seg_cpu.predict(frames)).max())
+        if not (prob.shape == frames.shape[:3] and np.isfinite(prob).all()
+                and err <= UNET_TOL):
+            fail(f"DefectSegmenter on the card: shape {prob.shape}, "
+                 f"max |card - cpu| {err}")
+        figures["unet_max_abs_err"] = err
+        timed("segmenter_predict", lambda: seg.predict(frames))
+
+        class _Map:
+            def predict(self, images):
+                return prob
+
+        # the seeded UNet's map is speckle with a few blobs: its top 0.5%,
+        # every blob kept (a lone pixel's area by Pick's rule is -0.5)
+        cfg = {"threshold": float(np.percentile(prob, 99.5)),
+               "min_contaminant_size": -1}
+        det = SegmentationDetector(_Map(), config=cfg, device=dev)
+        got = det.detect_batch(frames)
+        want = SegmentationDetector(_Map(), config=cfg,
+                                    device="cpu").detect_batch(frames)
+        if _defect_lists(got) != _defect_lists(want) or not sum(map(len,
+                                                                    got)):
+            fail("SegmentationDetector on the card's mask differs from the "
+                 "CPU path or found nothing")
+        figures["segmentation_defects"] = sum(map(len, got))
+        timed("segmentation_detector", lambda: det.detect_batch(frames))
+
+        q = QuantizedSegmenter.from_segmenter(seg, frames[:2])
+        q_prob = q.predict(frames)
+        q_cpu = QuantizedSegmenter(q.qparams, device="cpu")
+        q_err = float(np.abs(q_prob - q_cpu.predict(frames)).max())
+        if not (np.isfinite(q_prob).all() and q_err <= 1e-6):
+            fail(f"QuantizedSegmenter on the card: max |card - cpu| "
+                 f"{q_err}")
+        figures["int8_max_abs_err"] = q_err
+        figures["int8_vs_float_max_abs"] = float(np.abs(q_prob - prob).max())
+        timed("quantized_predict", lambda: q.predict(frames))
+
+        table = download_table(*multi._front.run_device(f640))[0]
+        patches = extract_blob_patches(f640, table)
+        clf = DefectClassifier(seed=0, device=dev)
+        p = clf.predict(patches)
+        c_err = float(np.abs(p - DefectClassifier(
+            seed=0, device="cpu").predict(patches)).max())
+        if not (len(patches) and p.shape == (len(patches), 2)
+                and c_err <= BF16_TOL):
+            fail(f"DefectClassifier on {len(patches)} patches: max |card - "
+                 f"cpu| {c_err}")
+        figures["classifier_patches"] = len(patches)
+        figures["classifier_max_abs_err"] = c_err
+        timed("classifier_predict", lambda: clf.predict(patches))
+
+        ae = AnomalyDetector(seed=0, device=dev)
+        gray = frames[..., 1]
+        score = ae.score(gray)
+        a_cpu = AnomalyDetector(seed=0, device="cpu").score(gray)
+        a_err = float((np.abs(score - a_cpu) / a_cpu).max())
+        if not (score.shape == (len(gray),) and a_err <= BF16_TOL):
+            fail(f"AnomalyDetector.score: relative |card - cpu| {a_err}")
+        figures["anomaly_rel_err"] = a_err
+        timed("anomaly_score", lambda: ae.score(gray))
+        phase(f"serving path: models at full width (UNet base 16, "
+              f"classifier width 32, AE width 16), {MODEL_BATCH} ring "
+              f"frames 640x480: UNet max |card - cpu| {err:.3g} (tolerance "
+              f"{UNET_TOL}); SegmentationDetector {figures['segmentation_defects']}"
+              f" defects equal to the CPU path on the card's map; int8 "
+              f"{q_err:.3g} (1e-6); classifier on {len(patches)} blob "
+              f"patches {c_err:.3g} and AE score {a_err:.3g} relative (bf16,"
+              f" {BF16_TOL}); {smi}: " + ", ".join(
+                  f"{k} {ms[k]:.3f} ms" for k in (
+                      "segmenter_predict", "segmentation_detector",
+                      "quantized_predict", "classifier_predict",
+                      "anomaly_score")) + " per batch")
+
+        # -- demosaic and YUV at 1920x1080 ---------------------------------------
+        rng = np.random.RandomState(7)
+        raw = rng.randint(0, 256, (H2, W2)).astype(np.uint8)
+        raw_card = torch.from_numpy(raw).to(dev)
+        for pattern in ("rg", "gr", "gb", "bg"):
+            out = demosaic.demosaic_bilinear(raw_card, pattern)
+            if not torch.equal(out.cpu(), demosaic.demosaic_bilinear(
+                    raw, pattern, device="cpu")):
+                fail(f"demosaic {pattern} on the card differs from the CPU")
+            timed(f"demosaic_{pattern}",
+                  lambda: demosaic.demosaic_bilinear(raw_card, pattern))
+        yuv = rng.randint(0, 256, (H2, 2 * W2)).astype(np.uint8)
+        yuv_card = torch.from_numpy(yuv).to(dev)
+        if not torch.equal(demosaic.yuv422_to_bgr(yuv_card).cpu(),
+                           demosaic.yuv422_to_bgr(yuv, device="cpu")):
+            fail("yuv422_to_bgr on the card differs from the CPU")
+        timed("yuv422_to_bgr", lambda: demosaic.yuv422_to_bgr(yuv_card))
+        phase(f"serving path: demosaic (4 patterns) and yuv422_to_bgr at "
+              f"1920x1080 equal to the CPU path; {smi}: " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in ms.items()
+                  if k.startswith(("demosaic", "yuv"))))
+    finally:
+        guard_plains.restore()
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    phase(f"serving path launched {launches}")
+    if plain_on_card:
+        fail(f"plain versions ran on the card: {sorted(set(plain_on_card))}")
+    if not all(launches[n] for n in must):
+        fail(f"the serving path did not go through every kernel of its "
+             f"path: {launches}")
     return launches, figures
 
 
@@ -2867,6 +3255,9 @@ def main(argv):
     # -- 4e: the line path ---------------------------------------------------
     launches4e, line = line_phases(dev, smi)
 
+    # -- 4f: the serving path --------------------------------------------------
+    launches4f, serving = serving_phases(dev, smi)
+
     # -- 3d, 5d: the split kernels and the profiling path --------------------
     split, t_roll, roll_launches = split_phases(dev, smi, cases)
 
@@ -2973,14 +3364,18 @@ def main(argv):
     for k in kernels:
         if k["name"] == "fused_detect":
             k["cuda_kernels_system_path_640x480"] = traced4_640
-    # the line path's launches (phase 4e); 0 for kernels off that path
+    # the line path's launches (phase 4e) and the serving path's (phase
+    # 4f); 0 for kernels off that path
     for k in kernels + path_kernels:
         k["launches_line_path"] = launches4e.get(k["name"], 0)
+        k["launches_serving_path"] = launches4f.get(k["name"], 0)
     print(json.dumps({"path_kernels": path_kernels}), flush=True)
     print(json.dumps({"system_path": dict(
         times4, cuda_kernels_2mp=traced4, cuda_kernels_640x480=traced4_640,
         launches=launches4)}), flush=True)
     print(json.dumps({"line_path": dict(line, launches=launches4e)}),
+          flush=True)
+    print(json.dumps({"serving_path": dict(serving, launches=launches4f)}),
           flush=True)
     print(json.dumps({"end_to_end": dict(
         {"640x480x3": {"ms": e2e_s * 1e3, "host_ms": e2e_host}}, **e2e2,

@@ -27,13 +27,15 @@ Layers (mirroring heimdall_tpu):
                InspectionStations, ResultRepository
   ops/         color, filters (blur, box, Sobel, Canny), threshold (fixed,
                Otsu, Triangle, adaptive), histogram (equalize, CLAHE),
-               hough, morphology, ccl, blobs (plain PyTorch), and the
-               wrappers of the CUDA kernels with their plain versions:
+               hough, morphology, ccl, blobs, demosaic (plain PyTorch),
+               and the wrappers of the CUDA kernels with their plain
+               versions:
                fused_kernels (640x480), preprocess_tiled, runtable_tiled,
                ccl_tiled, stats_tiled (2 MP routes), split_kernels (the
                label and stats kernels and the label kernel's stages)
   csrc/        CUDA C++ sources, built by ops/_cuda.py at first use
-  detectors/   Defect model + ContaminationDetector
+  detectors/   Defect model, ContaminationDetector and
+               MultiClassDefectDetector
   inspection/  Inspector framework -> InspectionResult;
                ContaminationInspector
   runtime/     PLC client and RejectionController, diagnostics, the
@@ -41,7 +43,12 @@ Layers (mirroring heimdall_tpu):
                the RT scheduler, ipc, Modbus/TCP, net
   native_bridge  the C++ host runtime (native/libheimdall_native.so)
                with fallbacks to the port's pipelines and detector
-  models/      training-data capture
+  models/      inference of the segmentation UNet (float and int8) and
+               its detector, the blob-patch classifier and the anomaly
+               autoencoder; convert (flax parameters to state_dicts);
+               training-data capture
+  serving/     the live dashboard (REST, server-sent events) and the
+               results viewer
   perf/        metrics, profiling sessions (torch.profiler traces), reports
   camera/      the camera HAL with its simulated cameras, the 4-camera
                GigE system, the Aravis hardware backend
@@ -56,7 +63,8 @@ Layers (mirroring heimdall_tpu):
                pet_bottle_inspection
   utils/       numpy drawing and host contour tracing
   config/      simulation.yaml, the simulated line of ``main -s``
-  main.py      the command-line entry point
+  main.py      the command-line entry point (--dashboard serves the
+               dashboard); cli.py the dashboard's control CLI
   scene.py     the bench scene generator
 """
 

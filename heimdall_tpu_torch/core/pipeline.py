@@ -15,7 +15,7 @@ turns those outputs, as numpy arrays, into host-side context entries
 (contour lists, Hough segments).  "<fused>" times the whole chain.
 
 The contour stage labels through the band-tiled wrappers
-(ops/ccl_tiled.py::connected_components_tiled, ops/stats_tiled.py::
+(ops/stats_tiled.py::label_and_table: connected_components_tiled, then
 blob_stats_tiled), which launch the hand-written kernels on a CUDA tensor
 and run their plain versions on a CPU tensor.  A pipeline runs on CUDA
 unless it is given ``device="cpu"``; it raises where there is no card.
@@ -33,8 +33,7 @@ from heimdall_tpu_torch.detectors.contamination_detector import (
 from heimdall_tpu_torch.ops import color, filters, histogram, hough
 from heimdall_tpu_torch.ops import morphology, threshold as thresh_ops
 from heimdall_tpu_torch.ops.blobs import BlobTable
-from heimdall_tpu_torch.ops.ccl_tiled import connected_components_tiled
-from heimdall_tpu_torch.ops.stats_tiled import blob_stats_tiled
+from heimdall_tpu_torch.ops.stats_tiled import label_and_table
 from heimdall_tpu_torch.utils import contours as contours_mod
 
 logger = logging.getLogger("heimdall.pipeline")
@@ -355,13 +354,9 @@ class ContourDetectionStage(ProcessingStage):
         else:
             binary = image
         mask = (binary > 0).contiguous()
-        labels, roots, n, slot_list, slot_count = connected_components_tiled(
-            mask, connectivity=8, band=TILED_BAND,
-            return_roots=self.max_blobs, band_slots=True)
-        table = blob_stats_tiled(
-            labels, mask, binary.contiguous(), None, band=TILED_BAND,
-            max_blobs=self.max_blobs, use_color=False, root_table=roots,
-            root_count=n, slot_list=slot_list, slot_count=slot_count)
+        labels, table = label_and_table(
+            mask, binary.contiguous(), band=TILED_BAND,
+            max_blobs=self.max_blobs, use_color=False)
         ok = (table.valid & (table.area >= self.min_area)
               & (table.area <= self.max_area))
         aux[self.name] = {"labels": labels, "table": table, "ok": ok}

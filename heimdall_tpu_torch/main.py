@@ -7,10 +7,11 @@ API-compatible with the reference CLI (heimdall/main.py:14-164):
 package's 2-camera / 2-station config (the same cam_1/cam_2 + base/
 sidewall layout, ``config/simulation.yaml``).  --duration N runs for N
 seconds; --diagnose runs the diagnostics and exits; --device picks the
-device (CUDA unless "cpu" is named).  --dashboard needs the serving layer,
-which the port does not have yet: it exits with an error.
+device (CUDA unless "cpu" is named); --dashboard also serves the live
+dashboard (serving/dashboard.py, port 59858) with its inspection loop on
+the same device, and shuts it down with the system.
 
-    python -m heimdall_tpu_torch.main -s --duration 10
+    python -m heimdall_tpu_torch.main -s --duration 10 [--dashboard]
 """
 
 import argparse
@@ -20,10 +21,6 @@ import sys
 import time
 
 from heimdall_tpu_torch.core.system import System
-
-DASHBOARD_MISSING = ("--dashboard needs heimdall_tpu_torch/serving/"
-                     "dashboard.py, which is not ported yet (ROADMAP.md "
-                     "§A.2)")
 
 
 def parse_args(argv=None):
@@ -36,7 +33,7 @@ def parse_args(argv=None):
     parser.add_argument("-s", "--simulation", action="store_true",
                         help="Run in simulation mode")
     parser.add_argument("--dashboard", action="store_true",
-                        help="Also serve the live dashboard (not ported)")
+                        help="Also serve the live dashboard")
     parser.add_argument("--diagnose", action="store_true",
                         help="Run diagnostics and exit")
     parser.add_argument("--duration", type=float, default=0,
@@ -95,7 +92,8 @@ def configure_simulation_system(system: System) -> None:
 
 def main(argv=None, status=None):
     """Run the CLI; returns the exit code.  A dict passed as ``status``
-    receives the system's get_status() at shutdown."""
+    receives the system's get_status() at shutdown (and, with --dashboard,
+    the dashboard's stats under "dashboard")."""
     args = parse_args(argv)
     log_level = logging.DEBUG if args.debug else logging.INFO
     logging.basicConfig(
@@ -103,10 +101,6 @@ def main(argv=None, status=None):
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     logger = logging.getLogger("heimdall.main")
     logger.info("Starting Heimdall")
-
-    if args.dashboard:
-        print(DASHBOARD_MISSING, file=sys.stderr)
-        return 2
 
     if args.diagnose:
         from heimdall_tpu_torch.runtime.diagnostics import run_diagnostics
@@ -126,6 +120,14 @@ def main(argv=None, status=None):
         logger.info("Configuring simulation mode")
         configure_simulation_system(system)
 
+    dashboard = None
+    if args.dashboard:
+        from heimdall_tpu_torch.serving.dashboard import DashboardServer
+        dashboard = DashboardServer(device=args.device)
+        dashboard.start_background()
+        dashboard.state.start()
+        logger.info("Dashboard on port %d", dashboard.port)
+
     try:
         system.start()
         logger.info("System running. Press Ctrl+C to stop.")
@@ -138,6 +140,9 @@ def main(argv=None, status=None):
     finally:
         system.stop()
         final = system.get_status()
+        if dashboard is not None:
+            dashboard.shutdown()
+            final["dashboard"] = dashboard.state.snapshot_stats()
         if status is not None:
             status.update(final)
         for sid, st in final["stations"].items():

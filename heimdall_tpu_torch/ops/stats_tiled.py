@@ -25,7 +25,9 @@ import torch
 from heimdall_tpu_torch.ops.blobs import (BlobTable, N_SUMS, box_sums,
                                           slot_sums, table_from_sums)
 from heimdall_tpu_torch.ops._launch import check_cuda, raise_on, stream
-from heimdall_tpu_torch.ops.ccl_tiled import MAX_SLOTS, label_slots
+from heimdall_tpu_torch.ops.ccl_tiled import (MAX_SLOTS,
+                                              connected_components_tiled,
+                                              label_slots)
 
 
 def check_sum_bound(H: int, W: int):
@@ -207,3 +209,19 @@ def blob_stats_tiled(labels, mask, gray, color=None, band: int = 256,
                     channel_major)
     return table_from_sums(sums, bbox, box, root_count,
                            use_color=color is not None)
+
+
+def label_and_table(mask, gray, color=None, band: int = 256,
+                    max_blobs: int = 64, use_color: bool = True,
+                    channel_major: bool = False):
+    """The band route from a filled mask: connected_components_tiled
+    (8-connected, the first ``max_blobs`` roots and each band's slot lists),
+    then blob_stats_tiled on its outputs.  Returns (labels, BlobTable)."""
+    labels, roots, n, slot_list, slot_count = connected_components_tiled(
+        mask, connectivity=8, band=band, return_roots=max_blobs,
+        band_slots=True)
+    return labels, blob_stats_tiled(
+        labels, mask, gray, color, band=band, max_blobs=max_blobs,
+        use_color=use_color, root_table=roots, root_count=n,
+        slot_list=slot_list, slot_count=slot_count,
+        channel_major=channel_major)

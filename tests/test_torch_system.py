@@ -12,7 +12,10 @@ its reciprocal: ROADMAP.md §C).
 import functools
 import json
 import os
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -31,7 +34,7 @@ from heimdall_tpu.runtime import diagnostics as jdiag
 from heimdall_tpu.runtime import plc as jplc
 
 import heimdall_tpu_torch
-from heimdall_tpu_torch import scene
+from heimdall_tpu_torch import cli, scene
 from heimdall_tpu_torch import main as tmain
 from heimdall_tpu_torch.core import acquisition, config, results, system
 from heimdall_tpu_torch.core.pipeline import Pipeline
@@ -42,6 +45,7 @@ from heimdall_tpu_torch.inspection import (ContaminationInspector,
                                            InspectionResult)
 from heimdall_tpu_torch.models import capture
 from heimdall_tpu_torch.runtime import diagnostics, plc
+from heimdall_tpu_torch.serving import dashboard
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NO_CARD = pytest.mark.skipif(torch.cuda.is_available(),
@@ -356,10 +360,48 @@ def test_main_diagnose_on_cpu(capsys):
     assert "Diagnostics: 3/3 passed" in capsys.readouterr().out
 
 
-def test_main_dashboard_exits_with_its_message(capsys):
-    assert tmain.main(["-s", "--dashboard", "--device", "cpu"]) != 0
-    err = capsys.readouterr().err
-    assert "dashboard" in err and "ROADMAP.md §A.2" in err
+def test_main_dashboard_serves_and_the_cli_drives_it(capsys, monkeypatch):
+    """``main -s --dashboard`` serves the dashboard for the run's duration,
+    its loop on the run's device, and shuts it down with the system (JAX's
+    behaviour; the port exited with an error before its serving layer was
+    ported).  The server binds a free port (main imports DashboardServer
+    when it starts one, so the patch reaches it), which the CLI is pointed
+    at: a fixed port would meet another run's dashboard."""
+    status, seen, servers = {}, {}, []
+
+    class FreePort(dashboard.DashboardServer):
+        def __init__(self, port=0, **kwargs):
+            super().__init__(port=0, **kwargs)
+            servers.append(self)
+
+    monkeypatch.setattr(dashboard, "DashboardServer", FreePort)
+
+    def run():
+        seen["rc"] = tmain.main(["-s", "--dashboard", "--duration", "1",
+                                 "--device", "cpu"], status)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        deadline = time.time() + 30
+        while not servers or cli.main(
+                ["--port", str(servers[0].port), "status"]) != 0:
+            assert time.time() < deadline and thread.is_alive()
+            time.sleep(0.1)
+        assert json.loads(capsys.readouterr().out)["running"] is True
+    finally:
+        thread.join(timeout=120)
+    assert not thread.is_alive() and seen["rc"] == 0
+    assert len(servers) == 1
+    assert status["dashboard"]["frames_processed"] > 0
+    assert status["dashboard"]["running"] is False
+    assert set(status["stations"]) == {"base_inspection",
+                                       "sidewall_inspection"}
+    assert not [t for t in threading.enumerate()
+                if t.name == "dashboard-loop"]
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(
+            f"http://127.0.0.1:{servers[0].port}/api/stats", timeout=10)
 
 
 @NO_CARD
@@ -368,7 +410,9 @@ def test_entry_points_raise_without_a_card():
                  lambda: Pipeline("p"),
                  lambda: ContaminationInspector("i"),
                  lambda: diagnostics.run_diagnostics(),
-                 lambda: tmain.main(["-s", "--duration", "0.1"])):
+                 lambda: tmain.main(["-s", "--duration", "0.1"]),
+                 lambda: tmain.main(["-s", "--dashboard", "--duration",
+                                     "0.1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
