@@ -171,6 +171,25 @@ Phases (each prints a line; any failure exits non-zero without a result):
         each timed in ms per batch by CUDA events; the fused kernel, the
         band route's preprocess, fill, labels, merge, banded stats and
         bbox sums must each have launched;
+     g. the multi-device path (heimdall_tpu_torch/parallel): the three
+        shard entries (flood_fill_sp, band_ccl_sp, banded_stats_sp: B5b,
+        B5a and B4a on a shard of a frame's rows) against their plain
+        versions, exactly, on the 2 MP bench frames' binary planes and on
+        scene.tile_case_masks and label_case_masks at 1920x1080 and 64x96,
+        cut into 4 and 3 shards (random reached halos, bands of a shard
+        and bands that cut it, K = 64 and 4, colour and gray), and each
+        timed per call on a shard of 4x270x1920 beside its plain version
+        and byte bound; then, with every wrapper's count set to 0 in each
+        rank, make_tiled_spatial_step on 4 bench frames at 1920x1080 BGR
+        over a 1x4 world on the one card (four processes started by
+        parallel/launch.py, gloo, the collectives staged through pinned
+        host buffers; every kernel on the card), each rank's table,
+        confidence and gates equal to the single-card detector's, the
+        ranks agreeing on the flood's rounds, each shard entry launched,
+        and the step timed; and a 1-rank NCCL world through both
+        data-parallel steps and the line step at 640x480 (8 frames) and
+        1920x1080 BGR (4), equal to the single-card detector, the line
+        totals equal to its tables';
   5. times with CUDA events after warm-up, the timed runs queued behind a
      spin kernel so that the host's time per call stays out: each kernel,
      its plain version and its bound, and which of bytes and operations
@@ -225,9 +244,10 @@ Phases (each prints a line; any failure exits non-zero without a result):
         the torch.cumsum step's;
   6. JSON lines: each route's end-to-end and host ms per call, the system
      path's times and traced launches, the line path's figures, the
-     serving path's figures (times, launches, the card), and every kernel
-     with its check, times and launches on the system path, the line path
-     and the serving path;
+     serving path's figures (times, launches, the card), the
+     multi-device path's figures, and every kernel with its check, times
+     and launches on the system path, the line path, the serving path and
+     the multi-device path;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
 DIR/fused_detect_profile.txt, DIR/tiled_2mp_profile.txt (Mono8) and
@@ -3068,6 +3088,369 @@ def primitive_phases(dev, smi):
     return entries
 
 
+# The multi-device path (phase 4g): the 2 MP frames of the spatial step, its
+# world (ranks x spatial shards on the one card), the band request of the
+# JAX entry, the 1-rank data-parallel and line steps' batches, and the
+# timed steps.
+SP_BATCH = 4
+SP_RANKS = 4
+SP_BAND = 128
+DP_BATCH_640 = 8
+DP_BATCH_2MP = 4
+SP_STEP_ITERS = 3
+SP_GATES = (CONTRAST, 10.0, 3000.0, 0.25)   # the detector's defaults
+SP_WRAPPERS = ("flood_fill_sp", "band_ccl_sp", "banded_stats_sp",
+               "bbox_sums", "preprocess")
+
+
+def _sp_wrappers():
+    """Every wrapper that the multi-device path may launch, by name."""
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    from heimdall_tpu_torch.ops import preprocess_tiled as pt
+    from heimdall_tpu_torch.ops import runtable_tiled as rt
+    from heimdall_tpu_torch.ops import stats_tiled as st
+    return {"flood_fill_sp": ct.flood_fill_sp, "band_ccl_sp": ct.band_ccl_sp,
+            "banded_stats_sp": st.banded_stats_sp,
+            "bbox_sums": st.bbox_sums, "preprocess": fk.preprocess,
+            "flood_fill": ct.flood_fill, "band_ccl": ct.band_ccl,
+            "merge_bands": ct.merge_bands, "banded_stats": st.banded_stats,
+            "fused_detect": fk.contamination_fused,
+            "preprocess_tiled": pt.contamination_preprocess_tiled,
+            "run_extract": rt.run_extract, "flood_fix": rt.flood_fix,
+            "fill_extract": rt.fill_extract, "label_fix": rt.label_fix,
+            "writeback": rt.writeback}
+
+
+def sp_rank(frames, k):
+    """One rank of phase 4g's 1 x SP_RANKS world on the card: the
+    spatially-sharded step on its rows of the 2 MP frames, the wrappers'
+    counts from 0 around it, then SP_STEP_ITERS timed steps."""
+    import torch
+    import torch.distributed as dist
+    from heimdall_tpu_torch.parallel.mesh import make_mesh
+    from heimdall_tpu_torch.parallel.sharding import shard_batch
+    from heimdall_tpu_torch.parallel.tiled_sp import (
+        connected_components_tiled_sp, fill_holes_tiled_sp,
+        make_tiled_spatial_step)
+
+    mesh = make_mesh(data=1, spatial=dist.get_world_size())
+    x = shard_batch(mesh, frames, spatial=True)
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    step = make_tiled_spatial_step(mesh, band=SP_BAND, max_blobs=k)
+    wrappers = _sp_wrappers()
+    sync()
+    for w in wrappers.values():
+        w.launches = 0
+    table, conf, accepted = step(x, *SP_GATES)
+    sync()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    rounds = fill_holes_tiled_sp.last_rounds
+    branch = connected_components_tiled_sp.last_branch
+    times = []
+    for _ in range(SP_STEP_ITERS):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        step(x, *SP_GATES)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"table": table, "conf": conf, "accepted": accepted,
+            "launches": launches, "rounds": rounds, "branch": branch,
+            "step_ms": times, "device": str(x.device),
+            "backend": dist.get_backend(), "shard": tuple(x.shape)}
+
+
+def dp_rank(frames_640, frames_2mp, k):
+    """The 1-rank NCCL world of phase 4g: both data-parallel steps and the
+    line step at 640x480 and 2 MP, the wrappers' counts from 0 around
+    them."""
+    import torch
+    import torch.distributed as dist
+    from heimdall_tpu_torch.parallel.inspect_step import (
+        make_line_step, make_pallas_data_parallel_step,
+        make_tiled_data_parallel_step)
+    from heimdall_tpu_torch.parallel.mesh import make_mesh
+    from heimdall_tpu_torch.parallel.sharding import shard_batch
+
+    mesh = make_mesh(data=1, spatial=1)
+    wrappers = _sp_wrappers()
+    x640 = shard_batch(mesh, frames_640)
+    sync = torch.cuda.synchronize if x640.is_cuda else (lambda: None)
+    sync()
+    for w in wrappers.values():
+        w.launches = 0
+    out = {"backend": dist.get_backend()}
+    x2 = shard_batch(mesh, frames_2mp)
+    out["pallas_dp_640"] = make_pallas_data_parallel_step(
+        mesh, max_blobs=k)(x640, *SP_GATES)
+    out["tiled_dp_2mp"] = make_tiled_data_parallel_step(
+        mesh, max_blobs=k, band=SP_BAND)(x2, *SP_GATES)
+    line = make_line_step(mesh, max_blobs=k)
+    out["line_640"] = line(shard_batch(mesh, frames_640, spatial=True),
+                           *SP_GATES, 0.7)
+    out["line_2mp"] = line(shard_batch(mesh, frames_2mp, spatial=True),
+                           *SP_GATES, 0.7)
+    sync()
+    out["launches"] = {n: w.launches for n, w in wrappers.items()}
+    return out
+
+
+def _shards(x, n):
+    """The n row shards of a [B, H, ...] tensor, each contiguous."""
+    hl = x.shape[1] // n
+    return [x[:, i * hl:(i + 1) * hl].contiguous() for i in range(n)]
+
+
+def check_sp_entries(dev):
+    """Phase 4g's checks: the three shard entries (B5b-sp, B5a-sp, B4a-sp)
+    against their plain versions on the card, exactly, on the 2 MP bench
+    frames' closed binary planes and on scene.tile_case_masks and
+    label_case_masks at 1920x1080 and 64x96, each cut into 4 (and 3)
+    shards, with random reached halos on the cut rows (the fill) and the
+    neighbours' mask rows (the stats; K = 64 and 4); the band labels with
+    one band a shard and with bands that cut it.  Returns (largest error,
+    the 2 MP bench shards' inputs for the timings)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import fused_kernels as fk
+    from heimdall_tpu_torch.ops import stats_tiled as st
+    from heimdall_tpu_torch.ops.ccl import connected_components
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    rng = np.random.RandomState(11)
+    bench = on(scene.make_frames(SP_BATCH, H2, W2, seed=2))
+    gray_b, binary_b = fk.preprocess(bench, CONTRAST)
+    sets = {
+        "bench4_2mp": (binary_b > 0, gray_b, bench),
+        "tile_cases_2mp": on(np.stack(list(
+            scene.tile_case_masks(H2, W2).values()))),
+        "label_cases_2mp": on(np.stack(list(
+            scene.label_case_masks(H2, W2).values()))),
+        "tile_cases_64x96": on(np.stack(list(
+            scene.tile_case_masks(64, 96).values()))),
+    }
+    err, timing = 0, None
+    for name, item in sets.items():
+        mask, gray, color = item if isinstance(item, tuple) else (
+            item, None, None)
+        B, H, W = mask.shape
+        if gray is None:
+            gray = on(rng.randint(0, 256, (B, H, W), dtype=np.uint8))
+            color = on(rng.randint(0, 256, (B, H, W, 3), dtype=np.uint8))
+        filled = ct.flood_reference(mask)
+        labels = connected_components(filled, 8)
+        errs = {}
+        for n in (4, 3):
+            hl = H // n
+            if hl * n != H:
+                continue
+            masks, fills = _shards(mask, n), _shards(filled, n)
+            labs = _shards(labels.reshape(B, H, W), n)
+            grays, colors = _shards(gray, n), _shards(color, n)
+            for i in range(n):
+                ht = (on(rng.rand(B, W) < 0.5).to(torch.uint8)
+                      if i > 0 else None)
+                hb = (on(rng.rand(B, W) < 0.5).to(torch.uint8)
+                      if i < n - 1 else None)
+                key = f"{n}x{i}"
+                errs[f"flood_fill_sp_{key}"] = max_abs_err(
+                    (ct.flood_fill_sp(masks[i], i * hl, H, ht, hb),),
+                    (ct.flood_sp_reference(masks[i], i * hl, H, ht, hb),))
+                for band in sorted({hl, 54, 10, 1} if hl == 270 else
+                                   {hl, 8} if hl % 8 == 0 else {hl}):
+                    if hl % band:
+                        continue
+                    got = ct.band_ccl_sp(fills[i], band, i * hl * W, H * W)
+                    want = ct.band_ccl_sp_reference(fills[i], band,
+                                                    i * hl * W, H * W)
+                    want += (ct.edge_rows(want[0], band),)
+                    errs[f"band_ccl_sp_{key}_band{band}"] = max_abs_err(
+                        got, want)
+                fm = fills[i].to(torch.uint8)
+                up = fills[i - 1][:, -1].to(torch.uint8) if i > 0 else None
+                dn = (fills[i + 1][:, 0].to(torch.uint8) if i < n - 1
+                      else None)
+                for k in (K, 4):
+                    rl, nb = ct._root_table(labels.reshape(B, H, W), k)
+                    for c in (colors[i], None):
+                        args = (labs[i], fm, grays[i], c, rl, nb)
+                        errs[f"banded_stats_sp_{key}_k{k}"
+                             f"{'_gray' if c is None else ''}"] = \
+                            max_abs_err(
+                                st.banded_stats_sp(*args, H * W, k, up, dn),
+                                st.banded_stats_sp_reference(*args, k, up,
+                                                             dn))
+                if name == "bench4_2mp" and n == SP_RANKS and i == 1:
+                    timing = (masks[i], fills[i], labs[i], fm, grays[i],
+                              colors[i], ht, hb, up, dn, hl, H, W,
+                              ct._root_table(labels.reshape(B, H, W), K))
+        torch.cuda.synchronize()
+        worst = max(errs.values())
+        phase(f"check shard entries {name} ({B}x{H}x{W}, shards of 4 and "
+              f"3): {len(errs)} checks, max_abs_err {worst}")
+        if worst:
+            fail(f"a shard entry differs from its plain version on {name}: "
+                 f"{ {k: v for k, v in errs.items() if v} }")
+        err = max(err, worst)
+    return err, timing
+
+
+def time_sp_entries(smi, timing):
+    """Each shard entry's time per call on the 2 MP bench frames' second
+    shard of four ([SP_BATCH, 270, 1920], both halos), its plain version's
+    and its byte bound; {name: timings}."""
+    import torch
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+    from heimdall_tpu_torch.ops import stats_tiled as st
+
+    (mask, filled, labs, fm, gray, color, ht, hb, up, dn, hl, H, W,
+     (rl, nb)) = timing
+    B = mask.shape[0]
+    px = B * hl * W
+    calls = {
+        "flood_fill_sp": (
+            lambda: ct.flood_fill_sp(mask, hl, H, ht, hb),
+            lambda: ct.flood_sp_reference(mask, hl, H, ht, hb),
+            2 * px + 2 * B * W),
+        "band_ccl_sp": (
+            lambda: ct.band_ccl_sp(filled, hl, hl * W, H * W),
+            lambda: ct.band_ccl_sp_reference(filled, hl, hl * W, H * W),
+            px * (1 + 4) + B * (128 + 1) * 4),
+        "banded_stats_sp": (
+            lambda: st.banded_stats_sp(labs, fm, gray, color, rl, nb, H * W,
+                                       K, up, dn),
+            lambda: st.banded_stats_sp_reference(labs, fm, gray, color, rl,
+                                                 nb, K, up, dn),
+            px * (4 + 1 + 1 + 3) + 2 * B * W + B * (K + 1) * 4
+            + B * 12 * K * 4),
+    }
+    out = {}
+    for name, (kernel, plain, nbytes) in calls.items():
+        for _ in range(3):
+            kernel()
+        ms = cuda_ms(kernel, 20)
+        plain()
+        plain_ms = cuda_ms(plain, 2)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "bytes": nbytes,
+                     "shard": [B, hl, W]}
+        phase(f"{smi}: {name} {ms * 1e3:.3f} us per call on a shard of "
+              f"{B}x{hl}x{W} ({ms / B * 1e3:.3f} us/frame-shard); plain "
+              f"version {plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us "
+              f"(bytes)")
+    return out
+
+
+def parallel_phases(dev, smi):
+    """Phase 4g, the multi-device path: the shard entries against their
+    plain versions (check_sp_entries) and timed; make_tiled_spatial_step
+    on SP_BATCH 2 MP BGR frames over a 1 x SP_RANKS world on the one card
+    (gloo, the collectives staged through pinned host buffers; every
+    kernel on the card), held equal to the single-card detector; a 1-rank
+    NCCL world through both data-parallel steps and the line step at
+    640x480 and 2 MP, held equal to the single-card detector.  Returns
+    ({wrapper: launches over the spatial world's ranks}, the phase's
+    figures, {entry: timings}, the entries' largest error)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import ContaminationDetector, scene
+    from heimdall_tpu_torch.parallel.launch import launch
+
+    err, timing = check_sp_entries(dev)
+    times = time_sp_entries(smi, timing)
+
+    det = ContaminationDetector(config={"include_contours": False})
+
+    def same(name, got, want):
+        table, conf, accepted = got[:3]
+        wt, wc, wa = want
+        for f in wt._fields:
+            if not torch.equal(getattr(table, f), getattr(wt, f).cpu()):
+                fail(f"{name}: table field {f} differs from the single-card "
+                     "detector")
+        if not (torch.equal(conf, wc.cpu()) and torch.equal(accepted,
+                                                             wa.cpu())):
+            fail(f"{name}: confidence/gates differ from the single-card "
+                 "detector")
+
+    # the spatially-sharded step over SP_RANKS ranks of the one card
+    frames = scene.make_frames(SP_BATCH, H2, W2, seed=2)
+    t0 = time.perf_counter()
+    ranks = launch("chip_smoke:sp_rank", SP_RANKS, args=(frames, K),
+                   device="cuda", timeout=600, sys_path=(REPO,))
+    world_s = time.perf_counter() - t0
+    want = det.run_device(frames)
+    torch.cuda.synchronize()
+    for r, res in enumerate(ranks):
+        same(f"spatial step rank {r}",
+             (res["table"], res["conf"], res["accepted"]), want)
+    launches = {n: sum(r["launches"][n] for r in ranks)
+                for n in ranks[0]["launches"]}
+    rounds = {r["rounds"] for r in ranks}
+    branches = {r["branch"] for r in ranks}
+    if len(rounds) != 1 or len(branches) != 1:
+        fail(f"ranks disagree on flood rounds {rounds} or branch "
+             f"{branches}")
+    missing = [n for n in ("flood_fill_sp", "band_ccl_sp",
+                           "banded_stats_sp", "bbox_sums", "preprocess")
+               if not launches[n]]
+    if missing:
+        fail(f"the multi-device path launched no {missing}: {launches}")
+    step_ms = [max(r["step_ms"][i] for r in ranks)
+               for i in range(SP_STEP_ITERS)]
+    phase(f"multi-device path: make_tiled_spatial_step, {SP_BATCH}x{H2}x"
+          f"{W2} BGR over a 1x{SP_RANKS} world on one card "
+          f"({ranks[0]['backend']}, collectives staged through pinned host "
+          f"buffers; shards {ranks[0]['shard']} on "
+          f"{sorted({r['device'] for r in ranks})}): equal to the "
+          f"single-card detector on every rank; flood rounds "
+          f"{rounds.pop()}, root table branch {branches.pop()}; launched "
+          f"{launches}; the world took {world_s:.1f} s")
+    phase(f"{smi}: spatial step {SP_BATCH}x{H2}x{W2} over {SP_RANKS} ranks "
+          f"of one card: {[round(t, 3) for t in step_ms]} ms a step "
+          f"(slowest rank, host clock around the step and a sync)")
+
+    # a 1-rank NCCL world through the data-parallel and line steps
+    f640 = scene.make_frames(DP_BATCH_640, seed=0)
+    f2 = frames[:DP_BATCH_2MP]
+    (dp,) = launch("chip_smoke:dp_rank", 1, args=(f640, f2, K),
+                   device="cuda", timeout=600, sys_path=(REPO,))
+    want640 = det.run_device(f640)
+    want2 = det.run_device(f2)
+    same("pallas data-parallel step 640x480", dp["pallas_dp_640"], want640)
+    same("tiled data-parallel step 2 MP", dp["tiled_dp_2mp"], want2)
+    same("line step 640x480", dp["line_640"], want640)
+    same("line step 2 MP", dp["line_2mp"], want2)
+    for key, n in (("line_640", DP_BATCH_640), ("line_2mp", DP_BATCH_2MP)):
+        stats = {k: int(v) for k, v in dp[key][3].items()}
+        acc = dp[key][2]
+        if stats != {"frames": n, "defects": int(acc.sum()),
+                     "rejects": int((acc.any(-1) & (torch.where(
+                         acc, dp[key][1], 0.0).max(-1).values >= 0.7))
+                         .sum())}:
+            fail(f"{key}: line totals {stats} do not match its tables")
+    dp_launches = {n: v for n, v in dp["launches"].items() if v}
+    if dp["backend"] != "nccl" or not dp_launches.get("fused_detect"):
+        fail(f"the 1-rank world ran on {dp['backend']} with {dp_launches}")
+    phase(f"multi-device path: a 1-rank {dp['backend']} world: the fused "
+          f"and band-route data-parallel steps and the line step "
+          f"({DP_BATCH_640}x640x480, {DP_BATCH_2MP}x{H2}x{W2} BGR) equal to "
+          f"the single-card detector; launched {dp_launches}")
+    figures = {"spatial_step_ms": step_ms, "ranks": SP_RANKS,
+               "batch": SP_BATCH, "frame": f"{H2}x{W2} BGR",
+               "backend": ranks[0]["backend"], "flood_rounds":
+               ranks[0]["rounds"], "branch": ranks[0]["branch"],
+               "world_s": world_s, "launches_1rank_world": dp_launches,
+               "card": smi}
+    return launches, figures, times, err
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -3258,6 +3641,9 @@ def main(argv):
     # -- 4f: the serving path --------------------------------------------------
     launches4f, serving = serving_phases(dev, smi)
 
+    # -- 4g: the multi-device path ---------------------------------------------
+    launches4g, multi, times4g, err4g = parallel_phases(dev, smi)
+
     # -- 3d, 5d: the split kernels and the profiling path --------------------
     split, t_roll, roll_launches = split_phases(dev, smi, cases)
 
@@ -3356,6 +3742,29 @@ def main(argv):
                "(tile_uf.cuh): labels written once, edges merged in the "
                "label plane, root tables from each band's first root")
     path_kernels = [entry("merge_bands"), entry("preprocess")]
+    # the shard entries of the multi-device path (phase 4g)
+    sp_entries = {
+        "flood_fill_sp": ("ccl_tiled.cu",
+                          "heimdall_tpu/parallel/tiled_sp.py:127"),
+        "band_ccl_sp": ("ccl_tiled.cu", "heimdall_tpu/ops/ccl_tiled.py:268 "
+                        "(called at heimdall_tpu/parallel/tiled_sp.py:214)"),
+        "banded_stats_sp": ("stats_tiled.cu",
+                            "heimdall_tpu/parallel/tiled_sp.py:352"),
+    }
+    for name, (src, replaces) in sp_entries.items():
+        t = times4g[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + src,
+            "sources": [csrc + src] + ([csrc + "tile_uf.cuh"]
+                                       if src == "ccl_tiled.cu" else []),
+            "replaces": replaces, "equal": err4g == 0,
+            "launches": launches4g[name], "max_abs_err": err4g,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes it",
+            "batch": SP_BATCH, "frame": "a shard of 270x1920 of 1920x1080",
+            "launches_path": "multi-device path (phase 4g, 4 ranks)"})
     # the system path's launches (phase 4d): wrapper calls, and the CUDA
     # kernels traced in one 2 MP inspect_batch and one bottle_base call
     for k in kernels + path_kernels:
@@ -3369,6 +3778,9 @@ def main(argv):
     for k in kernels + path_kernels:
         k["launches_line_path"] = launches4e.get(k["name"], 0)
         k["launches_serving_path"] = launches4f.get(k["name"], 0)
+        k["launches_multi_device_path"] = launches4g.get(k["name"], 0)
+        k["launches_multi_device_1rank_world"] = multi[
+            "launches_1rank_world"].get(k["name"], 0)
     print(json.dumps({"path_kernels": path_kernels}), flush=True)
     print(json.dumps({"system_path": dict(
         times4, cuda_kernels_2mp=traced4, cuda_kernels_640x480=traced4_640,
@@ -3377,6 +3789,8 @@ def main(argv):
           flush=True)
     print(json.dumps({"serving_path": dict(serving, launches=launches4f)}),
           flush=True)
+    print(json.dumps({"multi_device_path": dict(
+        multi, launches=launches4g, entries=times4g)}), flush=True)
     print(json.dumps({"end_to_end": dict(
         {"640x480x3": {"ms": e2e_s * 1e3, "host_ms": e2e_host}}, **e2e2,
         **e2e3), "batch": {"640x480x3": BATCH, "2mp": BATCH_2MP},

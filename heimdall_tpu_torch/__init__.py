@@ -49,6 +49,12 @@ Layers (mirroring heimdall_tpu):
                training-data capture
   serving/     the live dashboard (REST, server-sent events) and the
                results viewer
+  parallel/    multi-device inspection on torch.distributed: meshes of
+               ("data", "spatial") over a world's ranks (launch starts
+               one on a machine), the sharded inspection, line and
+               data-parallel steps, and the band kernels across devices
+               (tiled_sp, with the shard entries of ccl_tiled and
+               stats_tiled); dryrun runs every step once
   perf/        metrics, profiling sessions (torch.profiler traces), reports
   camera/      the camera HAL with its simulated cameras, the 4-camera
                GigE system, the Aravis hardware backend

@@ -21,6 +21,7 @@ and run their plain versions on a CPU tensor.  A pipeline runs on CUDA
 unless it is given ``device="cpu"``; it raises where there is no card.
 """
 
+import importlib
 import logging
 import time
 from typing import Any, Dict, List
@@ -30,11 +31,13 @@ import torch
 
 from heimdall_tpu_torch.detectors.contamination_detector import (
     TILED_BAND, _label_of_blob, resolve_device)
-from heimdall_tpu_torch.ops import color, filters, histogram, hough
-from heimdall_tpu_torch.ops import morphology, threshold as thresh_ops
+from heimdall_tpu_torch.ops import color, filters, histogram, hough, morphology
 from heimdall_tpu_torch.ops.blobs import BlobTable
 from heimdall_tpu_torch.ops.stats_tiled import label_and_table
 from heimdall_tpu_torch.utils import contours as contours_mod
+
+# the module: the ops package exports its function of the same name
+thresh_ops = importlib.import_module("heimdall_tpu_torch.ops.threshold")
 
 logger = logging.getLogger("heimdall.pipeline")
 

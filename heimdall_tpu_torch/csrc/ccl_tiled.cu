@@ -7,6 +7,11 @@
 //   B5a  _make_band_ccl_kernel (launched by _band_ccl_call): hd_band_ccl;
 //   the interface merge (_merge_with_roots, _compact_incidence; XLA work
 //        between the band kernels): hd_merge_bands.
+// and, in heimdall_tpu/parallel/tiled_sp.py, the same builders launched on a
+// shard of a frame's rows (one rank's rows on a multi-device mesh):
+//   B5b-sp  the flood of fill_holes_tiled_sp (:127): hd_flood_fill_sp;
+//   B5a-sp  _band_ccl_call(emit_edges=True, to_fixpoint=True) of
+//           connected_components_tiled_sp (:214): hd_band_ccl_sp.
 //
 // hd_flood_fill: filled = mask | (background not 4-connected to the frame
 // border).  The JAX package floods bands to local fixpoints and repeats whole
@@ -27,6 +32,22 @@
 // once by its tile, components joined across tile edges in the label plane
 // and only theirs rewritten; the root tables then read each band only from
 // its first root to its cap-th (k_band_roots).  4 launches.
+//
+// hd_flood_fill_sp: hd_flood_fill on a shard of H of a frame's Hg rows from
+// row row_off.  The border is the frame's (tile_uf.cuh, "hole fill"): its
+// first and last rows only where the shard holds them, and a background
+// pixel of a cut row joins it when the halo pixel across the cut is
+// reached.  The halos are the neighbouring shards' edge rows of ~filled
+// from the previous round; the caller repeats rounds until no shard's edge
+// rows change (one word all-reduced on the host a round), as the JAX
+// package repeats its banded rounds.  Within a round the shard is solved
+// whole, so the rounds count only the corridors' crossings of cut rows.
+//
+// hd_band_ccl_sp: hd_band_ccl with the frame's indices on a shard: every
+// label and root is the shard-local index plus `base` (the shard's first
+// pixel in the frame), and the background is `bg` (the frame's Hg*W), so
+// the labels need no pass to be made global.  The edge rows of the TPU
+// kernel are rows of the label plane (the caller slices them).
 //
 // hd_merge_bands: unites band-local components across band boundaries with
 // the same union-find on the label plane (a label is a parent pointer whose
@@ -114,17 +135,20 @@ __device__ int scan_roots(const int32_t* L, long long lo, long long hi,
 // count and first root (k_label_write; the first root in slot 0 of the
 // table): the band is scanned from its first root only until the table's
 // roots are found, so a band with no root reads nothing.
-__global__ void k_band_roots(Geom g, int cap, const int32_t* labels,
-                             int32_t* roots, const int32_t* counts) {
+// Labels and roots are the plane's indices plus base (the plane is indexed
+// by label through a pointer moved back by base), the background bg.
+__global__ void k_band_roots(Geom g, int cap, int base, int bg,
+                             const int32_t* labels, int32_t* roots,
+                             const int32_t* counts) {
   int r = blockIdx.x, b = blockIdx.y;
   if (frame_skipped(g, b)) return;
   int32_t* tab = roots + ((long long)b * g.R + r) * cap;
   int first = tab[0], need = min(counts[b * g.R + r], cap);
   __syncthreads();                         // every thread has read slot 0
-  int n = need > 0 ? scan_roots(labels + b * g.HW, first, band_hi(g, r),
-                                tab, cap, need)
+  int n = need > 0 ? scan_roots(labels + b * g.HW - base, first,
+                                base + band_hi(g, r), tab, cap, need)
                    : 0;
-  for (int j = n + threadIdx.x; j < cap; j += blockDim.x) tab[j] = (int)g.HW;
+  for (int j = n + threadIdx.x; j < cap; j += blockDim.x) tab[j] = bg;
 }
 
 // ------------------------------------------------------------------ merge
@@ -245,16 +269,27 @@ extern "C" int hd_flood_fill(const uint8_t* mask, int B, int H, int W,
                            (cudaStream_t)stream);
 }
 
-// mask u8 [B, H, W] -> band-local labels int32 [B, H, W], band roots int32
-// [B, R, cap], counts int32 [B, R], with R = ceil(H / band); active as in
-// hd_flood_fill.  Four launches: the tile labeling (3), then the root
-// tables.
-extern "C" int hd_band_ccl(const uint8_t* mask, int B, int H, int W,
-                           int band, int conn, int cap, const int* active,
-                           int32_t* labels, int32_t* roots, int32_t* counts,
-                           void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// hd_flood_fill on a shard: mask u8 [B, H, W] holds rows row_off .. row_off
+// + H - 1 of frames of Hg rows; halo_top / halo_bot u8 [B, W] (nonzero =
+// reached) the rows across the shard's first / last row, null where that
+// row is the frame's.  Scratch and outputs as in hd_flood_fill.
+extern "C" int hd_flood_fill_sp(const uint8_t* mask, int B, int H, int W,
+                                int row_off, int Hg, const uint8_t* halo_top,
+                                const uint8_t* halo_bot, const int* active,
+                                int32_t* table, uint8_t* filled,
+                                void* stream) {
+  return launch_flood_fill(mask, B, H, W, active, table, filled,
+                           (cudaStream_t)stream, row_off, Hg, halo_top,
+                           halo_bot);
+}
+
+static int band_ccl(const uint8_t* mask, int B, int H, int W, int band,
+                    int conn, int cap, int base, int bg, const int* active,
+                    int32_t* labels, int32_t* roots, int32_t* counts,
+                    cudaStream_t st) {
   LabelGeom lg = label_geom(H, W, band, conn, cap, active);
+  lg.base = base;
+  lg.bg = bg;
   // the tile flags in the root tables' slots 1 .. cap - 1, which
   // k_band_roots overwrites after the write pass, when they fit
   int chunk = (cap - 1) * 4;
@@ -264,10 +299,32 @@ extern "C" int hd_band_ccl(const uint8_t* mask, int B, int H, int W,
   int err = launch_tile_labels<true>(mask, B, lg, labels, roots, counts, st);
   if (err) return err;
   Geom g{H, W, (long long)H * W, band, lg.R, active};
-  k_band_roots<<<dim3(lg.R, B), kScanThreads, 0, st>>>(g, cap, labels, roots,
-                                                       counts);
+  k_band_roots<<<dim3(lg.R, B), kScanThreads, 0, st>>>(g, cap, base, bg,
+                                                       labels, roots, counts);
   HD_CHECK();
   return 0;
+}
+
+// mask u8 [B, H, W] -> band-local labels int32 [B, H, W], band roots int32
+// [B, R, cap], counts int32 [B, R], with R = ceil(H / band); active as in
+// hd_flood_fill.  Four launches: the tile labeling (3), then the root
+// tables.
+extern "C" int hd_band_ccl(const uint8_t* mask, int B, int H, int W,
+                           int band, int conn, int cap, const int* active,
+                           int32_t* labels, int32_t* roots, int32_t* counts,
+                           void* stream) {
+  return band_ccl(mask, B, H, W, band, conn, cap, 0, H * W, active, labels,
+                  roots, counts, (cudaStream_t)stream);
+}
+
+// hd_band_ccl on a shard: labels and roots are the shard's indices plus
+// base, the background and the roots' padding bg.
+extern "C" int hd_band_ccl_sp(const uint8_t* mask, int B, int H, int W,
+                              int band, int conn, int cap, int base, int bg,
+                              const int* active, int32_t* labels,
+                              int32_t* roots, int32_t* counts, void* stream) {
+  return band_ccl(mask, B, H, W, band, conn, cap, base, bg, active, labels,
+                  roots, counts, (cudaStream_t)stream);
 }
 
 // Merges hd_band_ccl's outputs in place (labels) and writes rl int32

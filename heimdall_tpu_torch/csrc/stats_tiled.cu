@@ -11,6 +11,17 @@
 //        hd_bbox_sums — per-slot sums of gray (and b, g, r) over the bbox
 //        window (int32 [B, 4, K]), walking only the (slot, band) pairs of
 //        the slot-incidence lists.
+// and, in heimdall_tpu/parallel/tiled_sp.py, B4a launched on a shard of a
+// frame's rows (one rank's rows on a multi-device mesh):
+//   B4a-sp  _make_banded_stats_kernel of blob_stats_tiled_sp (:352):
+//           hd_banded_stats_sp — labels in the frame's indices (background
+//           the frame's Hg*W), and the boundary across the shard's cut rows
+//           read from the neighbours' edge rows of the mask (halo rows),
+//           the frame's edge still background.  Its row sums and bbox stay
+//           in the shard's rows; the caller moves them to the frame's and
+//           reduces them over the shards.  B4b needs no entry of its own:
+//           its window walk clamps a bbox given in the shard's rows to the
+//           shard's bands.
 //
 // A pixel belongs to slot k iff its label equals root_table[k] (ascending),
 // found by binary search in shared memory.  The boundary plane is computed
@@ -53,7 +64,14 @@ __global__ void k_stats_init(int H, int W, int K, int32_t* sums,
   }
 }
 
-__global__ void k_banded_stats(Frames f, Geom g, int K, const uint8_t* mask,
+// Labels equal to bg are background; with kHalo, halo_top / halo_bot (u8
+// [B, W], or null for the frame's edge) are the mask rows across the
+// plane's first and last row (a template parameter, so that whole frames
+// take the plain boundary test).
+template <bool kHalo>
+__global__ void k_banded_stats(Frames f, Geom g, int K, int bg,
+                               const uint8_t* halo_top,
+                               const uint8_t* halo_bot, const uint8_t* mask,
                                const int32_t* labels, const int32_t* rl,
                                const int32_t* nblobs, const uint8_t* gray,
                                int32_t* sums, int32_t* bbox) {
@@ -90,11 +108,26 @@ __global__ void k_banded_stats(Frames f, Geom g, int K, const uint8_t* mask,
     int v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     if (in) {
       int lab = labels[base + p];
-      if (lab != g.HW) slot = find_slot(s_rl, n, lab);
+      if (lab != bg) slot = find_slot(s_rl, n, lab);
     }
     if (slot >= 0) {
-      bool bnd = x == 0 || y == 0 || x == g.W - 1 || y == g.H - 1 ||
-                 !m[p - 1] || !m[p + 1] || !m[p - g.W] || !m[p + g.W];
+      bool bnd;
+      if (!kHalo) {
+        bnd = x == 0 || y == 0 || x == g.W - 1 || y == g.H - 1 ||
+              !m[p - 1] || !m[p + 1] || !m[p - g.W] || !m[p + g.W];
+      } else {
+        bnd = x == 0 || x == g.W - 1 || !m[p - 1] || !m[p + 1];
+        if (!bnd) {
+          const uint8_t* hu =
+              halo_top ? halo_top + (long long)b * g.W : nullptr;
+          const uint8_t* hd =
+              halo_bot ? halo_bot + (long long)b * g.W : nullptr;
+          bool up = y > 0 ? m[p - g.W] != 0 : hu != nullptr && hu[x] != 0;
+          bool dn =
+              y < g.H - 1 ? m[p + g.W] != 0 : hd != nullptr && hd[x] != 0;
+          bnd = !up || !dn;
+        }
+      }
       v[0] = 1;
       v[1] = bnd ? 1 : 0;
       v[2] = x;
@@ -330,6 +363,34 @@ __global__ void __launch_bounds__(kBoxThreads, 1)
 
 }  // namespace
 
+static int banded_stats(const uint8_t* color, int C, long long fstride,
+                        long long cstride, long long pstride, int B, int H,
+                        int W, int K, int bg, const uint8_t* mask,
+                        const int32_t* labels, const int32_t* rl,
+                        const int32_t* nblobs, const uint8_t* gray,
+                        const uint8_t* halo_top, const uint8_t* halo_bot,
+                        int32_t* sums, int32_t* bbox, cudaStream_t st) {
+  Geom g{H, W, (long long)H * W, H, 1};
+  Frames f{color, C, fstride, cstride, pstride};
+  k_stats_init<<<B, kScanThreads, 0, st>>>(H, W, K, sums, bbox);
+  HD_CHECK();
+  auto kernel = halo_top != nullptr || halo_bot != nullptr
+                    ? k_banded_stats<true>
+                    : k_banded_stats<false>;
+  size_t smem = (size_t)13 * K * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((W + kTileW - 1) / kTileW, (H + kStatsRows - 1) / kStatsRows, B);
+  kernel<<<grid, dim3(kTileW, kTileH), smem, st>>>(
+      f, g, K, bg, halo_top, halo_bot, mask, labels, rl, nblobs, gray, sums,
+      bbox);
+  HD_CHECK();
+  return 0;
+}
+
 // labels int32 [B, H, W] (background H*W), mask u8 [B, H, W] (0/1), gray u8
 // [B, H, W], color (C = 3) or none (C = 1), root table int32 [B, K]
 // (ascending, padded with H*W), nblobs int32 [B] -> sums int32 [B, 8, K],
@@ -340,23 +401,27 @@ extern "C" int hd_banded_stats(const uint8_t* color, int C, long long fstride,
                                const int32_t* labels, const int32_t* rl,
                                const int32_t* nblobs, const uint8_t* gray,
                                int32_t* sums, int32_t* bbox, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  Geom g{H, W, (long long)H * W, H, 1};
-  Frames f{color, C, fstride, cstride, pstride};
-  k_stats_init<<<B, kScanThreads, 0, st>>>(H, W, K, sums, bbox);
-  HD_CHECK();
-  size_t smem = (size_t)13 * K * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        k_banded_stats, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kStatsRows - 1) / kStatsRows, B);
-  k_banded_stats<<<grid, dim3(kTileW, kTileH), smem, st>>>(
-      f, g, K, mask, labels, rl, nblobs, gray, sums, bbox);
-  HD_CHECK();
-  return 0;
+  return banded_stats(color, C, fstride, cstride, pstride, B, H, W, K, H * W,
+                      mask, labels, rl, nblobs, gray, nullptr, nullptr, sums,
+                      bbox, (cudaStream_t)stream);
+}
+
+// hd_banded_stats on a shard of a frame's rows: labels and the root table
+// in the frame's indices, background bg; halo_top / halo_bot u8 [B, W] the
+// mask rows across the shard's first / last row (null at the frame's edge).
+// Sums and bbox in the shard's rows (unused slots: W, H, -1, -1).
+extern "C" int hd_banded_stats_sp(const uint8_t* color, int C,
+                                  long long fstride, long long cstride,
+                                  long long pstride, int B, int H, int W,
+                                  int K, int bg, const uint8_t* mask,
+                                  const int32_t* labels, const int32_t* rl,
+                                  const int32_t* nblobs, const uint8_t* gray,
+                                  const uint8_t* halo_top,
+                                  const uint8_t* halo_bot, int32_t* sums,
+                                  int32_t* bbox, void* stream) {
+  return banded_stats(color, C, fstride, cstride, pstride, B, H, W, K, bg,
+                      mask, labels, rl, nblobs, gray, halo_top, halo_bot,
+                      sums, bbox, (cudaStream_t)stream);
 }
 
 // bbox int32 [B, 4, K] (from hd_banded_stats), slot_list int32 [B, R, K],

@@ -235,9 +235,15 @@ inline dim3 edge_grid(long long pairs, const int* active, int B) {
 // background pixel hold kNoEntry): its representative is the component's
 // least perimeter position, the other perimeter pixels point at it, and a
 // component with a pixel on the frame border hooks its representative under
-// entry 0, the frame border itself.  The merge kernel unites the entries of
-// background pixels 4-adjacent across tile edges with the same atomicMin
-// union-find on the table; a component reaches the border iff its root is
+// entry 0, the frame border itself.  On a shard of a frame's rows (a plane
+// of H of the frame's Hg rows from row row_off, B5b on a shard,
+// hd_flood_fill_sp) the border is the whole frame's: its first and last
+// rows only where the shard holds them, and on a cut row the background
+// pixels beside a reached pixel of the neighbouring shard (its edge row,
+// given as a halo row: nonzero = reached).  The merge kernel unites the
+// entries of background pixels 4-adjacent across tile edges with the same
+// atomicMin union-find on the table; a component reaches the border iff its
+// root is
 // entry 0, so no flag needs carrying.  The write kernel labels its tile
 // again (cheaper than a label plane in device memory) and writes filled =
 // mask | !(root == 0).  Three launches; the table is about 0.65 MB a
@@ -256,13 +262,37 @@ struct FillGeom {
   int H, W, tx, ty;      // tiles across and down
   long long E;           // table entries a frame: 1 + tx * ty * kFillSlots
   const int* active;
+  int Hg, row_off;       // the frame's rows, and the plane's first among them
+  // reached pixels across the plane's first and last rows (u8 [B, W]), or
+  // null where that row is not a cut
+  const uint8_t* halo_top;
+  const uint8_t* halo_bot;
 };
 
 inline FillGeom fill_geom(int H, int W, const int* active) {
   FillGeom g{H, W, (W + kUfTW - 1) / kUfTW, (H + kUfTH - 1) / kUfTH, 0,
-             active};
+             active, H, 0, nullptr, nullptr};
   g.E = 1 + (long long)g.tx * g.ty * kFillSlots;
   return g;
+}
+
+// Whether background pixel (y, x) of frame b's plane is joined to the
+// frame border by itself: on the whole frame's edge, or on a shard
+// (kShard) on a cut row beside a reached pixel of the neighbouring shard.
+// The kernels take kShard as a template parameter, so that the
+// whole-frame fill runs the plain test.
+template <bool kShard>
+__device__ __forceinline__ bool fill_border(const FillGeom& g, int b, int y,
+                                            int x) {
+  if (!kShard) return y == 0 || x == 0 || y == g.H - 1 || x == g.W - 1;
+  int gy = y + g.row_off;
+  if (gy == 0 || x == 0 || gy == g.Hg - 1 || x == g.W - 1) return true;
+  bool hit = false;
+  if (y == 0 && g.halo_top != nullptr)
+    hit = g.halo_top[(long long)b * g.W + x] != 0;
+  if (y == g.H - 1 && g.halo_bot != nullptr)
+    hit = hit || g.halo_bot[(long long)b * g.W + x] != 0;
+  return hit;
 }
 
 // Perimeter slot of tile pixel (ly, lx) in a tile of th x tw, or -1 inside.
@@ -297,8 +327,9 @@ struct FillSmem {
 // whether it has a pixel on the frame border.  A tile all background or
 // all foreground returns with px.uniform set, unlabelled.  Every thread of
 // the block calls it.
+template <bool kShard>
 __device__ TilePx fill_label_tile(const FillGeom& g, const TileBytes& v,
-                                  int y0, int x0, int th, int tw,
+                                  int b, int y0, int x0, int th, int tw,
                                   FillSmem& s) {
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   TilePx px{tile_uniform(v, false, th, tw), 0u, {}};
@@ -342,14 +373,14 @@ __device__ TilePx fill_label_tile(const FillGeom& g, const TileBytes& v,
       if (!px.has(k, c) || pos < 0) continue;
       int r = s.parent[ly * kUfTW + px.run_start(k, c)];
       atomicMin(&s.rep[r], pos);
-      int y = y0 + ly, x = x0 + lx;
-      if (y == 0 || x == 0 || y == g.H - 1 || x == g.W - 1) s.flag[r] = 1;
+      if (fill_border<kShard>(g, b, y0 + ly, x0 + lx)) s.flag[r] = 1;
     }
   __syncthreads();
   return px;
 }
 
 // Launch 1: each tile's perimeter entries of the frame's table.
+template <bool kShard>
 __global__ void __launch_bounds__(kUfThreads, 5)
 k_fill_tiles(FillGeom g, const uint8_t* mask, int32_t* table) {
   __shared__ FillSmem s;
@@ -359,14 +390,27 @@ k_fill_tiles(FillGeom g, const uint8_t* mask, int32_t* table) {
     int32_t* T = table + b * g.E;
     TileBytes v;
     tile_load(mask + b * (long long)g.H * g.W, g.W, y0, x0, th, tw, 1, v);
-    TilePx px = fill_label_tile(g, v, y0, x0, th, tw, s);
+    TilePx px = fill_label_tile<kShard>(g, v, b, y0, x0, th, tw, s);
     int base = 1 + (ty * g.tx + tx) * kFillSlots;
     if (ty == 0 && tx == 0 && threadIdx.x == 0) T[0] = 0;
     if (px.uniform) {
       // all background: one component, its representative slot 0, which
-      // hooks under the border if the tile touches it; all foreground: no
-      // entry
-      bool border = y0 == 0 || x0 == 0 || y0 + th == g.H || x0 + tw == g.W;
+      // hooks under the border if the tile touches it (or lies on a cut
+      // row beside a reached halo pixel); all foreground: no entry
+      bool border = y0 + g.row_off == 0 || x0 == 0 ||
+                    y0 + th + g.row_off == g.Hg || x0 + tw == g.W;
+      if (kShard) {
+        bool halo = false;
+        if (px.uniform == 2)
+          for (int x = x0 + threadIdx.x; x < x0 + tw; x += kUfThreads) {
+            long long h = (long long)b * g.W + x;
+            halo = halo ||
+                   (y0 == 0 && g.halo_top != nullptr && g.halo_top[h]) ||
+                   (y0 + th == g.H && g.halo_bot != nullptr &&
+                    g.halo_bot[h]);
+          }
+        border = __syncthreads_or(halo) || border;
+      }
       for (int pos = threadIdx.x; pos < kFillSlots; pos += kUfThreads) {
         int e = kNoEntry;
         if (pos == kFillP)
@@ -448,6 +492,7 @@ __global__ void k_fill_merge(FillGeom g, long long pairs, const uint8_t* mask,
 // Launch 3: per tile, the labeling again, each perimeter component's root
 // in the merged table, then filled = mask | !(reaches the border).  Each
 // block reads and writes its own tile only, so filled may be the mask.
+template <bool kShard>
 __global__ void __launch_bounds__(kUfThreads, 5)
 k_fill_write(FillGeom g, const uint8_t* mask, int32_t* table,
              uint8_t* filled) {
@@ -478,7 +523,7 @@ k_fill_write(FillGeom g, const uint8_t* mask, int32_t* table,
         }
       return;
     }
-    TilePx px = fill_label_tile(g, v, y0, x0, th, tw, s);
+    TilePx px = fill_label_tile<kShard>(g, v, b, y0, x0, th, tw, s);
     if (px.uniform == 0) {
 #pragma unroll
       for (int k = 0; k < kUfRows; ++k)
@@ -513,29 +558,46 @@ k_fill_write(FillGeom g, const uint8_t* mask, int32_t* table,
 
 // The hole fill of B frames (mask -> filled; filled may be mask) with its
 // table (int32 [B, fill_geom(H, W).E]), on stream st: 2 or 3 launches (no
-// merge when the frame is one tile).  Returns the first CUDA error.
-inline int launch_flood_fill(const uint8_t* mask, int B, int H, int W,
-                             const int* active, int32_t* table,
-                             uint8_t* filled, cudaStream_t st) {
-  FillGeom g = fill_geom(H, W, active);
-  dim3 grid = uf_grid(g.tx, g.ty, active, B);
-  for (const void* k : {(const void*)k_fill_tiles, (const void*)k_fill_write}) {
+// merge when the frame is one tile).  On a shard of rows: Hg >= 0, with
+// row_off and the halo rows as in FillGeom.  Returns the first CUDA error.
+template <bool kShard>
+int launch_fill(const FillGeom& g, int B, const uint8_t* mask,
+                int32_t* table, uint8_t* filled, cudaStream_t st) {
+  dim3 grid = uf_grid(g.tx, g.ty, g.active, B);
+  for (const void* k : {(const void*)k_fill_tiles<kShard>,
+                        (const void*)k_fill_write<kShard>}) {
     cudaError_t e = cudaFuncSetAttribute(
         k, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
   }
-  k_fill_tiles<<<grid, kUfThreads, 0, st>>>(g, mask, table);
+  k_fill_tiles<kShard><<<grid, kUfThreads, 0, st>>>(g, mask, table);
   HD_CHECK();
-  long long pairs = (long long)(g.ty - 1) * W + (long long)(g.tx - 1) * H;
+  long long pairs =
+      (long long)(g.ty - 1) * g.W + (long long)(g.tx - 1) * g.H;
   if (pairs > 0) {
-    k_fill_merge<<<edge_grid(pairs, active, B), 256, 0, st>>>(g, pairs, mask,
-                                                              table);
+    k_fill_merge<<<edge_grid(pairs, g.active, B), 256, 0, st>>>(
+        g, pairs, mask, table);
     HD_CHECK();
   }
-  k_fill_write<<<grid, kUfThreads, 0, st>>>(g, mask, table, filled);
+  k_fill_write<kShard><<<grid, kUfThreads, 0, st>>>(g, mask, table, filled);
   HD_CHECK();
   return 0;
+}
+
+inline int launch_flood_fill(const uint8_t* mask, int B, int H, int W,
+                             const int* active, int32_t* table,
+                             uint8_t* filled, cudaStream_t st,
+                             int row_off = 0, int Hg = -1,
+                             const uint8_t* halo_top = nullptr,
+                             const uint8_t* halo_bot = nullptr) {
+  FillGeom g = fill_geom(H, W, active);
+  if (Hg < 0) return launch_fill<false>(g, B, mask, table, filled, st);
+  g.Hg = Hg;
+  g.row_off = row_off;
+  g.halo_top = halo_top;
+  g.halo_bot = halo_bot;
+  return launch_fill<true>(g, B, mask, table, filled, st);
 }
 
 // ------------------------------------------------------ foreground labels
@@ -543,7 +605,12 @@ inline int launch_flood_fill(const uint8_t* mask, int B, int H, int W,
 // Labels of the foreground, 8- or 4-connected, within bands of `band` rows
 // (a row y with y % band == 0 never links upward; band = H gives whole
 // frames): every foreground pixel's label is the global linear index of its
-// band-local component's least pixel, background H*W.  Three launches:
+// band-local component's least pixel, background H*W.  On a shard of a
+// frame's rows (B5a on a shard, hd_band_ccl_sp) the indices are the whole
+// frame's: LabelGeom's base (the shard's first pixel in the frame) is added
+// to every label and root, and the background is its bg (the frame's
+// Hg*W); the plane is indexed by label through a pointer moved back by
+// base.  Three launches:
 //   1. tiles: each tile labelled in shared memory, every pixel's label
 //      written once, as the global index of its tile-local root;
 //   2. merge: one thread per pair of foreground pixels adjacent across a
@@ -585,13 +652,14 @@ struct LabelGeom {
   uint8_t* flags;
   long long flag_frame;
   int flag_chunk, flag_pitch;
+  int base, bg;          // label of pixel 0, and the background's
 };
 
 inline LabelGeom label_geom(int H, int W, int band, int conn, int cap,
                             const int* active) {
   return LabelGeom{H, W, (W + kUfTW - 1) / kUfTW, (H + kUfTH - 1) / kUfTH,
                    band, conn, (H + band - 1) / band, cap, active,
-                   nullptr, 0, 1, 0};
+                   nullptr, 0, 1, 0, 0, H * W};
 }
 
 // g with the tile flags at `flags` (see LabelGeom).
@@ -615,10 +683,10 @@ struct LabelSmem {
   uint32_t fgw[kUfTH][kUfCols];   // foreground bits of each row
 };
 
-// Global linear index of tile index i of the tile at (y0, x0).
+// Global linear index (the label) of tile index i of the tile at (y0, x0).
 __device__ __forceinline__ int tile_global(const LabelGeom& g, int y0,
                                            int x0, int i) {
-  return (y0 + i / kUfTW) * g.W + x0 + i % kUfTW;
+  return g.base + (y0 + i / kUfTW) * g.W + x0 + i % kUfTW;
 }
 
 // Tile row of the root of an all-foreground tile's pixels in tile row ly:
@@ -691,7 +759,7 @@ k_label_tiles(LabelGeom g, const uint8_t* mask, int32_t* labels,
     if (kCount && ty == 0 && tx == 0)
       for (int r = threadIdx.x; r < g.R; r += kUfThreads) {
         counts[b * g.R + r] = 0;
-        roots[((long long)b * g.R + r) * g.cap] = HW;
+        roots[((long long)b * g.R + r) * g.cap] = g.bg;
       }
     TileBytes v;
     tile_load(mask + off, g.W, y0, x0, th, tw, 0, v);
@@ -709,9 +777,9 @@ k_label_tiles(LabelGeom g, const uint8_t* mask, int32_t* labels,
       for (int c = 0; c < kUfCols; ++c) {
         int lx = c * 32 + lane;
         if (lx >= tw) continue;
-        int lab = HW;
+        int lab = g.bg;
         if (px.uniform == 2)
-          lab = top;
+          lab = g.base + top;
         else if (px.uniform == 0 && px.has(k, c))
           lab = tile_global(g, y0, x0,
                             s.parent[ly * kUfTW + px.run_start(k, c)]);
@@ -733,13 +801,15 @@ __global__ void k_label_merge(LabelGeom g, long long pairs,
   const uint8_t* m = mask + b * HW;
   int32_t* L = labels + b * HW;
   const volatile int32_t* VL = L;
+  int32_t* P = L - g.base;     // the plane indexed by label
   // a root hooked away marks its tile for the write pass
   auto mark = [&](int r) {
+    r -= g.base;
     if (g.flags != nullptr)
       *tile_flag(g, b, r / W / kUfTH * g.tx + r % W / kUfTW) = kHooked;
   };
   auto join = [&](long long p, long long q) {
-    unite_halving(L, VL[p], VL[q], mark);
+    unite_halving(P, VL[p], VL[q], mark);
   };
   long long nh = (long long)(g.ty - 1) * W;
   for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -801,7 +871,7 @@ k_label_write(LabelGeom g, int32_t* labels, int32_t* roots,
     int y0 = ty * kUfTH, x0 = tx * kUfTW;
     int th = min(kUfTH, g.H - y0), tw = min(kUfTW, g.W - x0);
     long long off = b * (long long)HW;
-    const volatile int32_t* L = labels + off;
+    const volatile int32_t* L = labels + off - g.base;   // indexed by label
     // a tile with no foreground has nothing to do, one with no root
     // hooked away nothing to rewrite (only roots to count)
     int flag = g.flags != nullptr ? *tile_flag(g, b, ty * g.tx + tx)
@@ -810,7 +880,7 @@ k_label_write(LabelGeom g, int32_t* labels, int32_t* roots,
     int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     // the tile index of global index l, or -1 outside the tile
     auto local = [&](int l) {
-      int y = l / g.W - y0, x = l % g.W - x0;
+      int y = (l - g.base) / g.W - y0, x = (l - g.base) % g.W - x0;
       return y >= 0 && y < th && x >= 0 && x < tw ? y * kUfTW + x : -1;
     };
 #pragma unroll
@@ -821,11 +891,11 @@ k_label_write(LabelGeom g, int32_t* labels, int32_t* roots,
         s.lab[ly * kUfTW + lx] =
             ly < th && lx < tw ? labels[off + (long long)(y0 + ly) * g.W +
                                         x0 + lx]
-                               : HW;
+                               : g.bg;
       }
     if (kCount && threadIdx.x < kUfTH) {
       s.rows[threadIdx.x] = 0;
-      s.first[threadIdx.x] = HW;
+      s.first[threadIdx.x] = g.bg;
     }
     __syncthreads();
     // the chains' ends: roots (counted), and roots hooked into another tile
@@ -835,7 +905,7 @@ k_label_write(LabelGeom g, int32_t* labels, int32_t* roots,
       for (int c = 0; c < kUfCols; ++c) {
         int i = (warp + k * kUfWarps) * kUfTW + c * 32 + lane;
         int l = s.lab[i];
-        if (l == HW) continue;   // background, or outside the frame
+        if (l == g.bg) continue;   // background, or outside the frame
         int r = tile_global(g, y0, x0, i);
         if (l == r) {
           s.fin[i] = r;
@@ -860,7 +930,7 @@ k_label_write(LabelGeom g, int32_t* labels, int32_t* roots,
         for (int c = 0; c < kUfCols; ++c) {
           int ly = warp + k * kUfWarps, i = ly * kUfTW + c * 32 + lane;
           int l = s.lab[i];
-          if (l == HW) continue;
+          if (l == g.bg) continue;
           int x = i;
           for (int j = local(s.lab[x]);
                j >= 0 && s.lab[x] != tile_global(g, y0, x0, x);

@@ -19,9 +19,9 @@ from torch import nn
 TRAINING_MISSING = ("training is not ported yet: ClassifierTrainer, "
                     "AnomalyDetector.fit and DefectSegmenter.train_step "
                     "belong to the training slice (ROADMAP.md §A.2)")
-SHARDED_MISSING = ("make_sharded_train_step needs parallel/ on "
-                   "torch.distributed, which is not ported yet "
-                   "(ROADMAP.md §A.3)")
+SHARDED_MISSING = ("make_sharded_train_step is not ported yet: it comes "
+                   "with the training slice, over the meshes of "
+                   "heimdall_tpu_torch.parallel (ROADMAP.md §A.2)")
 
 # flax's lecun_normal draws a normal truncated to 2 standard deviations
 # and divides by the truncated distribution's standard deviation

@@ -49,6 +49,10 @@ SIGNATURES = {
         "hd_band_ccl": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "hd_merge_bands": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P],
+        "hd_flood_fill_sp": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                             _P],
+        "hd_band_ccl_sp": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P],
     },
     "runtable_tiled": {
         "hd_run_extract": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
@@ -85,6 +89,8 @@ SIGNATURES = {
                             _P, _P, _P, _P, _P, _P],
         "hd_bbox_sums": [_P, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I, _P, _P,
                          _P, _P, _P, _P],
+        "hd_banded_stats_sp": [_P, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I, _P,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

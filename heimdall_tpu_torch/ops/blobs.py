@@ -104,13 +104,15 @@ def blob_sums(labels: torch.Tensor, mask: torch.Tensor, gray: torch.Tensor,
 
 def slot_sums(mask: torch.Tensor, gray: torch.Tensor,
               color: Optional[Sequence[torch.Tensor]], slot: torch.Tensor,
-              max_blobs: int):
+              max_blobs: int, halo_top=None, halo_bot=None):
     """Per-slot integer sums of the pixels in slots 0..K-1.
 
-    slot: int64 [B, H*W], each pixel's slot (>= K for none).  Returns
-    (sums int64 [B, 8, K] — ones, boundary, x, y, gray, b, g, r, the color
-    rows 0 without color planes; bbox int64 [B, 4, K] — x0, y0, x1, y1
-    inclusive, W, H, -1, -1 for a slot with no pixel)."""
+    slot: int64 [B, H*W], each pixel's slot (>= K for none).  halo_top /
+    halo_bot: the mask rows above and below the planes ([B, W]; None: the
+    frame's edge, background), for planes that hold a shard of a frame's
+    rows.  Returns (sums int64 [B, 8, K] — ones, boundary, x, y, gray, b,
+    g, r, the color rows 0 without color planes; bbox int64 [B, 4, K] — x0,
+    y0, x1, y1 inclusive, W, H, -1, -1 for a slot with no pixel)."""
     B, H, W = mask.shape
     K = max_blobs
     HW = H * W
@@ -120,6 +122,10 @@ def slot_sums(mask: torch.Tensor, gray: torch.Tensor,
 
     mp = torch.zeros((B, H + 2, W + 2), dtype=torch.int32, device=dev)
     mp[:, 1:-1, 1:-1] = mask
+    if halo_top is not None:
+        mp[:, 0, 1:-1] = halo_top.to(torch.bool)
+    if halo_bot is not None:
+        mp[:, -1, 1:-1] = halo_bot.to(torch.bool)
     nb4 = (mp[:, :-2, 1:-1] + mp[:, 2:, 1:-1]
            + mp[:, 1:-1, :-2] + mp[:, 1:-1, 2:])
     boundary = mask.to(torch.bool) & (nb4 < 4)

@@ -28,6 +28,15 @@ running its plain PyTorch version on a CPU tensor:
   (in place on the card), then the root table, the root count and the slot
   incidence.
 
+On a shard of a frame's rows (one rank's rows on a multi-device mesh,
+parallel/tiled_sp.py), two more wrappers launch the same kernels with the
+frame's geometry:
+
+* ``flood_fill_sp`` (B5b on a shard): one round of the fill, with the
+  frame's border and the neighbouring shards' reached edge rows as halos;
+* ``band_ccl_sp`` (B5a on a shard): the band labels and root tables in the
+  frame's linear indices, and each band's first and last label rows.
+
 Each counts its kernel launches in ``.launches``.  Planes are [B, H, W]
 and unpadded: the last band may be shorter than ``band``.  Each also takes
 ``active`` (int32 or bool [B] on the planes' device), to compute only the
@@ -42,7 +51,8 @@ import torch
 from heimdall_tpu_torch.ops._launch import (active_ptr, alloc, check_cuda,
                                             check_mask, raise_on, run_plain,
                                             stream)
-from heimdall_tpu_torch.ops.ccl import connected_components, fill_holes
+from heimdall_tpu_torch.ops.ccl import (_global_labels, connected_components,
+                                        fill_holes)
 
 # Static shared-memory tables of hd_merge_bands hold at most this many slots.
 MAX_SLOTS = 1024
@@ -80,6 +90,65 @@ def flood_fill(mask: torch.Tensor, active=None, out=None) -> torch.Tensor:
 
 
 flood_fill.launches = 0
+
+
+def flood_sp_reference(mask: torch.Tensor, row_off: int, H: int,
+                       halo_top=None, halo_bot=None) -> torch.Tensor:
+    """Plain PyTorch version of hd_flood_fill_sp: the filled bool mask of
+    a shard [B, Hl, W] holding rows row_off .. row_off + Hl - 1 of frames of
+    H rows.  Background reaches the border through the frame's edge, or
+    through a cut row's pixel whose halo pixel (u8 [B, W], nonzero =
+    reached; None at the frame's edge) is reached."""
+    m = mask.to(torch.bool)
+    B, Hl, W = m.shape
+    bg = ~m
+    seed = torch.zeros_like(bg)
+    seed[:, :, 0] = seed[:, :, -1] = True
+    if row_off == 0:
+        seed[:, 0] = True
+    if row_off + Hl == H:
+        seed[:, -1] = True
+    if halo_top is not None:
+        seed[:, 0] |= halo_top.to(torch.bool)
+    if halo_bot is not None:
+        seed[:, -1] |= halo_bot.to(torch.bool)
+    lab = _global_labels(bg, 4)
+    reached = torch.zeros(B * Hl * W + 1, dtype=torch.bool, device=m.device)
+    reached[lab[bg & seed]] = True
+    return ~(bg & reached[lab])
+
+
+def flood_fill_sp(mask: torch.Tensor, row_off: int, H: int, halo_top=None,
+                  halo_bot=None) -> torch.Tensor:
+    """One round of the hole fill on a shard (see flood_sp_reference):
+    filled bool [B, Hl, W].  halo_top / halo_bot: u8 [B, W] rows of the
+    shards above and below (reached = nonzero), None where the shard's row
+    is the frame's first or last."""
+    B, Hl, W = check_mask(mask)
+    if not (0 <= row_off and row_off + Hl <= H and H * W < 2**31 - 1):
+        raise ValueError(f"rows {row_off}..{row_off + Hl} of a frame of "
+                         f"{H}x{W}")
+    if mask.device.type == "cpu":
+        return flood_sp_reference(mask, row_off, H, halo_top, halo_bot)
+    from heimdall_tpu_torch.ops import _cuda
+
+    check_cuda(mask, "mask", (torch.bool, torch.uint8))
+    for h in (halo_top, halo_bot):
+        if h is not None:
+            check_cuda(h, "halo", (torch.uint8,), (B, W))
+    lib = _cuda.library("ccl_tiled")
+    filled, table = alloc(mask.device, ((B, Hl, W), torch.bool),
+                          ((B, lib.hd_flood_entries(Hl, W)), torch.int32))
+    raise_on(lib.hd_flood_fill_sp(
+        mask.data_ptr(), B, Hl, W, row_off, H,
+        None if halo_top is None else halo_top.data_ptr(),
+        None if halo_bot is None else halo_bot.data_ptr(), None,
+        table.data_ptr(), filled.data_ptr(), stream(mask)), "flood_fill_sp")
+    flood_fill_sp.launches += 1
+    return filled
+
+
+flood_fill_sp.launches = 0
 
 
 # ------------------------------------------------------- band-local labels
@@ -155,6 +224,68 @@ def band_ccl(mask: torch.Tensor, band: int, connectivity: int = 8,
 
 
 band_ccl.launches = 0
+
+
+def edge_rows(labels: torch.Tensor, band: int) -> torch.Tensor:
+    """The first and last label rows of each band, int32 [B, R, 2, W]
+    (the TPU kernel's edge rows), of labels [B, R * band, W]."""
+    B, H, W = labels.shape
+    v = labels.view(B, H // band, band, W)
+    return torch.stack([v[:, :, 0], v[:, :, band - 1]], dim=2)
+
+
+def band_ccl_sp_reference(mask: torch.Tensor, band: int, base: int,
+                          sentinel: int, connectivity: int = 8,
+                          roots_cap: int = 128):
+    """Plain PyTorch version of hd_band_ccl_sp: band_ccl_reference with
+    every label and root moved by base and the background sentinel.
+    Returns (labels, roots, counts) as band_ccl_reference."""
+    B, Hl, W = check_mask(mask)
+    lab, roots, counts = band_ccl_reference(mask, band, connectivity,
+                                            roots_cap)
+
+    def glob(t):
+        return torch.where(t < Hl * W, t + base, sentinel).to(torch.int32)
+
+    return glob(lab), glob(roots), counts
+
+
+def band_ccl_sp(mask: torch.Tensor, band: int, base: int, sentinel: int,
+                connectivity: int = 8, roots_cap: int = 128):
+    """Band labels of a shard [B, Hl, W] (Hl a multiple of band) in the
+    frame's linear indices: (labels int32 [B, Hl, W], band roots int32
+    [B, R, cap], counts int32 [B, R], edge rows int32 [B, R, 2, W]) with
+    each label base + its shard index, background and padding sentinel."""
+    B, Hl, W = check_mask(mask)
+    if Hl % band or connectivity not in (4, 8) or roots_cap < 1:
+        raise ValueError(f"unsupported band={band} for {Hl} rows, "
+                         f"connectivity={connectivity}, "
+                         f"roots_cap={roots_cap}")
+    if not (0 <= base and base + Hl * W <= sentinel < 2**31 - 1):
+        raise ValueError(f"base {base} and sentinel {sentinel} do not hold "
+                         f"a shard of {Hl}x{W}")
+    if mask.device.type == "cpu":
+        lab, roots, counts = band_ccl_sp_reference(
+            mask, band, base, sentinel, connectivity, roots_cap)
+        return lab, roots, counts, edge_rows(lab, band)
+    from heimdall_tpu_torch.ops import _cuda
+
+    check_cuda(mask, "mask", (torch.bool, torch.uint8))
+    R = Hl // band
+    if R > 65535:
+        raise ValueError(f"{R} bands exceed the kernel's grid")
+    labels, roots, counts = alloc(mask.device, ((B, Hl, W), torch.int32),
+                                  ((B, R, roots_cap), torch.int32),
+                                  ((B, R), torch.int32))
+    raise_on(_cuda.library("ccl_tiled").hd_band_ccl_sp(
+        mask.data_ptr(), B, Hl, W, band, connectivity, roots_cap, base,
+        sentinel, None, labels.data_ptr(), roots.data_ptr(),
+        counts.data_ptr(), stream(mask)), "band_ccl_sp")
+    band_ccl_sp.launches += 1
+    return labels, roots, counts, edge_rows(labels, band)
+
+
+band_ccl_sp.launches = 0
 
 
 # ------------------------------------------------------------------- merge

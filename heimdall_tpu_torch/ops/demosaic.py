@@ -20,9 +20,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from heimdall_tpu_torch.detectors.contamination_detector import (
-    resolve_device)
-
 _PATTERNS = {
     # (row offset, col offset) of the R sample within each 2x2 cell,
     # keyed by the OpenCV constant name (COLOR_Bayer<XY>2BGR)
@@ -36,6 +33,10 @@ _PATTERNS = {
 def _on_device(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
+    # imported here: the detector's module imports ops, whose package
+    # exports this module
+    from heimdall_tpu_torch.detectors.contamination_detector import (
+        resolve_device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(
         resolve_device(device))
 

@@ -14,6 +14,12 @@ and run their plain PyTorch versions on CPU tensors:
   window [B, 4, K], visiting the (slot, band) pairs of the incidence lists
   (one launch that writes every output: no zero fill before it).
 
+On a shard of a frame's rows (parallel/tiled_sp.py), ``banded_stats_sp``
+(B4a on a shard) launches the banded stats with the labels in the frame's
+indices and the boundary across the shard's cut rows taken from the
+neighbouring shards' mask rows; B4b runs as it is, on bboxes given in the
+shard's rows.
+
 The table itself comes from ops/blobs.py's ``table_from_sums``.  Sums are
 int32, as in the JAX package: ``check_sum_bound`` refuses frames whose
 whole-frame X-sum could wrap.  Each wrapper counts launches in
@@ -108,6 +114,66 @@ def banded_stats(labels, mask, gray, color, root_table, root_count,
 
 
 banded_stats.launches = 0
+
+
+def banded_stats_sp_reference(labels, mask, gray, color, root_table,
+                              root_count, max_blobs: int = 64,
+                              halo_top=None, halo_bot=None,
+                              channel_major: bool = False):
+    """Plain PyTorch version of hd_banded_stats_sp: (sums int32 [B, 8, K],
+    bbox int32 [B, 4, K]) of a shard, in its rows."""
+    K = max_blobs
+    slot = label_slots(labels, root_table[:, :K], root_count)
+    sums, bbox = slot_sums(mask, gray, _color_planes(color, channel_major),
+                           slot, K, halo_top, halo_bot)
+    return sums.to(torch.int32), bbox.to(torch.int32)
+
+
+def banded_stats_sp(labels, mask, gray, color, root_table, root_count,
+                    sentinel: int, max_blobs: int = 64, halo_top=None,
+                    halo_bot=None, channel_major: bool = False):
+    """banded_stats on a shard [B, Hl, W] of frames: labels and
+    root_table in the frame's indices (background sentinel), halo_top /
+    halo_bot uint8 [B, W] the mask rows across the shard's first and last
+    row (None at the frame's edge).  Sums and bbox in the shard's rows
+    (unused slots W, Hl, -1, -1)."""
+    B, H, W = labels.shape
+    K = max_blobs
+    if labels.device.type == "cpu":
+        return banded_stats_sp_reference(labels, mask, gray, color,
+                                         root_table, root_count, K,
+                                         halo_top, halo_bot, channel_major)
+    from heimdall_tpu_torch.ops import _cuda
+
+    if not 1 <= K <= MAX_SLOTS:
+        raise ValueError(f"max_blobs must be in 1..{MAX_SLOTS}, got {K}")
+    C, fs, cs, ps = color_layout(color, channel_major, B, H, W)
+    check_cuda(labels, "labels", (torch.int32,))
+    check_cuda(mask, "mask", (torch.bool, torch.uint8), (B, H, W))
+    check_cuda(gray, "gray", (torch.uint8,), (B, H, W))
+    if color is not None:
+        check_cuda(color, "color", (torch.uint8,))
+    for h in (halo_top, halo_bot):
+        if h is not None:
+            check_cuda(h, "halo", (torch.uint8,), (B, W))
+    rl = root_table[:, :K].contiguous()
+    check_cuda(rl, "root_table", (torch.int32,), (B, K))
+    check_cuda(root_count, "root_count", (torch.int32,), (B,))
+    dev = labels.device
+    sums = torch.empty((B, N_SUMS, K), dtype=torch.int32, device=dev)
+    bbox = torch.empty((B, 4, K), dtype=torch.int32, device=dev)
+    raise_on(_cuda.library("stats_tiled").hd_banded_stats_sp(
+        0 if color is None else color.data_ptr(), C, fs, cs, ps, B, H, W, K,
+        sentinel, mask.data_ptr(), labels.data_ptr(), rl.data_ptr(),
+        root_count.data_ptr(), gray.data_ptr(),
+        None if halo_top is None else halo_top.data_ptr(),
+        None if halo_bot is None else halo_bot.data_ptr(), sums.data_ptr(),
+        bbox.data_ptr(), stream(labels)), "banded_stats_sp")
+    banded_stats_sp.launches += 1
+    return sums, bbox
+
+
+banded_stats_sp.launches = 0
 
 
 def bbox_sums_reference(bbox, slot_list, slot_count, band: int, gray,

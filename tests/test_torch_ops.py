@@ -8,6 +8,7 @@ replace a division by a constant with a multiplication by its reciprocal.
 """
 
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -22,7 +23,8 @@ from heimdall_tpu.ops import ccl as jccl
 from heimdall_tpu.ops import filters as jfilters
 
 from heimdall_tpu_torch.ops import blobs, ccl, color, filters, morphology
-from heimdall_tpu_torch.ops import threshold
+# the module: the package exports its function of the same name
+threshold = importlib.import_module("heimdall_tpu_torch.ops.threshold")
 from heimdall_tpu_torch.scene import adversarial_masks
 
 SIZES = [(64, 128), (48, 96), (56, 72)]

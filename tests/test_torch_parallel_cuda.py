@@ -1,0 +1,130 @@
+"""The multi-device path on the card (marked ``cuda``; each test skips
+where torch.cuda.is_available() is false): the three shard entries
+(flood_fill_sp, band_ccl_sp, banded_stats_sp) against their plain versions
+on scene.tile_case_masks and label_case_masks cut into shards, the
+spatially-sharded step over a 4-rank world on one card (gloo, collectives
+staged through pinned host buffers) and a 1-rank NCCL world through the
+data-parallel and line steps, each held equal to the single-card
+detector.  This file imports no JAX:
+
+    python -m pytest tests/test_torch_parallel_cuda.py -q -m cuda --noconftest
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from heimdall_tpu_torch import scene
+from heimdall_tpu_torch.detectors.contamination_detector import (
+    ContaminationDetector)
+from heimdall_tpu_torch.ops import ccl_tiled as ct
+from heimdall_tpu_torch.ops import stats_tiled as st
+from heimdall_tpu_torch.ops.ccl import connected_components
+from heimdall_tpu_torch.parallel.launch import launch
+
+TESTS = str(Path(__file__).resolve().parent)
+K = 16
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+def _cases(h, w):
+    masks = list(scene.tile_case_masks(h, w).values())
+    masks += list(scene.label_case_masks(h, w).values())
+    return np.stack(masks)
+
+
+def _shards(x, n):
+    hl = x.shape[1] // n
+    return [x[:, i * hl:(i + 1) * hl].contiguous() for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,n", [(270, 320, 3), (96, 160, 4), (64, 33, 2)])
+def test_shard_entries_equal_plain_versions(card, h, w, n):
+    rng = np.random.RandomState(h + w)
+    masks = torch.from_numpy(_cases(h, w)).to(card)
+    B = masks.shape[0]
+    filled = ct.flood_reference(masks)
+    labels = connected_components(filled, 8)
+    rl, nb = ct._root_table(labels, K)
+    gray = torch.from_numpy(rng.randint(0, 256, (B, h, w),
+                                        dtype=np.uint8)).to(card)
+    color = torch.from_numpy(rng.randint(0, 256, (B, h, w, 3),
+                                         dtype=np.uint8)).to(card)
+    hl = h // n
+    parts = [_shards(t, n) for t in (masks, filled, labels, gray, color)]
+    for i, (m, f, lab, g, c) in enumerate(zip(*parts)):
+        halos = [torch.from_numpy(rng.rand(B, w) < 0.5).to(card)
+                 .to(torch.uint8) if cut else None
+                 for cut in (i > 0, i < n - 1)]
+        assert torch.equal(ct.flood_fill_sp(m, i * hl, h, *halos),
+                           ct.flood_sp_reference(m, i * hl, h, *halos))
+        for band in {hl, 8} if hl % 8 == 0 else {hl}:
+            got = ct.band_ccl_sp(f, band, i * hl * w, h * w)
+            want = ct.band_ccl_sp_reference(f, band, i * hl * w, h * w)
+            for a, b in zip(got, want + (ct.edge_rows(want[0], band),)):
+                assert torch.equal(a, b)
+        fm = f.to(torch.uint8)
+        rows = [parts[1][i - 1][:, -1].to(torch.uint8) if i > 0 else None,
+                parts[1][i + 1][:, 0].to(torch.uint8) if i < n - 1
+                else None]
+        args = (lab, fm, g, c, rl, nb)
+        for a, b in zip(st.banded_stats_sp(*args, h * w, K, *rows),
+                        st.banded_stats_sp_reference(*args, K, *rows)):
+            assert torch.equal(a, b)
+
+
+def _same(got, want):
+    table, conf, accepted = got[:3]
+    for f in want[0]._fields:
+        np.testing.assert_array_equal(table[f], getattr(want[0], f).cpu()
+                                      .numpy(), err_msg=f)
+    np.testing.assert_array_equal(conf, want[1].cpu().numpy())
+    np.testing.assert_array_equal(accepted, want[2].cpu().numpy())
+
+
+def _frames(n, h, w):
+    rng = np.random.RandomState(1)
+    frames = np.full((n, h, w, 3), 215, np.uint8)
+    yy, xx = np.ogrid[:h, :w]
+    for i in range(n):
+        for _ in range(5):
+            y, x = rng.randint(8, h - 8), rng.randint(8, w - 8)
+            r, v = rng.randint(3, 14), rng.randint(0, 60)
+            frames[i][(yy - y) ** 2 + (xx - x) ** 2 <= r * r] = (v, v, v)
+    return frames
+
+
+@pytest.mark.cuda
+def test_spatial_step_on_one_card_equals_detector(card):
+    frames = _frames(4, 128, 192)
+    ranks = launch("_torch_parallel_worker:card_world", 4,
+                   args=(frames, K, 16), device="cuda", timeout=300,
+                   sys_path=(TESTS,))
+    det = ContaminationDetector(config={"max_blobs": K})
+    want = det.run_device(frames)
+    for r in ranks:
+        assert r["device"].startswith("cuda")
+        assert all(r["launches"])
+        _same(r["out"], want)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_world_equals_detector(card):
+    frames = _frames(4, 128, 192)
+    (res,) = launch("_torch_parallel_worker:nccl_world", 1,
+                    args=(frames, K), device="cuda", timeout=300,
+                    sys_path=(TESTS,))
+    assert res["backend"] == "nccl"
+    want = ContaminationDetector(config={"max_blobs": K}).run_device(frames)
+    for key in ("pallas_dp", "tiled_dp", "line"):
+        _same(res[key], want)

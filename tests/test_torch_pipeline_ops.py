@@ -23,7 +23,8 @@ from heimdall_tpu.ops import hough as jhough
 jthresh = importlib.import_module("heimdall_tpu.ops.threshold")
 
 from heimdall_tpu_torch.ops import color, filters, histogram, hough
-from heimdall_tpu_torch.ops import threshold
+# the module: the package exports its function of the same name
+threshold = importlib.import_module("heimdall_tpu_torch.ops.threshold")
 
 SIZES = [(48, 64), (120, 160), (61, 93)]
 
