@@ -190,6 +190,30 @@ Phases (each prints a line; any failure exits non-zero without a result):
         data-parallel steps and the line step at 640x480 (8 frames) and
         1920x1080 BGR (4), equal to the single-card detector, the line
         totals equal to its tables';
+     h. the training path (run last, after phase 5g), with every
+        wrapper's count set to 0 just before and read just after and
+        every plain version guarded: one step of
+        ClassifierTrainer (width 32, 256 patches of 32x32), of
+        DefectSegmenter.train_step (UNet base 16, 8 ring frames of 640x480
+        with their dark rings as masks) and of the autoencoder (width 16,
+        64 of those frames' tiles), each from the same seeded parameters
+        on the card and the CPU, held by tests/_torch_step_rule.py (loss,
+        gradients, parameters after the step; the bf16 models against the
+        CPU's step, the float32 UNet against the CPU's step in float64 at
+        the float32 tolerances, also with TF32 allowed process-wide: TF32
+        off through its backward; its loss also against the CPU's float32
+        step) and timed in ms a step by CUDA events; AnomalyDetector.fit
+        for one epoch (560 tiles, batch 64) on both, loss and threshold
+        within 1e-3; the sharded
+        train step over a 1x4 world on the one card (gloo, staged) and a
+        1-rank NCCL world, every rank's parameters bitwise equal and
+        within tolerance of the card's ClassifierTrainer step on the whole
+        batch, timed a step (slowest rank); examples/model_training at its
+        own sizes (48 frames of 128x96, 80 steps; its lines printed, every
+        loss finite), which must launch the fused kernel and the band
+        route's labels, merge, banded stats and bbox sums; and a
+        ProfilingSession.trace of a UNet step after all that training,
+        which must list the card's kernels;
   5. times with CUDA events after warm-up, the timed runs queued behind a
      spin kernel so that the host's time per call stays out: each kernel,
      its plain version and its bound, and which of bytes and operations
@@ -245,9 +269,10 @@ Phases (each prints a line; any failure exits non-zero without a result):
   6. JSON lines: each route's end-to-end and host ms per call, the system
      path's times and traced launches, the line path's figures, the
      serving path's figures (times, launches, the card), the
-     multi-device path's figures, and every kernel with its check, times
-     and launches on the system path, the line path, the serving path and
-     the multi-device path;
+     multi-device path's figures, the training path's figures (ms a step,
+     the checks' readings, launches, the card), and every kernel with its
+     check, times and launches on the system path, the line path, the
+     serving path, the multi-device path and the training path;
 then the last line {"ok": true, "device": {...}}.  With --profile DIR,
 per-kernel breakdowns from torch.profiler go to
 DIR/fused_detect_profile.txt, DIR/tiled_2mp_profile.txt (Mono8) and
@@ -3451,6 +3476,338 @@ def parallel_phases(dev, smi):
     return launches, figures, times, err
 
 
+# The training path (phase 4h): the trainers at the models' default widths
+# on what a line would train on (the classifier on 256 blob-sized patches,
+# the segmenter and the autoencoder on 8 frames of 640x480: 560 tiles of
+# 64x64 in batches of 64), the sharded train step over the spatial
+# world's 4 ranks of the one card and a 1-rank NCCL world, and
+# examples/model_training at its own sizes (48 frames of 128x96, 80
+# steps).  Each step is held by tests/_torch_step_rule.py, the rule and
+# tolerances of the CPU tests (tests/test_torch_training*.py).  The float32
+# UNet is held against the same step in float64 on the CPU: at 8 x 640 x
+# 480 a weight's gradient sums 2.46 M terms a channel pair, and the CPU's
+# float32 gradient lies up to 1.5e-3 of a tensor's largest |g| from
+# float64, the card's 2.5e-6 (a TF32 backward 1.2e-3, cuDNN's
+# deterministic algorithms 1.5e-3), so only float64 tells float32's
+# noise from a reduced-precision backward at the tests' 1e-5.
+TRAIN_PATCHES = 256
+TRAIN_FRAMES = 8
+TRAIN_TIMED_STEPS = 5
+TRAIN_RANKS = 4
+TRAIN_LR = 1e-3
+
+
+def train_inputs():
+    """The classifier's batch: half random patches, half flat regions of
+    five levels (tied maxima in the pools), and their labels."""
+    import numpy as np
+    rng = np.random.RandomState(13)
+    half = TRAIN_PATCHES // 2
+    levels = np.array([0, 40, 120, 200, 255], np.uint8)
+    patches = np.concatenate([
+        rng.randint(0, 256, (half, 32, 32, 1)).astype(np.uint8),
+        levels[rng.randint(0, 5, (half, 32, 32, 1))]])
+    return patches, rng.randint(0, 2, TRAIN_PATCHES)
+
+
+def train_rank(patches, labels):
+    """One rank of phase 4h's worlds: the sharded train step over every
+    rank (1 x n), one step from seed 0, then TRAIN_TIMED_STEPS timed
+    steps (host clock around a step and a sync, after a barrier)."""
+    import torch
+    import torch.distributed as dist
+    from heimdall_tpu_torch.models import make_sharded_train_step
+    from heimdall_tpu_torch.parallel.mesh import make_mesh
+
+    train = make_sharded_train_step(make_mesh(data=1,
+                                              spatial=dist.get_world_size()))
+    device = next(train.state["params"].parameters()).device
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    loss = float(train(patches, labels))
+    params = {k: v.detach().cpu().clone() for k, v in
+              train.state["params"].state_dict().items()}
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        train(patches, labels)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"loss": loss, "params": params, "step_ms": times,
+            "device": str(device), "backend": dist.get_backend()}
+
+
+def _grads(model):
+    return {k: p.grad.detach().cpu().numpy().copy() for k, p in
+            model.named_parameters()}
+
+
+def _params(model):
+    return {k: p.detach().cpu().numpy().copy() for k, p in
+            model.named_parameters()}
+
+
+def _step(loss, model):
+    return {"loss": loss, "grads": _grads(model), "params": _params(model)}
+
+
+def hold_step(name, ref, got, tols, loss_tol):
+    """One train step on the card (got) against a reference step (ref),
+    each {"loss", "grads" (or None), "params"}, by
+    tests/_torch_step_rule.py; fails the run on a mismatch, else returns
+    the figures."""
+    import _torch_step_rule as rule
+    try:
+        return rule.hold_step(name, ref, got, tols, loss_tol, TRAIN_LR)
+    except AssertionError as e:
+        fail(f"{name}: {e}")
+
+
+def trace_kernels(path):
+    """The number of the card's kernels in a Chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def training_phases(dev, smi):
+    """Phase 4h, the training path on the card: one step of each trainer
+    at its default width (the classifier, width 32, on TRAIN_PATCHES
+    patches; the UNet, base 16, on TRAIN_FRAMES ring frames of 640x480
+    with their dark rings as masks; the autoencoder, width 16, on the
+    first 64 of their tiles) against the same step on the CPU from the
+    same parameters (the UNet's in float64), each timed in ms a step;
+    AnomalyDetector.fit for one epoch on the card and the CPU; the sharded
+    train step over a 1 x TRAIN_RANKS world on the one card (gloo,
+    staged) and a 1-rank NCCL world, every rank's parameters bitwise equal
+    and each world's step held against the card's ClassifierTrainer step;
+    examples/model_training.main at its own sizes; and a
+    ProfilingSession.trace of a UNet step after all of it.  Every
+    wrapper's count is set to 0 just before and read just after, and no
+    plain version may run on a CUDA tensor in between.  Returns ({wrapper:
+    launches}, the phase's figures)."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.examples import model_training
+    from heimdall_tpu_torch.models import (AnomalyDetector,
+                                           ClassifierTrainer,
+                                           DefectClassifier, DefectSegmenter)
+    from heimdall_tpu_torch.models import segmentation
+    from heimdall_tpu_torch.models.anomaly import _tile_frames
+    from heimdall_tpu_torch.models.layers import float32_convs
+    from heimdall_tpu_torch.parallel.launch import launch
+    from heimdall_tpu_torch.perf.profiling import ProfilingSession
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _torch_step_rule as rule
+
+    wrappers = _sp_wrappers()
+    must = ("fused_detect", "band_ccl", "merge_bands", "banded_stats",
+            "bbox_sums")
+    figures = {"card": smi, "ms_a_step": {}, "held": {}}
+    ms, held = figures["ms_a_step"], figures["held"]
+
+    def timed(name, step):
+        step()
+        ms[name] = cuda_ms_only(lambda: None, step, TRAIN_TIMED_STEPS)
+
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    plain_on_card = guard_plains()
+    try:
+        # -- the classifier ------------------------------------------------
+        patches, labels = train_inputs()
+        steps = {}
+        for d in (dev, "cpu"):
+            clf = DefectClassifier(seed=0, device=d)
+            trainer = ClassifierTrainer(clf)
+            steps[d] = _step(trainer.train_step(patches, labels), clf.model)
+            if d == dev:
+                timed("classifier", lambda: trainer.train_step(patches,
+                                                               labels))
+        clf_tols = rule.bf16_tols(steps["cpu"]["grads"], "Dense_1")
+        held["classifier"] = hold_step("ClassifierTrainer", steps["cpu"],
+                                       steps[dev], clf_tols,
+                                       rule.BF16_LOSS_TOL)
+        clf_card = steps[dev]
+
+        # -- the segmenter: the card's float32 step against the CPU's in
+        # float64 (and its loss against the CPU's float32 step) -----------
+        frames = scene.ring_frames(TRAIN_FRAMES, 480, 640, seed=3)
+        masks = frames[..., 1] < 60
+        steps = {}
+        for key, d, dtype in (("card", dev, torch.float32),
+                              ("cpu_float64", "cpu", torch.float64),
+                              ("cpu_float32", "cpu", torch.float32)):
+            seg = DefectSegmenter(base=16, seed=0, device=d)
+            seg.model.to(dtype)
+            steps[key] = _step(seg.train_step(frames, masks), seg.model)
+            if d == dev:
+                card_seg = seg
+                timed("segmenter", lambda: seg.train_step(frames, masks))
+        f64 = steps["cpu_float64"]
+        unet_tols = rule.f32_tols(f64["grads"])
+        held["segmenter"] = hold_step("DefectSegmenter.train_step", f64,
+                                      steps["card"], unet_tols,
+                                      rule.F32_LOSS_TOL)
+        cpu32 = steps["cpu_float32"]
+        held["segmenter"]["loss_rel_err_cpu_float32"] = rel_loss = abs(
+            steps["card"]["loss"] - cpu32["loss"]) / abs(cpu32["loss"])
+        if rel_loss > rule.F32_LOSS_TOL:
+            fail(f"DefectSegmenter.train_step: loss {steps['card']['loss']}"
+                 f" on the card against {cpu32['loss']} on the CPU")
+        held["segmenter"]["cpu_float32_max_grad_err"] = max(
+            rule.grad_errors(f64["grads"], cpu32["grads"],
+                             unet_tols).values())
+        # the same step with cuDNN's TF32 allowed process-wide (PyTorch's
+        # default; this script turns it off): the step must turn it off
+        # through its backward, so it holds the float64 step as above;
+        # beside it, for scale, a backward run in TF32 against the same
+        # backward without it
+        seg = DefectSegmenter(base=16, seed=0, device=dev)
+        x, _ = segmentation._to_model_input(frames, dev)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            allowed = _step(seg.train_step(frames, masks), seg.model)
+            seg.model.zero_grad()
+            with float32_convs(dev):
+                logits = seg.model(x)[:, 0]
+            logits.pow(2).mean().backward()
+            tf32 = _grads(seg.model)
+            seg.model.zero_grad()
+            with float32_convs(dev):
+                seg.model(x)[:, 0].pow(2).mean().backward()
+            plain = _grads(seg.model)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        held["segmenter"]["tf32_allowed"] = hold_step(
+            "DefectSegmenter.train_step with TF32 allowed", f64, allowed,
+            unet_tols, rule.F32_LOSS_TOL)["max_grad_err"]
+        held["segmenter"]["tf32_backward_rel_err"] = max(
+            rule.grad_errors(plain, tf32, unet_tols).values())
+
+        # -- the autoencoder: one step, then a fit of one epoch ---------------
+        gray = np.ascontiguousarray(frames[..., 1])
+        tiles = _tile_frames(gray)[:64]
+        steps, fits = {}, {}
+        for d in (dev, "cpu"):
+            ae = AnomalyDetector(seed=0, device=d)
+            steps[d] = _step(float(ae._train_step(tiles)), ae.model)
+            fit = AnomalyDetector(seed=0, device=d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fits[d] = (fit.fit(gray, epochs=1), fit.threshold)
+            torch.cuda.synchronize()
+            if d == dev:
+                figures["fit_s"] = time.perf_counter() - t0
+                timed("autoencoder", lambda: ae._train_step(tiles))
+        held["autoencoder"] = hold_step(
+            "AnomalyDetector step", steps["cpu"], steps[dev],
+            rule.bf16_tols(steps["cpu"]["grads"], "ConvTranspose_2"),
+            rule.BF16_LOSS_TOL)
+        n_tiles = len(_tile_frames(gray))
+        if not all(abs(a - b) <= rule.FIT_TOL * abs(b)
+                   for a, b in zip(fits[dev], fits["cpu"])):
+            fail(f"AnomalyDetector.fit: loss and threshold {fits[dev]} on "
+                 f"the card against {fits['cpu']} on the CPU")
+        held["fit"] = {"tiles": n_tiles, "loss": fits[dev][0],
+                       "threshold": fits[dev][1], "cpu": fits["cpu"]}
+        phase(f"training path: one step each, card against CPU: classifier"
+              f" {held['classifier']}; UNet (against float64) "
+              f"{held['segmenter']}; autoencoder {held['autoencoder']}; fit"
+              f" of 1 epoch on {n_tiles} tiles: loss and threshold "
+              f"{fits[dev]} against {fits['cpu']}; {smi}: " + ", ".join(
+                  f"{k} {v:.3f} ms a step" for k, v in ms.items())
+              + f"; the fit {figures['fit_s']:.3f} s")
+
+        # -- the sharded train step in both worlds ------------------------
+        figures["sharded"] = {}
+        for ranks in (TRAIN_RANKS, 1):
+            out = launch("chip_smoke:train_rank", ranks,
+                         args=(patches, labels), device="cuda", timeout=600,
+                         sys_path=(REPO,))
+            for r in out:
+                same = r["loss"] == out[0]["loss"] and all(
+                    torch.equal(v, out[0]["params"][k])
+                    for k, v in r["params"].items())
+                if not same or not r["device"].startswith("cuda"):
+                    fail(f"sharded train step, {ranks} ranks: the ranks' "
+                         f"parameters differ or ran on {r['device']}")
+            got = {"loss": out[0]["loss"], "grads": None,
+                   "params": {k: v.numpy()
+                              for k, v in out[0]["params"].items()}}
+            step_ms = [max(r["step_ms"][i] for r in out)
+                       for i in range(TRAIN_TIMED_STEPS)]
+            key = f"{ranks}_ranks_{out[0]['backend']}"
+            figures["sharded"][key] = dict(
+                hold_step(f"sharded train step ({key})", clf_card, got,
+                          clf_tols, rule.BF16_LOSS_TOL), step_ms=step_ms)
+            phase(f"training path: make_sharded_train_step over {ranks} "
+                  f"rank(s) of one card ({out[0]['backend']}): every rank's "
+                  f"parameters bitwise equal, within tolerance of one "
+                  f"ClassifierTrainer step on the whole batch; {smi}: "
+                  f"{[round(t, 3) for t in step_ms]} ms a step (slowest "
+                  f"rank, host clock around the step and a sync)")
+
+        # -- examples/model_training at its own sizes ----------------------
+        with tempfile.TemporaryDirectory() as tmp:
+            real_tmp = tempfile.tempdir
+            tempfile.tempdir = tmp
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(text):
+                    run = model_training.main(["--device", "cuda"])
+            finally:
+                tempfile.tempdir = real_tmp
+            figures["model_training_s"] = time.perf_counter() - t0
+        for line in text.getvalue().splitlines():
+            phase(f"  model_training | {line}")
+        if (len(run["losses"]) != 80
+                or not all(map(math.isfinite, run["losses"]))):
+            fail(f"examples/model_training: losses {run['losses']}")
+        figures["model_training"] = dict(
+            run, losses={0: run["losses"][0], 79: run["losses"][-1]})
+
+        # -- a trace after training: ProfilingSession.trace of a UNet step
+        # in this process, which has trained on the card ----------------------
+        session = ProfilingSession("training_trace", device=dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            for tries in range(1, TRACE_TRIES + 1):
+                time.sleep(0.2 if tries > 1 else 0.0)
+                with session.trace(tmp):
+                    card_seg.train_step(frames, masks)
+                kernels = trace_kernels(session.trace_path)
+                if kernels:
+                    break
+        figures["trace_after_training"] = {"tries": tries,
+                                           "kernels": kernels}
+        phase(f"training path: ProfilingSession.trace of a UNet step after "
+              f"training listed {kernels} CUDA kernels (try {tries})")
+        if not kernels:
+            fail(f"ProfilingSession.trace after training recorded no CUDA "
+                 f"kernel in {TRACE_TRIES} tries")
+    finally:
+        guard_plains.restore()
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    phase(f"training path launched {launches}; model_training took "
+          f"{figures['model_training_s']:.1f} s")
+    if plain_on_card:
+        fail(f"plain versions ran on the card: {sorted(set(plain_on_card))}")
+    if not all(launches.get(n) for n in must):
+        fail(f"the training path's example did not go through every kernel "
+             f"of its path {must}: {launches}")
+    return launches, figures
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -3644,6 +4001,7 @@ def main(argv):
     # -- 4g: the multi-device path ---------------------------------------------
     launches4g, multi, times4g, err4g = parallel_phases(dev, smi)
 
+
     # -- 3d, 5d: the split kernels and the profiling path --------------------
     split, t_roll, roll_launches = split_phases(dev, smi, cases)
 
@@ -3655,6 +4013,10 @@ def main(argv):
 
     # -- 3g, 5g: the primitive microbench ----------------------------------
     primitives = primitive_phases(dev, smi)
+
+    # -- 4h: the training path (last: after its backward passes on the card
+    # this process's torch.profiler traces recorded no CUDA kernel) ----------
+    launches4h, training = training_phases(dev, smi)
 
     # -- 6. kernels lines -----------------------------------------------------
     csrc = "heimdall_tpu_torch/csrc/"
@@ -3781,6 +4143,7 @@ def main(argv):
         k["launches_multi_device_path"] = launches4g.get(k["name"], 0)
         k["launches_multi_device_1rank_world"] = multi[
             "launches_1rank_world"].get(k["name"], 0)
+        k["launches_training_path"] = launches4h.get(k["name"], 0)
     print(json.dumps({"path_kernels": path_kernels}), flush=True)
     print(json.dumps({"system_path": dict(
         times4, cuda_kernels_2mp=traced4, cuda_kernels_640x480=traced4_640,
@@ -3791,6 +4154,8 @@ def main(argv):
           flush=True)
     print(json.dumps({"multi_device_path": dict(
         multi, launches=launches4g, entries=times4g)}), flush=True)
+    print(json.dumps({"training_path": dict(training, launches=launches4h)}),
+          flush=True)
     print(json.dumps({"end_to_end": dict(
         {"640x480x3": {"ms": e2e_s * 1e3, "host_ms": e2e_host}}, **e2e2,
         **e2e3), "batch": {"640x480x3": BATCH, "2mp": BATCH_2MP},

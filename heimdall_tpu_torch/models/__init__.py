@@ -1,7 +1,8 @@
-"""Learned models (port of heimdall_tpu/models): the defect classifier, the
-anomaly autoencoder, the segmentation U-Net and its int8 form, and
-training-data capture.  Inference runs on the card; training belongs to a
-later slice (its entry points raise NotImplementedError)."""
+"""Learned models (port of heimdall_tpu/models): the defect classifier and
+its trainers (one process, or data-parallel over a mesh), the anomaly
+autoencoder, the segmentation U-Net and its int8 form, and training-data
+capture.  Training and inference run on the card; models/optim.py holds
+the port's optax.adam."""
 
 from heimdall_tpu_torch.models.defect_classifier import (
     DefectClassifier,

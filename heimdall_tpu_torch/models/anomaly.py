@@ -10,8 +10,12 @@ tile (``Conv2d(padding=1)`` would pad 1 and 1), and its 3x3 stride-2
 "SAME" transposed convolution is torch's with the last row and column
 dropped (models/layers.py).
 
-``threshold`` is a settable attribute; ``fit`` (training and calibration)
-belongs to the training slice and raises NotImplementedError.
+``fit`` trains on good frames with the port's optax.adam
+(models/optim.py), the MSE against the tiles / 255 as the loss, batches in
+the order of ``np.random.RandomState(0)`` permutations, and calibrates
+``threshold`` (also settable) as the mean + sigma * std of the training
+tiles' errors.  The float32 last layer runs without TF32 on the card
+(models/layers.py::float32_convs), in training through the backward too.
 """
 
 import logging
@@ -24,9 +28,11 @@ from torch import nn
 
 from heimdall_tpu_torch.detectors.contamination_detector import (
     resolve_device)
-from heimdall_tpu_torch.models.layers import (TRAINING_MISSING, bf16,
-                                              bf16_conv, conv_transpose_same,
+from heimdall_tpu_torch.models.layers import (bf16, bf16_conv,
+                                              conv_transpose_same,
+                                              float32_convs,
                                               init_flax_defaults)
+from heimdall_tpu_torch.models.optim import Adam, train_step
 
 logger = logging.getLogger("heimdall.models.anomaly")
 
@@ -49,14 +55,16 @@ class ConvAutoencoder(nn.Module):
         self.ConvTranspose_2 = nn.ConvTranspose2d(w, 1, 3, stride=2)
 
     def forward(self, x):
+        dev = x.device
         x = bf16(x.permute(0, 3, 1, 2)) / torch.tensor(
-            255.0, dtype=torch.bfloat16, device=x.device)
+            255.0, dtype=torch.bfloat16, device=dev)
         for conv in (self.Conv_0, self.Conv_1, self.Conv_2):
             # "SAME" at stride 2 on an even side: 0 before, 1 after
             x = F.relu(bf16_conv(conv, x, pad=(0, 1, 0, 1)))
         for up in (self.ConvTranspose_0, self.ConvTranspose_1):
             x = F.relu(conv_transpose_same(up, x, torch.bfloat16))
-        x = conv_transpose_same(self.ConvTranspose_2, x, torch.float32)
+        with float32_convs(dev):
+            x = conv_transpose_same(self.ConvTranspose_2, x, torch.float32)
         return torch.sigmoid(x)
 
 
@@ -73,9 +81,16 @@ def _tile_frames(frames: np.ndarray) -> np.ndarray:
     return tiles[..., None]
 
 
+def _target(x: torch.Tensor) -> torch.Tensor:
+    """uint8 tiles [N, 64, 64, 1] -> float32 [N, 1, 64, 64] / 255."""
+    return x.permute(0, 3, 1, 2).to(torch.float32) / torch.tensor(
+        255.0, device=x.device)
+
+
 class AnomalyDetector:
-    """Score frames by reconstruction error, on ``device`` (CUDA unless
-    "cpu" is named; raises when there is no card)."""
+    """Train on good frames and score frames by reconstruction error, on
+    ``device`` (CUDA unless "cpu" is named; raises when there is no card).
+    ``tx`` is the optimizer and ``opt_state`` its state."""
 
     def __init__(self, seed: int = 0, learning_rate: float = 1e-3,
                  device=None):
@@ -83,19 +98,47 @@ class AnomalyDetector:
         self.learning_rate = learning_rate
         self.model = init_flax_defaults(ConvAutoencoder(), seed).to(
             self.device).eval()
+        self.tx = Adam(self.model.parameters(), learning_rate)
         self.threshold: Optional[float] = None
 
+    @property
+    def opt_state(self):
+        return self.tx.state
+
+    def _train_step(self, tiles: np.ndarray) -> torch.Tensor:
+        """One optimizer step on uint8 tiles [n, 64, 64, 1]; the loss."""
+        x = torch.from_numpy(np.ascontiguousarray(tiles)).to(self.device)
+        return train_step(
+            self.tx, lambda: ((self.model(x) - _target(x)) ** 2).mean(),
+            self.device)
+
+    # ------------------------------------------------------------------
     def fit(self, good_frames: np.ndarray, epochs: int = 20,
             batch_size: int = 64, calibration_sigma: float = 4.0) -> float:
-        raise NotImplementedError(TRAINING_MISSING)
+        """Train on known-good frames and calibrate the anomaly threshold
+        (mean + sigma * std of training-tile errors)."""
+        tiles = _tile_frames(good_frames)
+        rng = np.random.RandomState(0)
+        last_loss = 0.0
+        for _ in range(epochs):
+            order = rng.permutation(len(tiles))
+            for start in range(0, len(tiles), batch_size):
+                batch = tiles[order[start:start + batch_size]]
+                if len(batch) < 2:
+                    continue
+                last_loss = float(self._train_step(batch))
+        errors = self._tile_errors(tiles)
+        self.threshold = float(errors.mean()
+                               + calibration_sigma * errors.std())
+        logger.info("anomaly AE trained: loss=%.5f threshold=%.5f",
+                    last_loss, self.threshold)
+        return last_loss
 
     @torch.no_grad()
     def _tile_errors(self, tiles: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(tiles)).to(self.device)
-        recon = self.model(x)
-        target = x.permute(0, 3, 1, 2).to(torch.float32) / torch.tensor(
-            255.0, device=self.device)
-        return ((recon - target) ** 2).mean(dim=(1, 2, 3)).cpu().numpy()
+        return ((self.model(x) - _target(x)) ** 2).mean(
+            dim=(1, 2, 3)).cpu().numpy()
 
     def score(self, frames: np.ndarray) -> np.ndarray:
         """Max tile reconstruction error per frame (higher = more

@@ -5,12 +5,17 @@ A small CNN scores defect-candidate patches cut around blob-table bboxes.
 The convolutions and the first dense layer run in bfloat16 as flax's
 ``dtype=bf16`` layers do (models/layers.py), the last layer in float32.
 
+Training takes steps of the port's optax.adam (models/optim.py) on the
+softmax cross-entropy of integer labels, through the same bf16 forward:
+the products and their gradients are bf16, and the casts of the float32
+parameters are the gradients' way back, as in flax.
+``make_sharded_train_step`` runs the step data-parallel over a mesh of
+heimdall_tpu_torch/parallel, one process per rank.
+
 Checkpoints: ``save`` writes the model's ``state_dict`` (torch.save) as
 ``params.pt`` in the checkpoint directory, where JAX writes an orbax
 ``params`` directory or ``params.msgpack``, which cannot be read without
-jax; ``load`` raises FileNotFoundError as JAX's does.  Training
-(``ClassifierTrainer``, ``make_sharded_train_step``) belongs to later
-slices and raises NotImplementedError.
+jax; ``load`` raises FileNotFoundError as JAX's does.
 """
 
 import logging
@@ -23,10 +28,9 @@ from torch import nn
 
 from heimdall_tpu_torch.detectors.contamination_detector import (
     resolve_device)
-from heimdall_tpu_torch.models.layers import (SHARDED_MISSING,
-                                              TRAINING_MISSING, bf16,
-                                              bf16_conv, bf16_linear,
+from heimdall_tpu_torch.models.layers import (bf16, bf16_conv, bf16_linear,
                                               init_flax_defaults)
+from heimdall_tpu_torch.models.optim import Adam, train_step
 
 logger = logging.getLogger("heimdall.models")
 
@@ -121,15 +125,83 @@ class DefectClassifier:
                                               map_location=self.device))
 
 
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """optax.softmax_cross_entropy_with_integer_labels: logsumexp minus the
+    labelled logit, per row."""
+    return (torch.logsumexp(logits, -1)
+            - logits.gather(-1, labels[:, None])[:, 0])
+
+
 class ClassifierTrainer:
-    """Training loop of the JAX package; not ported yet."""
+    """Single-process training loop on the classifier's device; ``tx`` is
+    the optimizer and ``opt_state`` its state."""
 
     def __init__(self, classifier: DefectClassifier,
                  learning_rate: float = 1e-3):
-        raise NotImplementedError(TRAINING_MISSING)
+        self.classifier = classifier
+        self.tx = Adam(classifier.model.parameters(), learning_rate)
+
+    @property
+    def opt_state(self):
+        return self.tx.state
+
+    def train_step(self, patches: np.ndarray, labels: np.ndarray) -> float:
+        model, dev = self.classifier.model, self.classifier.device
+        x = torch.from_numpy(np.ascontiguousarray(patches)).to(dev)
+        y = torch.from_numpy(np.asarray(labels, np.int64)).to(dev)
+        return float(train_step(
+            self.tx, lambda: softmax_cross_entropy(model(x), y).mean(), dev))
 
 
 def make_sharded_train_step(mesh, n_classes: int = 2,
                             learning_rate: float = 1e-3):
-    """Data-parallel train step of the JAX package; not ported yet."""
-    raise NotImplementedError(SHARDED_MISSING)
+    """Build this rank's data-parallel train step over the inspection mesh.
+
+    Every rank of the mesh calls ``train(patches_u8 [N, 32, 32, 1],
+    labels [N])`` with the same global batch and steps on its block of N
+    over ("data", "spatial") flattened (JAX's ``P(("data", "spatial"))``,
+    the flat-block order of parallel/inspect_step.py); N must divide over
+    the mesh's ranks.  Parameters are replicated: each rank initialises
+    from seed 0, and the gradients are summed over the mesh
+    (parallel/collectives.py: NCCL, or gloo staged through pinned host
+    buffers) and divided by its size, so every rank applies the same
+    update.  Returns the loss, the global mean, as a 0-d tensor on the
+    rank's device; ``train.state`` holds ``params`` (the model) and
+    ``opt`` (its optimizer)."""
+    from heimdall_tpu_torch.parallel import collectives
+    from heimdall_tpu_torch.parallel.inspect_step import _flat_block
+    from heimdall_tpu_torch.parallel.mesh import mesh_group, rank_device
+    from heimdall_tpu_torch.parallel.sharding import shard_batch
+
+    dev = rank_device()
+    model = init_flax_defaults(DefectClassifierCNN(n_classes=n_classes),
+                               0).to(dev)
+    tx = Adam(model.parameters(), learning_rate)
+    group = mesh_group(mesh, ("data", "spatial"))
+    n_ranks = int(mesh.mesh.numel())
+    size = torch.tensor(float(n_ranks), device=dev)
+    params = list(model.parameters())
+
+    def reduce_grads():
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        flat = collectives.all_reduce(flat, "sum", group) / size
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+
+    def train(patches, labels):
+        n = len(patches)
+        if n % n_ranks or len(labels) != n:
+            raise ValueError(
+                f"a batch of {n} patches ({len(labels)} labels) does not "
+                f"divide over the mesh's {n_ranks} devices")
+        x = _flat_block(mesh, shard_batch(mesh, np.asarray(patches)))
+        y = _flat_block(mesh, shard_batch(mesh, np.asarray(labels,
+                                                           np.int64)))
+        loss = train_step(
+            tx, lambda: softmax_cross_entropy(model(x), y).mean(), dev,
+            reduce_grads)
+        return collectives.all_reduce(loss, "sum", group) / size
+
+    train.state = {"params": model, "opt": tx}
+    return train

@@ -1,7 +1,6 @@
 """What the port's models share: flax's default initialisation from an
-explicit torch.Generator, float32 convolutions on the card (no TF32), the
-bf16 layers of the flax models with ``dtype=bf16``, and the messages of
-the training entry points, which belong to later slices.
+explicit torch.Generator, float32 convolutions on the card (no TF32) and
+the bf16 layers of the flax models with ``dtype=bf16``.
 
 A flax ``Conv``/``ConvTranspose``/``Dense`` with ``dtype=bf16`` casts its
 input, kernel and bias to bf16, rounds the product to bf16 and then adds
@@ -15,13 +14,6 @@ import threading
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-TRAINING_MISSING = ("training is not ported yet: ClassifierTrainer, "
-                    "AnomalyDetector.fit and DefectSegmenter.train_step "
-                    "belong to the training slice (ROADMAP.md §A.2)")
-SHARDED_MISSING = ("make_sharded_train_step is not ported yet: it comes "
-                   "with the training slice, over the meshes of "
-                   "heimdall_tpu_torch.parallel (ROADMAP.md §A.2)")
 
 # flax's lecun_normal draws a normal truncated to 2 standard deviations
 # and divides by the truncated distribution's standard deviation

@@ -11,10 +11,13 @@ first K roots in raster order, as JAX's ops.connected_components +
 blobs.blob_stats give them.
 
 The UNet computes in float32: TF32 is off for its convolutions on the card
-(models/layers.py::float32_convs).  Parameters are a ``state_dict`` (flax's
-come across through models/convert.py); ``save``/``load`` write and read
-one with torch.save, where JAX writes flax msgpack, which cannot be read
-without flax.  Training (``train_step``) belongs to a later slice.
+(models/layers.py::float32_convs), in a train step through its backward
+too (models/optim.py::train_step).  ``train_step`` takes one step of the
+port's optax.adam (models/optim.py) on optax's sigmoid binary
+cross-entropy, positives weighted.  Parameters are a ``state_dict``
+(flax's come across through models/convert.py); ``save``/``load`` write
+and read one with torch.save, where JAX writes flax msgpack, which cannot
+be read without flax.
 """
 
 from typing import Any, Dict, List
@@ -27,10 +30,10 @@ from torch import nn
 from heimdall_tpu_torch.detectors.base import Defect
 from heimdall_tpu_torch.detectors.contamination_detector import (
     TILED_BAND, download_table, resolve_device)
-from heimdall_tpu_torch.models.layers import (TRAINING_MISSING,
-                                              conv_transpose_same,
+from heimdall_tpu_torch.models.layers import (conv_transpose_same,
                                               float32_convs,
                                               init_flax_defaults)
+from heimdall_tpu_torch.models.optim import Adam, train_step
 from heimdall_tpu_torch.ops.color import bgr_to_gray
 from heimdall_tpu_torch.ops.stats_tiled import label_and_table
 
@@ -81,7 +84,7 @@ class SegmentationUNet(nn.Module):
         def up(name, v):
             if taps is not None:
                 taps[name] = v
-            return conv_transpose_same(getattr(self, name), v, torch.float32)
+            return conv_transpose_same(getattr(self, name), v, v.dtype)
 
         with float32_convs(x.device):
             return unet_forward(conv, up, x)
@@ -107,9 +110,18 @@ def _to_model_input(images, device):
     return x, (H, W)
 
 
+def sigmoid_binary_cross_entropy(logits: torch.Tensor,
+                                 labels: torch.Tensor) -> torch.Tensor:
+    """optax.sigmoid_binary_cross_entropy, elementwise, written as optax
+    writes it."""
+    return (-labels * F.logsigmoid(logits)
+            - (1.0 - labels) * F.logsigmoid(-logits))
+
+
 class DefectSegmenter:
-    """Predict wrapper around SegmentationUNet, on ``device`` (CUDA unless
-    "cpu" is named; raises when there is no card)."""
+    """Train/predict wrapper around SegmentationUNet, on ``device`` (CUDA
+    unless "cpu" is named; raises when there is no card).  ``tx`` is the
+    optimizer and ``opt_state`` its state."""
 
     def __init__(self, base: int = 16, seed: int = 0,
                  learning_rate: float = 1e-3, device=None):
@@ -117,10 +129,45 @@ class DefectSegmenter:
         self.learning_rate = learning_rate
         self.model = init_flax_defaults(SegmentationUNet(base), seed).to(
             self.device).eval()
+        self.tx = Adam(self.model.parameters(), learning_rate)
 
+    @property
+    def opt_state(self):
+        return self.tx.state
+
+    # -- training ------------------------------------------------------------
     def train_step(self, images: np.ndarray, masks: np.ndarray,
                    pos_weight: float = 8.0) -> float:
-        raise NotImplementedError(TRAINING_MISSING)
+        """One optimizer step.  masks: bool/0-1 [N, H, W] ground truth.
+        Defect pixels are rare, so positives are up-weighted; the rows and
+        columns padded to a multiple of 4 carry no weight.  The step
+        computes in the model's dtype (float32; a copy of the model made
+        float64 with ``model.double()`` gives a reference step)."""
+        return float(train_step(self.tx, self._loss_fn(images, masks,
+                                                       pos_weight),
+                                self.device))
+
+    def _loss_fn(self, images, masks, pos_weight):
+        """train_step's loss as a closure over the batch on the device."""
+        dtype = self.model.Conv_0.weight.dtype
+        x, (H, W) = _to_model_input(images, self.device)
+        x = x.to(dtype)
+        y = torch.from_numpy(np.asarray(masks, np.float32)).to(self.device,
+                                                               dtype)
+        ph, pw = x.shape[2] - H, x.shape[3] - W
+        if ph or pw:
+            y = F.pad(y, (0, pw, 0, ph))
+        w = torch.where(y > 0, pos_weight, 1.0).to(dtype)
+        if ph or pw:
+            valid = torch.zeros(x.shape[2:], dtype=dtype, device=self.device)
+            valid[:H, :W] = 1.0
+            w = w * valid
+
+        def loss_fn():
+            bce = sigmoid_binary_cross_entropy(self.model(x)[:, 0], y)
+            return (bce * w).sum() / torch.clamp_min(w.sum(), 1.0)
+
+        return loss_fn
 
     @torch.no_grad()
     def predict(self, images) -> np.ndarray:

@@ -9,8 +9,9 @@ spatial 2 where N_RANKS is even: the line step, the fused-kernel and the
 band-route data-parallel steps and the spatially-sharded band step at
 small shapes, then the 2 MP shapes (1920x1080): the band-route
 data-parallel step with one frame a rank and the spatial step with one
-frame's bands over every rank.  The JAX entry's sharded train step is not
-run: training is not ported yet (ROADMAP.md §A.2).
+frame's bands over every rank; then, as the JAX entry does, one step of
+the classifier's sharded train step on random patches and labels drawn
+from the same generator.
 """
 
 import sys
@@ -71,6 +72,13 @@ def _worker(n_ranks: int, two_mp: bool) -> dict:
         out["spatial_2mp_accepted"] = int(sp_step2(
             shard_batch(sp, frames_2mp[:2], spatial=True), 15, 10.0,
             3000.0, 0.25)[2].sum())
+
+    # the model train step, data-parallel over the inspection mesh
+    from heimdall_tpu_torch.models import make_sharded_train_step
+    train = make_sharded_train_step(mesh)
+    patches = rng.randint(0, 256, (N, 32, 32, 1), dtype=np.uint8)
+    labels = rng.randint(0, 2, (N,), dtype=np.int32)
+    out["train_loss"] = float(train(patches, labels))
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return out

@@ -92,13 +92,17 @@ def parts_world(batches, band, max_blobs):
     return out
 
 
-def steps_world(frames, max_blobs):
+def steps_world(frames, max_blobs, train_params, patches, labels):
     """The line step, the sharded inspection step (on a batch smaller than
-    the spatial axis) and the fused-kernel data-parallel step on every
-    mesh, and line_totals of per-rank counters."""
+    the spatial axis), the fused-kernel data-parallel step and the sharded
+    train step (one step from train_params on the global batch, then a
+    batch that does not divide over the mesh) on every mesh, line_totals of
+    per-rank counters, and the dry run's small shapes (parallel/dryrun.py,
+    its train step included)."""
     import torch.distributed as dist
 
-    from heimdall_tpu_torch.parallel import multihost
+    from heimdall_tpu_torch.models import make_sharded_train_step
+    from heimdall_tpu_torch.parallel import dryrun, multihost
     from heimdall_tpu_torch.parallel.inspect_step import (
         make_line_step, make_pallas_data_parallel_step,
         make_sharded_inspection_step)
@@ -107,7 +111,8 @@ def steps_world(frames, max_blobs):
 
     rank = dist.get_rank()
     out = {"totals": multihost.line_totals({"frames": 8.0 + rank,
-                                            "defects": float(rank)})}
+                                            "defects": float(rank)}),
+           "dryrun": dryrun._worker(dist.get_world_size(), False)}
     for key, mesh in _meshes().items():
         line = make_line_step(mesh, max_blobs=max_blobs)
         insp = make_sharded_inspection_step(mesh, max_blobs=max_blobs)
@@ -122,7 +127,25 @@ def steps_world(frames, max_blobs):
                                                   spatial=True),
                                       15, 10.0, 3000.0, 0.25)),
             "pallas_dp": _np(pallas(shard_batch(mesh, frames), 15, 10.0,
-                                    3000.0, 0.25))}
+                                    3000.0, 0.25)),
+            "train": _train(make_sharded_train_step(mesh), train_params,
+                            patches, labels)}
+    return out
+
+
+def _train(train, params, patches, labels):
+    """One step of a sharded train step from params: the loss, the
+    parameters after it, the optimizer's count, and the error that a batch
+    of 2 fewer patches raises."""
+    train.state["params"].load_state_dict(params)
+    loss = train(patches, labels)
+    out = {"loss": float(loss), "device": str(loss.device),
+           "params": _np(train.state["params"].state_dict()),
+           "count": train.state["opt"].param_groups[0]["count"]}
+    try:
+        train(patches[:-2], labels[:-2])
+    except ValueError as e:
+        out["indivisible"] = str(e)
     return out
 
 
@@ -194,3 +217,20 @@ def nccl_world(frames, max_blobs):
                 mesh, max_blobs=max_blobs, band=32)(x, *args)),
             "line": _np(make_line_step(mesh, max_blobs=max_blobs)(
                 x, *args, 0.7)[:3])}
+
+
+def card_train_world(patches, labels):
+    """The sharded train step on the card over every rank (1 x n): the
+    loss, the parameters after one step and the world's backend."""
+    import torch.distributed as dist
+
+    from heimdall_tpu_torch.models import make_sharded_train_step
+    from heimdall_tpu_torch.parallel.mesh import make_mesh
+
+    train = make_sharded_train_step(make_mesh(data=1,
+                                              spatial=dist.get_world_size()))
+    loss = train(patches, labels)
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "device": str(loss.device),
+            "backend": dist.get_backend(),
+            "params": _np(train.state["params"].state_dict())}

@@ -1,4 +1,5 @@
-"""heimdall_tpu_torch imports neither jax nor anything of heimdall_tpu."""
+"""heimdall_tpu_torch imports neither jax (nor flax or optax) nor anything
+of heimdall_tpu."""
 
 import pathlib
 import subprocess
@@ -14,8 +15,7 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.")
-             or m == "heimdall_tpu" or m.startswith("heimdall_tpu."))
+             if m.split(".")[0] in ("jax", "flax", "optax", "heimdall_tpu"))
 print(len(names), bad)
 """
 
@@ -32,3 +32,4 @@ def test_port_imports_no_jax_and_nothing_of_heimdall_tpu():
 def test_chip_smoke_imports_no_jax():
     src = (ROOT / "chip_smoke.py").read_text()
     assert "jax" not in src and "heimdall_tpu." not in src
+    assert "flax" not in src and "optax" not in src

@@ -3,10 +3,10 @@ with the flax parameters carried across by models/convert.py: the
 conversions themselves, the seeded initialisation, the bf16 classifier and
 autoencoder (within the tolerances measured here, CLASSIFIER_TOL and
 AE_TOL: 2.2e-5 and 3.6e-5 at these inputs; argmax and is_anomalous
-equal), the blob patches, the checkpoints, the training stubs and the
-no-card rule.  The U-Net and its detector are held in
-tests/test_torch_segmentation.py, the int8 U-Net in
-tests/test_torch_quantized.py.
+equal), the blob patches, the checkpoints and the no-card rule.  The U-Net
+and its detector are held in tests/test_torch_segmentation.py, the int8
+U-Net in tests/test_torch_quantized.py, training in
+tests/test_torch_training.py and test_torch_training_bf16.py.
 
 The port runs with device="cpu"; frames and patches are small.  JAX's
 flax inits run jitted here (the same values as eager, in less time).
@@ -207,20 +207,7 @@ def test_autoencoder_equals_flax():
         tan.AnomalyDetector(device="cpu").is_anomalous(frames)
 
 
-# ------------------------------------------------- stubs and the no-card rule
-
-def test_training_entry_points_raise_and_name_the_roadmap():
-    seg = tseg.DefectSegmenter(base=8, device="cpu")
-    clf = tdc.DefectClassifier(device="cpu")
-    for call in (lambda: seg.train_step(np.zeros((1, 8, 8), np.uint8),
-                                        np.zeros((1, 8, 8))),
-                 lambda: tmodels.ClassifierTrainer(clf),
-                 lambda: tmodels.make_sharded_train_step(None),
-                 lambda: tan.AnomalyDetector(device="cpu").fit(
-                     np.zeros((2, 64, 64), np.uint8))):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A\."):
-            call()
-
+# ------------------------------------------------------ the no-card rule
 
 def test_models_exports_what_jax_exports():
     import heimdall_tpu.models as jmodels

@@ -5,7 +5,10 @@ on scene.tile_case_masks and label_case_masks cut into shards, the
 spatially-sharded step over a 4-rank world on one card (gloo, collectives
 staged through pinned host buffers) and a 1-rank NCCL world through the
 data-parallel and line steps, each held equal to the single-card
-detector.  This file imports no JAX:
+detector; and the sharded train step in both worlds, every rank's
+parameters bitwise equal and within the bf16 rule of
+tests/test_torch_training_cuda.py of one ClassifierTrainer step on the
+whole batch from the same parameters.  This file imports no JAX:
 
     python -m pytest tests/test_torch_parallel_cuda.py -q -m cuda --noconftest
 """
@@ -128,3 +131,31 @@ def test_one_rank_nccl_world_equals_detector(card):
     want = ContaminationDetector(config={"max_blobs": K}).run_device(frames)
     for key in ("pallas_dp", "tiled_dp", "line"):
         _same(res[key], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [4, 1])
+def test_sharded_train_step_on_the_card(card, ranks):
+    from heimdall_tpu_torch.models import defect_classifier
+    import _torch_step_rule as rule
+    from test_torch_training_cuda import LR, step
+
+    rng = np.random.RandomState(3)
+    patches = rng.randint(0, 256, (64, 32, 32, 1)).astype(np.uint8)
+    labels = rng.randint(0, 2, 64)
+    out = launch("_torch_parallel_worker:card_train_world", ranks,
+                 args=(patches, labels), device="cuda", timeout=300,
+                 sys_path=(TESTS,))
+    assert {r["backend"] for r in out} == {"gloo" if ranks > 1 else "nccl"}
+    for r in out:
+        assert r["device"].startswith("cuda") and r["loss"] == out[0]["loss"]
+        for k, v in r["params"].items():
+            np.testing.assert_array_equal(v, out[0]["params"][k], err_msg=k)
+    clf = defect_classifier.DefectClassifier(seed=0, device=card)
+    ref = step(defect_classifier.ClassifierTrainer(clf).train_step(
+        patches, labels), clf.model)
+    got = {"loss": out[0]["loss"], "grads": None,
+           "params": out[0]["params"]}
+    rule.hold_step(f"sharded, {ranks} ranks", ref, got,
+                   rule.bf16_tols(ref["grads"], "Dense_1"),
+                   rule.BF16_LOSS_TOL, LR)
