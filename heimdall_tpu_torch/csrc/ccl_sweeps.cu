@@ -42,23 +42,40 @@
 // kernel skips the frames whose fits is 1.
 //
 // Design: the run ids are common.cuh's k_run_ids (tensor-core products,
-// one launch per orientation).  Then one block per frame runs the units
-// and the certificate with no host sync: the label planes are [B, Hg, W]
-// int32 in device memory (1.2 MB a frame: more than a block's shared
-// memory), a row phase takes a warp per row through a line buffer in
-// shared memory, a column phase goes 32 columns at a time through a tile
-// in shared memory (coalesced reads and writes).  The run tables of a
-// frame fit one block's shared memory (5 x R x H ints).
+// one launch per orientation).  Then the units and the certificate run with
+// no host sync on one of two paths, chosen by the host from the frame's
+// shape (ops/ccl_sweeps.py::band_layout):
+//   cluster  k_sweep_ccl_cluster: a thread-block cluster per frame whose C
+//            blocks (16 at 640x480) each hold a band of rows of both label
+//            planes in shared memory (sweep_cluster.cuh): a phase reads one
+//            plane and writes the other without device memory, the column
+//            ladder reads the other blocks' rows through the cluster's
+//            window, the certificates are ORs over the cluster, and device
+//            memory sees the mask and the run ids in and the labels out;
+//   global   k_sweep_ccl, the first design, kept for the frames whose planes
+//            do not fit the cluster (up to 1024 x 1008): one block per frame,
+//            the planes [B, Hg, W] int32 in device memory, a row phase a warp
+//            per row through a line buffer, a column phase 32 columns at a
+//            time through a tile (common.cuh's sweep_phase).
+// The run tables of a frame fit one block's shared memory (5 x R x H ints).
 //
 // What bounds it on an H100 SXM: bytes, the mask in and the labels out,
-// 5 B/px (frames in and labels out through the label kernel's fill: 7
-// B/px, 0.642 us per 640x480 frame at 3.35 TB/s).  This first design is
-// far from that: each phase reads and writes a label plane in device
-// memory, one block per frame holds one SM (under two waves at batch 256).
+// 5 B/px (0.459 us per 640x480 frame at 3.35 TB/s; with the label kernel's
+// fill in front, frames in and labels out, 7 B/px, 0.642 us).  The global
+// path reads and writes a plane in device memory every phase with one block
+// per frame.  The cluster path keeps the planes on chip: at 640x480, 16
+// blocks of 228,416 bytes a frame, 7 clusters at once, and its time is
+// the ladders' instructions (a lane's registers of a row and a column are
+// a template parameter: <20, 16> up to 640x512) and the cluster barriers.
+// "cur" alone, run ids included, batch 256 of the bench's filled masks:
+// 25.91 us/frame on the cluster path, 97.72-97.97 on the global path; the
+// probe with its fill 48.70-48.97 against the first design's 114.01-114.21
+// (chip_smoke.py phase 5f, NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "sweep_cluster.cuh"
 
 namespace {
 
@@ -76,22 +93,34 @@ struct Sweep {
   int big;                // the run ids' factor in the packed keys
 };
 
+// 3x3 min over the rows ru, r0, rd (null: outside the plane) around
+// column x.
+__device__ __forceinline__ int nb8_rows(const int32_t* ru, const int32_t* r0,
+                                        const int32_t* rd, int x, int W,
+                                        int S) {
+  const int32_t* rows[3] = {ru, r0, rd};
+  int m = S;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int32_t* r = rows[i];
+    if (r == nullptr) continue;
+    m = min(m, r[x]);
+    if (x > 0) m = min(m, r[x - 1]);
+    if (x < W - 1) m = min(m, r[x + 1]);
+  }
+  return m;
+}
+
 // 3x3 min of the labels p of the guarded plane around (y, x): neighbours
 // outside the plane do not count; with guard rows the frame's rows need no
 // row test.
 template <bool kGuard>
 __device__ __forceinline__ int nb8(const Plane& pl, const int32_t* p, int y,
                                    int x, int S) {
-  int m = S;
-  for (int dy = -1; dy <= 1; ++dy) {
-    int yy = y + dy;
-    if (!kGuard && (yy < 0 || yy >= pl.Hg)) continue;
-    const int32_t* r = p + (long long)yy * pl.W;
-    m = min(m, r[x]);
-    if (x > 0) m = min(m, r[x - 1]);
-    if (x < pl.W - 1) m = min(m, r[x + 1]);
-  }
-  return m;
+  const int32_t* r = p + (long long)y * pl.W;
+  bool up = kGuard || y > 0, dn = kGuard || y < pl.Hg - 1;
+  return nb8_rows(up ? r - pl.W : nullptr, r, dn ? r + pl.W : nullptr, x,
+                  pl.W, S);
 }
 
 // One block per frame: the sweep CCL of mask u8 [B, H, W] into labels
@@ -175,6 +204,92 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   int32_t* out = labels + (long long)b * S;
   const int32_t* src = cur + (long long)pl.G * pl.W;
   for (long long i = threadIdx.x; i < S; i += blockDim.x) out[i] = src[i];
+}
+
+// A cluster per frame (sweep_cluster.cuh): the sweep CCL of mask u8
+// [B, H, W] into labels [B, H, W] with both planes in the cluster's shared
+// memory.  The units, ladders and certificates are k_sweep_ccl's: each
+// phase reads one plane and writes the other.  A frame whose done[b] is
+// nonzero is left as it is by every block of its cluster (done may be
+// null).
+template <int kPerR, int kPerC>
+__global__ void __launch_bounds__(kBandWarps * 32, 1)
+    k_sweep_ccl_cluster(Plane pl, Band bd, Sweep sw, const uint8_t* mask,
+                        const int16_t* rb_r, const int16_t* rb_t,
+                        const int32_t* done, int32_t* labels) {
+  extern __shared__ int smem[];
+  int b = blockIdx.y;
+  if (done != nullptr && done[b]) return;
+  BandFrame f(bd, smem);
+  int W = pl.W, S = pl.H * W;
+  const uint8_t* m = mask + (long long)b * S;
+  long long np = (long long)pl.Hg * W;
+  const int16_t* rr = rb_r + b * np;
+  const int16_t* rt = rb_t + b * np;
+  int* cur = f.A;
+  int* nxt = f.B;
+  // background holds S in both planes from here on (the phases skip the
+  // lines that are all background)
+  f.for_own([&](int y, int x) {
+    int p = y * W + x;
+    f.row(f.A, y)[x] = m[p] ? p : S;
+    f.row(f.B, y)[x] = S;
+  });
+  f.cl.sync();     // every block has started and holds its planes and map
+
+  int changed = 0;
+  auto cand = [&](int y, int x) {
+    int c = f.row(cur, y)[x];
+    return c < S ? nb8_rows(f.row(cur, y - 1), f.row(cur, y),
+                            f.row(cur, y + 1), x, W, S)
+                 : S;
+  };
+  auto out = [&](int y, int x, int v, int c, int* nr) {
+    int o = c < S ? v : S;
+    changed |= o != c;
+    nr[x] = o;
+  };
+  auto phase = [&](bool cols, int steps) {
+    if (cols)
+      band_phase<kPerR, kPerC, true, true, true>(f, pl, rt, sw.big, steps,
+                                                 cur, nxt, cand, out);
+    else
+      band_phase<kPerR, kPerC, false, true, true>(f, pl, rr, sw.big, steps,
+                                                  cur, nxt, cand, out);
+    int* t = cur;
+    cur = nxt;
+    nxt = t;
+  };
+  auto unit = [&](int sr, int sc, int phases) {
+    phase(false, sr);
+    phase(true, sc);
+    if (phases == 3) phase(false, sr);
+  };
+
+  if (sw.pre_r) unit(sw.pre_r, sw.pre_c, 3);
+  for (int n = 1;; ++n) {
+    changed = 0;
+    unit(sw.steps_r, sw.steps_c, sw.unit);
+    if (sw.cert == kCertFixed) {
+      if (n >= sw.fixed) break;
+      continue;
+    }
+    int more = changed;
+    if (sw.cert == kCertNb) {
+      more = 0;
+      f.copy_halo(cur);
+      f.for_own([&](int y, int x) {
+        int c = f.row(cur, y)[x];
+        if (c < S && nb8_rows(f.row(cur, y - 1), f.row(cur, y),
+                              f.row(cur, y + 1), x, W, S) < c)
+          more = 1;
+      });
+    }
+    if (!f.any(more)) break;
+  }
+
+  int32_t* lab = labels + (long long)b * S;
+  f.for_own([&](int y, int x) { lab[y * W + x] = f.row(cur, y)[x]; });
 }
 
 // One block per frame: the run-table CCL of mask u8 [B, H, W] with R slots
@@ -304,10 +419,26 @@ bool sweep_fits(const Plane& pl) {
              (1LL << 30);
 }
 
-int launch_sweep(const Plane& pl, const Sweep& sw, int B,
-                 const uint8_t* mask, const int16_t* rb_r,
+// The sweep's second stage on the path the host chose: a cluster of
+// `cluster` blocks a frame with `pass_cols` columns a pass, or (cluster 0)
+// one block per frame over plane_a and plane_b.
+int launch_sweep(const Plane& pl, const Sweep& sw, int B, int cluster,
+                 int pass_cols, const uint8_t* mask, const int16_t* rb_r,
                  const int16_t* rb_t, const int32_t* done, int32_t* plane_a,
                  int32_t* plane_b, int32_t* labels, cudaStream_t st) {
+  if (cluster) {
+    // the band holds the frame's H rows, not the guard rows: a column
+    // ladder of ceil(log2(H)) steps already reaches the whole column, and
+    // a longer one would shift past its line
+    Sweep sc = sw;
+    sc.steps_c = std::min(sw.steps_c, ceil_log2(pl.H));
+    sc.pre_c = std::min(sw.pre_c, ceil_log2(pl.H));
+    Band bd = band_of(pl.H, pl.W, cluster, pass_cols, 0);
+    auto kernel = band_small(bd) ? k_sweep_ccl_cluster<20, 16>
+                                 : k_sweep_ccl_cluster<kMaxPerLane, kMaxPerLane>;
+    return band_launch(kernel, bd, B, st, pl, bd, sc, mask, rb_r, rb_t, done,
+                       labels);
+  }
   auto kernel = pl.G ? k_sweep_ccl<true> : k_sweep_ccl<false>;
   size_t smem = sweep_phase_smem(pl, kWarps);
   cudaError_t e = cudaFuncSetAttribute(
@@ -319,49 +450,82 @@ int launch_sweep(const Plane& pl, const Sweep& sw, int B,
   return 0;
 }
 
+// Whether the path is one the kernels take at this shape: a cluster band
+// that fits the device's shared memory, or the global path's planes.
+int path_ok(const Plane& pl, int cluster, int pass_cols, bool* ok) {
+  if (!cluster) {
+    *ok = sweep_fits(pl);
+    return 0;
+  }
+  return band_fits(band_of(pl.H, pl.W, cluster, pass_cols, 0), ok);
+}
+
 }  // namespace
 
 // The sweep CCL of mask u8 [B, H, W] (nonzero = foreground): labels int32
 // [B, H, W].  guard 0 or 1 (8 rows); ss_r, ss_c the ladder steps (0: whole
 // lines); unit 2 or 3 phases; cert 0 "nb", 1 "cheap", 2 "fixed" (`fixed`
-// units); presweep 0 or 1.  Scratch: rb_r, rb_t int16 and plane_a, plane_b
-// int32, (H + 16 guard) x W each per frame.  W and H + 16 guard at most
-// 1024.  Returns the first CUDA error.
+// units); presweep 0 or 1.  cluster: the cluster path's blocks a frame (1,
+// 2, 4, 8 or 16) with pass_cols (8, 16 or 32) columns a pass, or 0 for the
+// global path.  done: null, or int32 [B] (frames with nonzero flags are
+// left as they are).  Scratch: rb_r, rb_t int16, (H + 16 guard) x W each
+// per frame, and for the global path plane_a, plane_b int32 of that size
+// (null on the cluster path).  W and H + 16 guard at most 1024.  Returns
+// the first CUDA error.
 extern "C" int hd_sweep_ccl(const uint8_t* mask, int B, int H, int W,
                             int guard, int ss_r, int ss_c, int unit, int cert,
-                            int fixed, int presweep, int16_t* rb_r,
-                            int16_t* rb_t, int32_t* plane_a, int32_t* plane_b,
-                            int32_t* labels, void* stream) {
+                            int fixed, int presweep, int cluster,
+                            int pass_cols, const int32_t* done,
+                            int16_t* rb_r, int16_t* rb_t, int32_t* plane_a,
+                            int32_t* plane_b, int32_t* labels, void* stream) {
   Plane pl = plane_of(H, W, guard);
-  if (!sweep_fits(pl) || (unit != 2 && unit != 3) || cert < 0 || cert > 2 ||
-      (cert == kCertFixed && fixed < 1))
+  bool ok = false;
+  int err = path_ok(pl, cluster, pass_cols, &ok);
+  if (err) return err;
+  if (!ok || !sweep_fits(pl) || (unit != 2 && unit != 3) || cert < 0 ||
+      cert > 2 || (cert == kCertFixed && fixed < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_run_ids_rc<kPackMxu, kRunsFg>(pl, B, mask, 1, rb_r, rb_t,
-                                                 st);
+  err = launch_run_ids_rc<kPackMxu, kRunsFg>(pl, B, mask, 1, rb_r, rb_t, st);
   if (err) return err;
   return launch_sweep(pl, sweep_of(pl, ss_r, ss_c, unit, cert, fixed,
                                    presweep),
-                      B, mask, rb_r, rb_t, nullptr, plane_a, plane_b, labels,
-                      st);
+                      B, cluster, pass_cols, mask, rb_r, rb_t, done, plane_a,
+                      plane_b, labels, st);
+}
+
+// How many clusters of the sweep CCL's cluster path the current device runs
+// at once for H x W frames (guarded), or minus a CUDA error.
+extern "C" int hd_sweep_ccl_clusters(int H, int W, int cluster,
+                                     int pass_cols) {
+  if (cluster < 1) return -(int)cudaErrorInvalidValue;
+  Band bd = band_of(H, W, cluster, pass_cols, 0);
+  return band_clusters(band_small(bd)
+                           ? k_sweep_ccl_cluster<20, 16>
+                           : k_sweep_ccl_cluster<kMaxPerLane, kMaxPerLane>,
+                       bd);
 }
 
 // The run-table CCL of mask u8 [B, H, W] with rmax runs per row (1..16):
 // labels int32 [B, H, W], and fits int32 [B] (1: the frame took the
-// tables; 0: a row has more runs, and the frame took the sweep CCL "cur").
-// Scratch as hd_sweep_ccl's with guard rows.  Returns the first CUDA error.
+// tables; 0: a row has more runs, and the frame took the sweep CCL "cur" on
+// the path cluster / pass_cols, as hd_sweep_ccl's).  Scratch as
+// hd_sweep_ccl's with guard rows.  Returns the first CUDA error.
 extern "C" int hd_runtable_ccl(const uint8_t* mask, int B, int H, int W,
-                               int rmax, int16_t* rb_r, int16_t* rb_t,
-                               int32_t* plane_a, int32_t* plane_b,
-                               int32_t* fits, int32_t* labels, void* stream) {
+                               int rmax, int cluster, int pass_cols,
+                               int16_t* rb_r, int16_t* rb_t, int32_t* plane_a,
+                               int32_t* plane_b, int32_t* fits,
+                               int32_t* labels, void* stream) {
   Plane pl = plane_of(H, W, 1);
   size_t smem = (size_t)5 * rmax * H * 4;
-  if (!sweep_fits(pl) || rmax < 1 || rmax > kWarps || smem > 232448 ||
+  bool ok = false;
+  int err = path_ok(pl, cluster, pass_cols, &ok);
+  if (err) return err;
+  if (!ok || !sweep_fits(pl) || rmax < 1 || rmax > kWarps || smem > 232448 ||
       (long long)(H + 2) * packed_big(H * W) + H * W >= (1LL << 30))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_run_ids_rc<kPackMxu, kRunsFg>(pl, B, mask, 1, rb_r, rb_t,
-                                                 st);
+  err = launch_run_ids_rc<kPackMxu, kRunsFg>(pl, B, mask, 1, rb_r, rb_t, st);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
       k_runtable_ccl, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -370,6 +534,7 @@ extern "C" int hd_runtable_ccl(const uint8_t* mask, int B, int H, int W,
       pl, rmax, packed_big(H * W), ceil_log2(H), mask, rb_r, fits, labels);
   HD_CHECK();
   // the frames that do not fit: the sweep CCL "cur" (ss 5, nb certificate)
-  return launch_sweep(pl, sweep_of(pl, 5, 5, 3, kCertNb, 0, 0), B, mask,
-                      rb_r, rb_t, fits, plane_a, plane_b, labels, st);
+  return launch_sweep(pl, sweep_of(pl, 5, 5, 3, kCertNb, 0, 0), B, cluster,
+                      pass_cols, mask, rb_r, rb_t, fits, plane_a, plane_b,
+                      labels, st);
 }

@@ -581,25 +581,25 @@ int launch_run_ids_rc(const Plane& pl, int B, const uint8_t* mask, int scale,
 }
 
 // In-place doubling max-scan of one warp's line v (position 32 * j + lane
-// in v[j], n positions) over `steps` steps of shifts 1, 2, 4, ...: from
-// lower positions, or with kBack from higher ones.  The line goes through
-// the warp's buffer (position x at line[x * stride]) at every step.  A read
-// past the line's end is the fill: a wrapped read less the penalty
-// ("masked", the TPU code's _max_scan_masked) or an index test ("iota").
-template <int kScan, bool kBack>
-__device__ __forceinline__ void max_scan(int (&v)[kMaxPerLane], int* line,
-                                         int n, int steps, int lane,
-                                         int stride) {
+// in v[j], n positions, n <= 32 * kPer) over `steps` steps of shifts 1, 2,
+// 4, ...: from lower positions, or with kBack from higher ones.  The line
+// goes through the warp's buffer (position x at line[x * stride]) at every
+// step.  A read past the line's end is the fill: a wrapped read less the
+// penalty ("masked", the TPU code's _max_scan_masked) or an index test
+// ("iota").
+template <int kScan, bool kBack, int kPer>
+__device__ __forceinline__ void max_scan(int (&v)[kPer], int* line, int n,
+                                         int steps, int lane, int stride) {
   for (int s = 0; s < steps; ++s) {
     int d = 1 << s;
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
+    for (int j = 0; j < kPer; ++j) {
       int x = 32 * j + lane;
       if (x < n) line[x * stride] = v[j];
     }
     __syncwarp();
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
+    for (int j = 0; j < kPer; ++j) {
       int x = 32 * j + lane;
       if (x >= n) continue;
       int src = kBack ? x + d : x - d, u;
@@ -620,33 +620,33 @@ __device__ __forceinline__ void max_scan(int (&v)[kMaxPerLane], int* line,
 // rb forward, then v - rb backward (rb: the run ids times a step above
 // every value's spread, so no run's keys reach another's).  The ladder's
 // reach is 2^steps - 1 positions each way.
-template <int kScan>
-__device__ __forceinline__ void run_max(int (&v)[kMaxPerLane],
-                                        const int (&rb)[kMaxPerLane],
-                                        int* line, int n, int steps,
-                                        int lane, int stride = 1) {
+template <int kScan, int kPer>
+__device__ __forceinline__ void run_max(int (&v)[kPer],
+                                        const int (&rb)[kPer], int* line,
+                                        int n, int steps, int lane,
+                                        int stride = 1) {
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) v[j] += rb[j];
+  for (int j = 0; j < kPer; ++j) v[j] += rb[j];
   max_scan<kScan, false>(v, line, n, steps, lane, stride);
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) v[j] -= 2 * rb[j];
+  for (int j = 0; j < kPer; ++j) v[j] -= 2 * rb[j];
   max_scan<kScan, true>(v, line, n, steps, lane, stride);
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) v[j] += rb[j];
+  for (int j = 0; j < kPer; ++j) v[j] += rb[j];
 }
 
 // The min over each run (the TPU code's _run_min_packed: min-scans of v -
 // rb forward, v + rb backward): run_max of -v.
-template <int kScan>
-__device__ __forceinline__ void run_min(int (&v)[kMaxPerLane],
-                                        const int (&rb)[kMaxPerLane],
-                                        int* line, int n, int steps,
-                                        int lane, int stride = 1) {
+template <int kScan, int kPer>
+__device__ __forceinline__ void run_min(int (&v)[kPer],
+                                        const int (&rb)[kPer], int* line,
+                                        int n, int steps, int lane,
+                                        int stride = 1) {
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) v[j] = -v[j];
+  for (int j = 0; j < kPer; ++j) v[j] = -v[j];
   run_max<kScan>(v, rb, line, n, steps, lane, stride);
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) v[j] = -v[j];
+  for (int j = 0; j < kPer; ++j) v[j] = -v[j];
 }
 
 // One min phase of a sweep over int32 planes [Hg, W] by a block of `warps`

@@ -31,18 +31,32 @@
 // The plane has no guard rows: a neighbour outside the frame does not
 // count (the TPU code's guard rows and edge penalties do the same).
 //
-// Design: as ccl_sweeps.cu's sweep CCL (one block per frame to both
-// certificates with no host sync; planes [B, H, W] int32 in device memory,
-// read by one phase and written by the next; common.cuh's sweep_phase for
-// the rows and the 32-column tiles; the class run ids from k_run_ids).
+// Design: as ccl_sweeps.cu's sweep CCL, on one of two paths the host
+// chooses from the frame's shape (ops/ccl_sweeps.py::band_layout with the
+// mask rows): the cluster path, k_joint_label_cluster, a cluster of blocks
+// per frame with both value planes and the mask rows in shared memory
+// (sweep_cluster.cuh; both loops' certificates ORs over the cluster; device
+// memory sees the mask and the class run ids in, the labels and the filled
+// mask out), or the global path, k_joint_label, the first design kept for
+// frames whose planes do not fit (one block per frame to both
+// certificates, planes [B, H, W] int32 in device memory, common.cuh's
+// sweep_phase).  Both take the class run ids from k_run_ids.
 //
 // What bounds it on an H100 SXM: bytes, the mask in and the labels and the
-// filled mask out, 6 B/px (frames in: 8 B/px, 0.733 us per 640x480 frame
-// at 3.35 TB/s).  This first design is far from that, as the sweep CCL.
+// filled mask out, 6 B/px (0.550 us per 640x480 frame at 3.35 TB/s; with
+// the label kernel's pre stage in front, frames in: 8 B/px, 0.733 us).
+// At 640x480 the cluster path takes 16 blocks of 218,176 bytes a frame, 7
+// clusters at once; every pixel takes part in both loops (the background
+// carries the border's flood), so no line is skipped.  rowFull_col5 alone,
+// run ids included, batch 256 of the bench's pre masks: 72.56-73.07
+// us/frame on the cluster path, 148.60-148.61 on the global path; the
+// probe with its pre stage 85.44-85.49 against the first design's
+// 157.95-158.00 (chip_smoke.py phase 5f, NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "sweep_cluster.cuh"
 
 namespace {
 
@@ -54,53 +68,72 @@ struct Joint {
   int steps_r, steps_c, big, inf0;
 };
 
-// The exchange at (y, x) of the plane p (feedback: loop 2's rule).
-__device__ __forceinline__ int exchange(const Plane& pl, const int32_t* p,
-                                        const uint8_t* m, int y, int x,
-                                        bool feedback) {
-  int W = pl.W;
-  long long i = (long long)y * W + x;
-  bool up = y > 0, dn = y < pl.H - 1, lf = x > 0, rt = x < W - 1;
+// The exchange at column x of a row: p0 its values and m0 its mask, pu / mu
+// and pd / md the rows above and below (null outside the frame); feedback:
+// loop 2's rule.
+__device__ __forceinline__ int exchange_rows(const int32_t* pu,
+                                             const int32_t* p0,
+                                             const int32_t* pd,
+                                             const uint8_t* mu,
+                                             const uint8_t* m0,
+                                             const uint8_t* md, int x, int W,
+                                             bool feedback) {
+  bool up = pu != nullptr, dn = pd != nullptr, lf = x > 0, rt = x < W - 1;
   // the other class's values carry the penalty
-  auto vf = [&](long long j) { return p[j] + (m[j] ? 0 : kCpen); };
-  auto vb = [&](long long j) { return p[j] + (m[j] ? kCpen : 0); };
-  auto vh = [&](long long j) {
+  auto vf = [&](const int32_t* p, const uint8_t* m, int j) {
+    return p[j] + (m[j] ? 0 : kCpen);
+  };
+  auto vb = [&](const int32_t* p, const uint8_t* m, int j) {
+    return p[j] + (m[j] ? kCpen : 0);
+  };
+  auto vh = [&](const int32_t* p, const uint8_t* m, int j) {
     return !m[j] && p[j] >= kOffset ? p[j] : kCpen;
   };
-  int v = p[i];
+  int v = p0[x];
   // the min of vf (lh: of vh) over a row's three pixels around x
-  auto lm = [&](long long r) {
-    int a = vf(r);
-    if (lf) a = min(a, vf(r - 1));
-    if (rt) a = min(a, vf(r + 1));
+  auto lm = [&](const int32_t* p, const uint8_t* m) {
+    int a = vf(p, m, x);
+    if (lf) a = min(a, vf(p, m, x - 1));
+    if (rt) a = min(a, vf(p, m, x + 1));
     return a;
   };
-  int l0 = lm(i);
-  if (m[i]) {
+  int l0 = lm(p0, m0);
+  if (m0[x]) {
     int c = l0;
-    if (up) c = min(c, lm(i - W));
-    if (dn) c = min(c, lm(i + W));
+    if (up) c = min(c, lm(pu, mu));
+    if (dn) c = min(c, lm(pd, md));
     if (feedback) {
-      auto lh = [&](long long r) {
-        int a = vh(r);
-        if (lf) a = min(a, vh(r - 1));
-        if (rt) a = min(a, vh(r + 1));
+      auto lh = [&](const int32_t* p, const uint8_t* m) {
+        int a = vh(p, m, x);
+        if (lf) a = min(a, vh(p, m, x - 1));
+        if (rt) a = min(a, vh(p, m, x + 1));
         return a;
       };
-      int h = lh(i);
-      if (up) h = min(h, lh(i - W));
-      if (dn) h = min(h, lh(i + W));
+      int h = lh(p0, m0);
+      if (up) h = min(h, lh(pu, mu));
+      if (dn) h = min(h, lh(pd, md));
       c = min(c, h - kOffset);
     }
     return min(v, c);
   }
   int c = l0;
-  if (up) c = min(c, vf(i - W));
-  if (dn) c = min(c, vf(i + W));
+  if (up) c = min(c, vf(pu, mu, x));
+  if (dn) c = min(c, vf(pd, md, x));
   c += kOffset;
-  if (up) c = min(c, vb(i - W));
-  if (dn) c = min(c, vb(i + W));
+  if (up) c = min(c, vb(pu, mu, x));
+  if (dn) c = min(c, vb(pd, md, x));
   return min(v, c);
+}
+
+// The exchange at (y, x) of the plane p [H, W] with mask m.
+__device__ __forceinline__ int exchange(const Plane& pl, const int32_t* p,
+                                        const uint8_t* m, int y, int x,
+                                        bool feedback) {
+  long long r = (long long)y * pl.W;
+  bool up = y > 0, dn = y < pl.H - 1;
+  return exchange_rows(up ? p + r - pl.W : nullptr, p + r,
+                       dn ? p + r + pl.W : nullptr, up ? m + r - pl.W : nullptr,
+                       m + r, dn ? m + r + pl.W : nullptr, x, pl.W, feedback);
 }
 
 // One block per frame: the joint fixpoint of mask u8 [B, H, W] into labels
@@ -169,35 +202,126 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   }
 }
 
+// A cluster per frame (sweep_cluster.cuh): the joint fixpoint of mask u8
+// [B, H, W] into labels int32 and filled u8 [B, H, W], with both value
+// planes and the mask rows in the cluster's shared memory; the loops and
+// certificates are k_joint_label's.
+template <int kPerR, int kPerC>
+__global__ void __launch_bounds__(kBandWarps * 32, 1)
+    k_joint_label_cluster(Plane pl, Band bd, Joint jt, const uint8_t* mask,
+                          const int16_t* rb_r, const int16_t* rb_t,
+                          int32_t* labels, uint8_t* filled) {
+  extern __shared__ int smem[];
+  BandFrame f(bd, smem);
+  int b = blockIdx.y, H = pl.H, W = pl.W, S = H * W;
+  const uint8_t* m = mask + (long long)b * S;
+  const int16_t* rr = rb_r + (long long)b * S;
+  const int16_t* rc = rb_t + (long long)b * S;
+  f.load_mask(m);
+  int* cur = f.A;
+  int* nxt = f.B;
+  f.for_own([&](int y, int x) {
+    int p = y * W + x;
+    bool border = y == 0 || y == H - 1 || x == 0 || x == W - 1;
+    f.row(f.A, y)[x] = m[p] ? p : (border ? 0 : jt.inf0);
+  });
+  f.cl.sync();     // every block has started and holds its rows and map
+
+  bool feedback = false;
+  auto ex = [&](int y, int x) {
+    return exchange_rows(f.row(cur, y - 1), f.row(cur, y), f.row(cur, y + 1),
+                         f.mrow(y - 1), f.mrow(y), f.mrow(y + 1), x, W,
+                         feedback);
+  };
+  auto out = [&](int, int x, int v, int, int* nr) { nr[x] = v; };
+  auto phase = [&](bool cols, int steps) {
+    if (cols)
+      band_phase<kPerR, kPerC, true, false, false>(f, pl, rc, jt.big, steps,
+                                                   cur, nxt, ex, out);
+    else
+      band_phase<kPerR, kPerC, false, false, false>(f, pl, rr, jt.big, steps,
+                                                    cur, nxt, ex, out);
+    int* t = cur;
+    cur = nxt;
+    nxt = t;
+  };
+  // does one exchange lower any value?
+  auto more = [&]() {
+    f.copy_halo(cur);
+    int lower = 0;
+    f.for_own([&](int y, int x) { lower |= ex(y, x) < f.row(cur, y)[x]; });
+    return f.any(lower);
+  };
+  auto unit = [&]() {
+    phase(false, jt.steps_r);
+    phase(true, jt.steps_c);
+    phase(false, jt.steps_r);
+  };
+
+  do unit();
+  while (more());
+  feedback = true;
+  while (more()) unit();
+
+  int32_t* lab = labels + (long long)b * S;
+  uint8_t* fil = filled + (long long)b * S;
+  f.for_own([&](int y, int x) {
+    int v = f.row(cur, y)[x];
+    bool fg = f.mrow(y)[x], hole = !fg && v >= kOffset;
+    lab[y * W + x] = fg ? v : (hole ? v - kOffset : S);
+    fil[y * W + x] = fg || hole;
+  });
+}
+
+// The joint fixpoint's parameters for H x W frames and ladder steps ss_r,
+// ss_c (0: whole lines), and whether the shape is in range.
+bool joint_of(int H, int W, int ss_r, int ss_c, Joint* jt) {
+  jt->inf0 = kOffset + H * W;
+  jt->big = 1 << ceil_log2(jt->inf0 + 2);
+  int full_r = ceil_log2(W), full_c = ceil_log2(H);
+  jt->steps_r = ss_r > 0 ? std::min(ss_r, full_r) : full_r;
+  jt->steps_c = ss_c > 0 ? std::min(ss_c, full_c) : full_c;
+  return W <= 32 * kMaxPerLane && H <= 32 * kMaxPerLane && H * W < kOffset &&
+         (long long)std::max(W, H) * jt->big + jt->inf0 < (1LL << 30) &&
+         sweep_phase_smem(plane_of(H, W, 0), kWarps) <= 232448;
+}
+
 }  // namespace
 
 // The joint fill and labeling of mask u8 [B, H, W] (nonzero = foreground):
 // labels int32 [B, H, W] (background H*W) and filled u8 [B, H, W] (0/1).
 // ss_r, ss_c: the ladder steps of the row and column phases (0: whole
-// lines).  Scratch: rb_r, rb_t int16 and plane_a, plane_b int32, H x W each
-// per frame.  W and H at most 1024, H*W below 2^19 and the packed keys
-// below 2^30.  Returns the first CUDA error.
+// lines).  cluster: the cluster path's blocks a frame (1, 2, 4, 8 or 16)
+// with pass_cols (8, 16 or 32) columns a pass, or 0 for the global path.
+// Scratch: rb_r, rb_t int16, H x W each per frame, and for the global path
+// plane_a, plane_b int32 of that size (null on the cluster path).  W and H
+// at most 1024, H*W below 2^19 and the packed keys below 2^30.  Returns the
+// first CUDA error.
 extern "C" int hd_joint_label(const uint8_t* mask, int B, int H, int W,
-                              int ss_r, int ss_c, int16_t* rb_r,
-                              int16_t* rb_t, int32_t* plane_a,
+                              int ss_r, int ss_c, int cluster, int pass_cols,
+                              int16_t* rb_r, int16_t* rb_t, int32_t* plane_a,
                               int32_t* plane_b, int32_t* labels,
                               uint8_t* filled, void* stream) {
   Plane pl = plane_of(H, W, 0);
   Joint jt;
-  jt.inf0 = kOffset + H * W;
-  jt.big = 1 << ceil_log2(jt.inf0 + 2);
-  int full_r = ceil_log2(W), full_c = ceil_log2(H);
-  jt.steps_r = ss_r > 0 ? std::min(ss_r, full_r) : full_r;
-  jt.steps_c = ss_c > 0 ? std::min(ss_c, full_c) : full_c;
-  size_t smem = sweep_phase_smem(pl, kWarps);
-  if (W > 32 * kMaxPerLane || H > 32 * kMaxPerLane || H * W >= kOffset ||
-      (long long)std::max(W, H) * jt.big + jt.inf0 >= (1LL << 30) ||
-      smem > 232448)
-    return (int)cudaErrorInvalidValue;
+  bool ok = joint_of(H, W, ss_r, ss_c, &jt);
+  Band bd = band_of(H, W, cluster > 0 ? cluster : 1, pass_cols, 1);
+  if (ok && cluster) {
+    int err = band_fits(bd, &ok);
+    if (err) return err;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int err = launch_run_ids_rc<kPackMxu, kRunsClass>(pl, B, mask, 1, rb_r,
                                                     rb_t, st);
   if (err) return err;
+  if (cluster)
+    return band_launch(band_small(bd)
+                           ? k_joint_label_cluster<20, 16>
+                           : k_joint_label_cluster<kMaxPerLane, kMaxPerLane>,
+                       bd, B, st, pl, bd, jt, mask, (const int16_t*)rb_r,
+                       (const int16_t*)rb_t, labels, filled);
+  size_t smem = sweep_phase_smem(pl, kWarps);
   cudaError_t e = cudaFuncSetAttribute(
       k_joint_label, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -206,4 +330,16 @@ extern "C" int hd_joint_label(const uint8_t* mask, int B, int H, int W,
                                               filled);
   HD_CHECK();
   return 0;
+}
+
+// How many clusters of the joint fixpoint's cluster path the current
+// device runs at once for H x W frames, or minus a CUDA error.
+extern "C" int hd_joint_label_clusters(int H, int W, int cluster,
+                                       int pass_cols) {
+  if (cluster < 1) return -(int)cudaErrorInvalidValue;
+  Band bd = band_of(H, W, cluster, pass_cols, 1);
+  return band_clusters(band_small(bd)
+                           ? k_joint_label_cluster<20, 16>
+                           : k_joint_label_cluster<kMaxPerLane, kMaxPerLane>,
+                       bd);
 }

@@ -73,13 +73,13 @@ SIGNATURES = {
         "hd_sweep_fill": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     },
     "ccl_sweeps": {
-        "hd_sweep_ccl": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                         _P, _P, _P, _P],
-        "hd_runtable_ccl": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        "hd_sweep_ccl": [_P] + [_I] * 12 + [_P] * 7,
+        "hd_sweep_ccl_clusters": [_I] * 4,
+        "hd_runtable_ccl": [_P] + [_I] * 6 + [_P] * 7,
     },
     "joint_label": {
-        "hd_joint_label": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                           _P],
+        "hd_joint_label": [_P] + [_I] * 7 + [_P] * 7,
+        "hd_joint_label_clusters": [_I] * 4,
     },
     "primitives": {
         "hd_primitive_steps": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],

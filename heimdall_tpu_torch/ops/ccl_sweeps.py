@@ -32,6 +32,15 @@ csrc/ccl_sweeps.cu (hd_sweep_ccl, hd_runtable_ccl) and raise if they
 cannot; on a CPU tensor they run the plain versions.  ``ccl_variant`` is
 the probe as the profiler runs it: the label kernel's "fill" stage on
 frames, then ``ccl_mask``.
+
+The sweep kernels (this module's and ops/joint_label.py's) take one of two
+paths, chosen from the frame's shape by ``band_layout``: "cluster", a
+thread-block cluster per frame with both label planes in the blocks' shared
+memory (csrc/sweep_cluster.cuh), wherever a block's band of them fits
+(``band_bytes``), and "global", one block per frame over planes in device
+memory, for the larger frames.  A ``path`` argument asks for one of them
+and raises where it cannot run; ``.last_path`` keeps the last call's path
+("cluster", "global", or "plain" on the CPU).
 """
 
 import collections
@@ -77,6 +86,52 @@ RUNTABLE_VARIANTS = {"runtable": 12, "runtable8": 8, "runtable6": 6,
 VARIANTS = tuple(SWEEP_VARIANTS) + tuple(RUNTABLE_VARIANTS)
 MAX_RUNS = 16            # run-table slots: one warp per slot
 BIGC = 1 << 20           # the run tables' "no run"
+# The cluster path: blocks a frame (the portable sizes, and 16 with the
+# non-portable opt-in), columns a pass of the column phase, and the flags
+# (the certificates' two sets of 16 ints, a pass's 32 column flags).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+PASS_COLS = (32, 16, 8)
+FLAG_INTS = 2 * 16 + 32
+PATHS = ("cluster", "global")
+
+
+def band_bytes(H: int, W: int, C: int, P: int, mask: bool = False) -> int:
+    """Shared memory of a block of the cluster path (csrc/sweep_cluster.cuh
+    ::band_bytes) for H x W frames over C blocks: its ceil(H / C) rows of
+    both label planes with a halo row above and below, the column phase's
+    tile of H x (P + 1) ints, the flags, the frame's row map (an int16 a
+    row: which block holds it), and with mask its rows of the mask and their
+    halos (the joint fixpoint's exchange reads them)."""
+    rows = -(-H // C)
+    return (4 * (2 * (rows + 2) * W + H * (P + 1) + FLAG_INTS
+                 + (H + 1) // 2) + (rows + 2) * W * bool(mask))
+
+
+def band_layout(H: int, W: int, mask: bool = False):
+    """(C, P) of the cluster path for H x W frames: the fewest blocks a
+    frame whose band fits one block's shared memory, with the widest pass
+    that fits; None where no cluster holds the planes (the global path)."""
+    for C in CLUSTER_SIZES:
+        for P in PASS_COLS:
+            if band_bytes(H, W, C, P, mask) <= SMEM_BYTES:
+                return C, P
+    return None
+
+
+def choose_path(H: int, W: int, mask: bool = False, path=None):
+    """(path, (C, P) or None): the path a sweep kernel takes at H x W, by
+    shape unless ``path`` names one; raises where the named path cannot
+    take the shape."""
+    layout = band_layout(H, W, mask)
+    if path is None:
+        path = "cluster" if layout else "global"
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS} or None, got {path!r}")
+    if path == "cluster" and layout is None:
+        raise ValueError(f"the cluster path cannot hold {H}x{W} frames: "
+                         f"{band_bytes(H, W, 16, 8, mask)} bytes a block at "
+                         f"16 blocks, more than {SMEM_BYTES}")
+    return path, layout if path == "cluster" else None
 
 
 def packed_big(sentinel: int) -> int:
@@ -123,13 +178,17 @@ def _sweep_steps(cfg: Sweep, H: int, W: int):
             min(cfg.ss, full_c), full_r, full_c)
 
 
-def sweep_ccl_reference(mask: torch.Tensor,
-                        variant: str = "cur") -> torch.Tensor:
-    """Plain version of the sweep CCL of ``variant`` on mask [B, H, W]:
-    labels int32 [B, H, W].  The phases of every frame run together until
+def _sweep_cfg(variant) -> Sweep:
+    """The Sweep of a variant: a name of SWEEP_VARIANTS, or a Sweep."""
+    return variant if isinstance(variant, Sweep) else SWEEP_VARIANTS[variant]
+
+
+def sweep_ccl_reference(mask: torch.Tensor, variant="cur") -> torch.Tensor:
+    """Plain version of the sweep CCL of ``variant`` (a name of
+    SWEEP_VARIANTS, or a Sweep) on mask [B, H, W]: labels int32 [B, H, W].  The phases of every frame run together until
     the certificate holds on all of them (a unit more changes nothing on a
     frame that is done); "fixed2" runs its two units."""
-    cfg = SWEEP_VARIANTS[variant]
+    cfg = _sweep_cfg(variant)
     fg = mask != 0
     B, H, W = fg.shape
     S = H * W
@@ -224,9 +283,9 @@ def runtable_reference(mask: torch.Tensor, rmax: int = 12):
     return labels, fits.to(torch.int32)
 
 
-def ccl_mask_reference(mask: torch.Tensor, variant: str = "cur"):
+def ccl_mask_reference(mask: torch.Tensor, variant="cur"):
     """Plain version of ccl_mask."""
-    if variant in RUNTABLE_VARIANTS:
+    if isinstance(variant, str) and variant in RUNTABLE_VARIANTS:
         return runtable_reference(mask, RUNTABLE_VARIANTS[variant])[0]
     return sweep_ccl_reference(mask, variant)
 
@@ -236,95 +295,155 @@ def runtable_variant(rmax: int) -> str:
     return "runtable" if rmax == 12 else f"runtable{rmax}"
 
 
-def _check_variant(variant: str):
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got "
+def _check_variant(variant):
+    if not isinstance(variant, Sweep) and variant not in VARIANTS:
+        raise ValueError(f"variant must be a Sweep or one of {VARIANTS}, got "
                          f"{variant!r}")
 
 
-def _count(variant: str):
+def _count(variant):
     ccl_mask.launches += 1
     ccl_mask.variant_launches[variant] += 1
 
 
-def _scratch(mask):
+def _path_args(layout):
+    """(cluster, pass_cols) of the C entry points: (0, 0) for the global
+    path."""
+    return layout if layout else (0, 0)
+
+
+def _scratch(mask, path):
+    """Run ids, the global path's planes (None on the cluster path) and the
+    labels."""
     B, H, W = mask.shape
     n = (B, H + 2 * GUARD_ROWS, W)
     dev = mask.device
+    planes = ((torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev))
+              if path == "global" else (None, None))
     return (torch.empty(n, dtype=torch.int16, device=dev),
-            torch.empty(n, dtype=torch.int16, device=dev),
-            torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int16, device=dev), *planes,
             torch.empty((B, H, W), dtype=torch.int32, device=dev))
 
 
-def _launch_sweep(mask, variant):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_sweep(mask, cfg, path, layout, done, out):
     from heimdall_tpu_torch.ops import _cuda
 
-    cfg = SWEEP_VARIANTS[variant]
     B, H, W = mask.shape
-    rb_r, rb_t, pa, pb, labels = _scratch(mask)
+    rb_r, rb_t, pa, pb, labels = _scratch(mask, path)
+    if out is not None:
+        labels = out
     ss_r = 0 if cfg.ss_r == "full" else cfg.ss
     err = _cuda.library("ccl_sweeps").hd_sweep_ccl(
         mask.data_ptr(), B, H, W, int(cfg.guard), ss_r, cfg.ss, cfg.unit,
         ("nb", "cheap", "fixed").index("fixed" if cfg.fixed else cfg.cert),
-        cfg.fixed or 0, int(cfg.presweep), rb_r.data_ptr(), rb_t.data_ptr(),
-        pa.data_ptr(), pb.data_ptr(), labels.data_ptr(),
-        _launch.stream(mask))
+        cfg.fixed or 0, int(cfg.presweep), *_path_args(layout), _ptr(done),
+        rb_r.data_ptr(), rb_t.data_ptr(), _ptr(pa), _ptr(pb),
+        labels.data_ptr(), _launch.stream(mask))
     _launch.raise_on(err, "ccl_sweeps")
     return labels
 
 
-def _launch_runtable(mask, rmax):
+def _launch_runtable(mask, rmax, path, layout):
     from heimdall_tpu_torch.ops import _cuda
 
     B, H, W = mask.shape
-    rb_r, rb_t, pa, pb, labels = _scratch(mask)
+    rb_r, rb_t, pa, pb, labels = _scratch(mask, path)
     fits = torch.empty((B,), dtype=torch.int32, device=mask.device)
     err = _cuda.library("ccl_sweeps").hd_runtable_ccl(
-        mask.data_ptr(), B, H, W, rmax, rb_r.data_ptr(), rb_t.data_ptr(),
-        pa.data_ptr(), pb.data_ptr(), fits.data_ptr(), labels.data_ptr(),
-        _launch.stream(mask))
+        mask.data_ptr(), B, H, W, rmax, *_path_args(layout),
+        rb_r.data_ptr(), rb_t.data_ptr(), _ptr(pa), _ptr(pb),
+        fits.data_ptr(), labels.data_ptr(), _launch.stream(mask))
     _launch.raise_on(err, "runtable_ccl")
     return labels, fits
 
 
-def ccl_mask(mask: torch.Tensor, variant: str = "cur") -> torch.Tensor:
+def ccl_mask(mask: torch.Tensor, variant="cur", path=None, done=None,
+             out=None) -> torch.Tensor:
     """The 8-connected labels (int32 [B, H, W], background H*W) of mask u8
-    [B, H, W] by ``variant`` (one of VARIANTS).  ``ccl_mask.launches``
-    counts kernel launches (of this function and of ccl_runtable) and
-    ``ccl_mask.variant_launches`` counts them by variant."""
+    [B, H, W] by ``variant`` (one of VARIANTS, or a Sweep), on the path
+    ``path`` ("cluster", "global", or None: by shape, choose_path).  With
+    ``done`` (int32 [B]; sweep variants only) the frames whose flag is
+    nonzero are skipped and their planes of ``out`` (int32 [B, H, W], which
+    the labels then go into) are left as they are.  ``ccl_mask.launches``
+    counts kernel launches (of this function and of ccl_runtable),
+    ``ccl_mask.variant_launches`` counts them by variant and
+    ``ccl_mask.last_path`` names the last call's path."""
     _check_variant(variant)
-    _, H, W = _launch.check_mask(mask)
-    _check_mask_plane(H, W, RUNTABLE_VARIANTS.get(variant))
+    B, H, W = _launch.check_mask(mask)
+    runtable = not isinstance(variant, Sweep) and variant in RUNTABLE_VARIANTS
+    _check_mask_plane(H, W, RUNTABLE_VARIANTS[variant] if runtable else None)
+    if runtable and (done is not None or out is not None):
+        raise ValueError("done and out are for the sweep variants")
+    if (done is None) != (out is None):
+        raise ValueError("done and out go together")
+    path, layout = choose_path(H, W, path=path)
     if mask.device.type == "cpu":
-        return ccl_mask_reference(mask, variant)
+        ccl_mask.last_path = "plain"
+        if done is None:
+            return ccl_mask_reference(mask, variant)
+        _launch.run_plain(lambda m: sweep_ccl_reference(m, variant),
+                          done == 0, (mask,), (), (out,))
+        return out
     _launch.check_cuda(mask, "mask", (torch.uint8,))
-    if variant in RUNTABLE_VARIANTS:
-        labels = _launch_runtable(mask, RUNTABLE_VARIANTS[variant])[0]
+    if done is not None:
+        _launch.check_cuda(done, "done", (torch.int32,), (B,))
+        _launch.check_cuda(out, "out", (torch.int32,), (B, H, W))
+    if runtable:
+        labels = _launch_runtable(mask, RUNTABLE_VARIANTS[variant], path,
+                                  layout)[0]
     else:
-        labels = _launch_sweep(mask, variant)
+        labels = _launch_sweep(mask, _sweep_cfg(variant), path, layout, done,
+                               out)
     _count(variant)
+    ccl_mask.last_path = path
     return labels
 
 
 ccl_mask.launches = 0
 ccl_mask.variant_launches = collections.Counter()
+ccl_mask.last_path = None
 
 
-def ccl_runtable(mask: torch.Tensor, rmax: int = 12):
+def ccl_runtable(mask: torch.Tensor, rmax: int = 12, path=None):
     """The run-table CCL of mask u8 [B, H, W] at rmax runs per row, with
     its per-frame choice: (labels int32 [B, H, W], fits int32 [B], 1 where
-    the frame took the tables, 0 where it took "cur").  Counted in
-    ccl_mask's launches as runtable_variant(rmax)."""
+    the frame took the tables, 0 where it took "cur", on ``path`` as
+    ccl_mask's).  Counted in ccl_mask's launches as runtable_variant(rmax);
+    sets ccl_mask.last_path."""
     _, H, W = _launch.check_mask(mask)
     _check_mask_plane(H, W, rmax)
+    path, layout = choose_path(H, W, path=path)
     if mask.device.type == "cpu":
+        ccl_mask.last_path = "plain"
         return runtable_reference(mask, rmax)
     _launch.check_cuda(mask, "mask", (torch.uint8,))
-    out = _launch_runtable(mask, rmax)
+    out = _launch_runtable(mask, rmax, path, layout)
     _count(runtable_variant(rmax))
+    ccl_mask.last_path = path
     return out
+
+
+def active_clusters(H: int, W: int, joint: bool = False) -> int:
+    """How many clusters of the cluster path's kernel (the sweep CCL's, or
+    with joint the joint fixpoint's) the current card runs at once for H x W
+    frames (cudaOccupancyMaxActiveClusters).  Needs a card."""
+    from heimdall_tpu_torch.ops import _cuda
+
+    layout = band_layout(H, W, joint)
+    if layout is None:
+        raise ValueError(f"no cluster holds {H}x{W} frames")
+    if joint:
+        n = _cuda.library("joint_label").hd_joint_label_clusters(H, W,
+                                                                 *layout)
+    else:
+        n = _cuda.library("ccl_sweeps").hd_sweep_ccl_clusters(H, W, *layout)
+    _launch.raise_on(max(-n, 0), "active clusters")
+    return n
 
 
 def ccl_variant_reference(frames: torch.Tensor, contrast_threshold,

@@ -20,7 +20,10 @@ VARIANTS are (row ladder steps or None for whole rows, column ladder
 steps), scripts/profile_joint_variants.py:134-139.  Masks are u8 [B, H, W]
 (nonzero = foreground) with H, W <= 1024 and H*W < 2^19.  On a CUDA tensor
 ``joint_mask`` launches csrc/joint_label.cu (hd_joint_label) and raises if
-it cannot; on a CPU tensor it runs the plain version.  ``joint_label`` is
+it cannot, on the cluster path wherever a block's band of the planes and
+mask rows fits its shared memory and on the global path elsewhere
+(ops/ccl_sweeps.py::choose_path; ``path`` asks for one, ``.last_path``
+names the last call's); on a CPU tensor it runs the plain version.  ``joint_label`` is
 the probe as the profiler runs it: the label kernel's "pre" stage, then
 ``joint_mask``.  ``classic_label`` is the probe's "classic": the sweep fill
 then the sweep CCL "cur"; ``joint_detect`` is its full detect with the
@@ -33,8 +36,8 @@ import torch
 
 from heimdall_tpu_torch.ops import _launch
 from heimdall_tpu_torch.ops.blobs import table_from_sums
-from heimdall_tpu_torch.ops.ccl_sweeps import (ccl_mask, packed_big,
-                                               sweep_phase_fits)
+from heimdall_tpu_torch.ops.ccl_sweeps import (ccl_mask, choose_path,
+                                               packed_big, sweep_phase_fits)
 from heimdall_tpu_torch.ops.fill_sweeps import (MAX_LINE, fill_sweeps,
                                                 ladder_steps, run_min, shift)
 from heimdall_tpu_torch.ops.fused_kernels import gate
@@ -124,17 +127,22 @@ def joint_mask_reference(mask: torch.Tensor, variant: str = "rowFull_col5"):
     return labels.to(torch.int32), (fg | hole).to(torch.uint8)
 
 
-def joint_mask(mask: torch.Tensor, variant: str = "rowFull_col5"):
+def joint_mask(mask: torch.Tensor, variant: str = "rowFull_col5",
+               path=None):
     """(labels int32 [B, H, W], filled u8 [B, H, W]) of mask u8 [B, H, W]
-    by the joint fixpoint of ``variant`` (one of VARIANTS).
-    ``joint_mask.launches`` counts kernel launches and
-    ``joint_mask.variant_launches`` counts them by variant."""
+    by the joint fixpoint of ``variant`` (one of VARIANTS), on the path
+    ``path`` ("cluster", "global", or None: by shape).
+    ``joint_mask.launches`` counts kernel launches,
+    ``joint_mask.variant_launches`` counts them by variant and
+    ``joint_mask.last_path`` names the last call's path."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {tuple(VARIANTS)}, got "
                          f"{variant!r}")
     B, H, W = _launch.check_mask(mask)
     _check_plane(H, W)
+    path, layout = choose_path(H, W, mask=True, path=path)
     if mask.device.type == "cpu":
+        joint_mask.last_path = "plain"
         return joint_mask_reference(mask, variant)
     from heimdall_tpu_torch.ops import _cuda
 
@@ -143,21 +151,26 @@ def joint_mask(mask: torch.Tensor, variant: str = "rowFull_col5"):
     dev = mask.device
     rb_r, rb_t = (torch.empty((B, H, W), dtype=torch.int16, device=dev)
                   for _ in range(2))
-    pa, pb, labels = (torch.empty((B, H, W), dtype=torch.int32, device=dev)
-                      for _ in range(3))
+    pa, pb = ((torch.empty((B, H, W), dtype=torch.int32, device=dev)
+               for _ in range(2)) if path == "global" else (None, None))
+    labels = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     filled = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
     err = _cuda.library("joint_label").hd_joint_label(
-        mask.data_ptr(), B, H, W, ss_row or 0, ss_col, rb_r.data_ptr(),
-        rb_t.data_ptr(), pa.data_ptr(), pb.data_ptr(), labels.data_ptr(),
+        mask.data_ptr(), B, H, W, ss_row or 0, ss_col,
+        *(layout or (0, 0)), rb_r.data_ptr(), rb_t.data_ptr(),
+        pa if pa is None else pa.data_ptr(),
+        pb if pb is None else pb.data_ptr(), labels.data_ptr(),
         filled.data_ptr(), _launch.stream(mask))
     _launch.raise_on(err, "joint_label")
     joint_mask.launches += 1
     joint_mask.variant_launches[variant] += 1
+    joint_mask.last_path = path
     return labels, filled
 
 
 joint_mask.launches = 0
 joint_mask.variant_launches = collections.Counter()
+joint_mask.last_path = None
 
 
 def joint_label_reference(frames: torch.Tensor, contrast_threshold,

@@ -24,6 +24,47 @@ from typing import Any, Callable, Dict, List, Optional
 logger = logging.getLogger("heimdall.perf")
 
 
+# The kernel of torch.cuda._sleep, which brackets a traced block on the
+# card, and its length in clock cycles (about 0.5 us at 1980 MHz).
+SPIN_KERNEL = "spin_kernel"
+SPIN_CYCLES = 1000
+# Kernels a CUDA trace opens with before its opening spin, each behind a
+# sync (a fill of one float: FillFunctor's kernel).  Once another process
+# has used the card, or this one has trained on it, the profiler drops the
+# first kernel records of every trace, a few after a child process and
+# more after training (scripts/check_trace.py, chip_smoke.py's phase 4h);
+# these are the ones it drops.
+LEAD_KERNELS = 256
+LEAD_KERNEL = "FillFunctor"
+
+
+def lead(device):
+    """LEAD_KERNELS fill kernels on the device, each behind a sync."""
+    import torch
+    marker = torch.zeros(1, device=device)
+    for _ in range(LEAD_KERNELS):
+        marker.fill_(0)
+        torch.cuda.synchronize(device)
+
+
+def _spin(device):
+    """A spin kernel on the device, behind a sync and followed by one."""
+    import torch
+    torch.cuda.synchronize(device)
+    with torch.cuda.device(device):
+        torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda.synchronize(device)
+
+
+def _trace_kernels(path) -> List[str]:
+    """The names of the card's kernels in a Chrome trace, in the order they
+    ran."""
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return [e["name"] for e in sorted(kernels, key=lambda e: e["ts"])]
+
+
 class MetricType:
     """Reference lib.rs:37-62."""
     EXECUTION_TIME = "execution_time"
@@ -71,6 +112,7 @@ class ProfilingSession:
         self.device = device
         self.trace_path: Optional[str] = None
         self.trace_table: Optional[str] = None
+        self.trace_kernels: Optional[int] = None
         self.started_at = time.time()
         self.measurements: List[Measurement] = []
         self._open_timings: Dict[str, float] = {}
@@ -106,7 +148,19 @@ class ProfilingSession:
         session's device is CUDA (raises when no card is present).  On
         exit the Chrome trace is written to ``log_dir/<name>_trace.json``
         (``trace_path``) and the key_averages table, sorted by device time
-        on the card, is kept as ``trace_table``."""
+        on the card, is kept as ``trace_table``.
+
+        On the card the trace opens with LEAD_KERNELS fill kernels, which
+        the profiler may drop (it drops a trace's first kernel records once
+        another process has used the card or this one has trained on it;
+        scripts/check_trace.py), and the block runs between two spin
+        kernels (torch.cuda._sleep, each behind a sync), which the trace
+        lists too; ``trace_kernels`` counts the card's kernels in it.  A
+        trace whose first kernel after the lead is not the opening spin, or
+        whose last kernel is not the closing spin, has lost the block's
+        kernels: the files are still written, and then a RuntimeError names
+        the loss (the profiler can still lose a whole trace, rarely:
+        ROADMAP.md, section C)."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -118,14 +172,30 @@ class ProfilingSession:
             [ProfilerActivity.CUDA] if cuda else [])
         os.makedirs(log_dir, exist_ok=True)
         with profile(activities=activities) as prof:
+            if cuda:
+                lead(self.device)
+                _spin(self.device)
             yield log_dir
             if cuda:
-                torch.cuda.synchronize(self.device)
+                _spin(self.device)
         self.trace_path = os.path.join(log_dir, f"{self.name}_trace.json")
         prof.export_chrome_trace(self.trace_path)
         self.trace_table = prof.key_averages().table(
             sort_by="cuda_time_total" if cuda else "cpu_time_total",
             row_limit=40)
+        if cuda:
+            names = _trace_kernels(self.trace_path)
+            self.trace_kernels = len(names)
+            body = names[next((i for i, n in enumerate(names)
+                               if LEAD_KERNEL not in n), len(names)):]
+            missing = [end for end, i in (("opening", 0), ("closing", -1))
+                       if not body or SPIN_KERNEL not in body[i]]
+            if missing:
+                raise RuntimeError(
+                    f"ProfilingSession.trace {self.name!r}: the trace lost "
+                    f"the card's kernels: no {' and no '.join(missing)} spin "
+                    f"kernel ({len(names)} CUDA kernels listed; "
+                    f"{self.trace_path})")
 
     # -- counters / custom metrics ----------------------------------------
     def increment(self, name: str, by: int = 1) -> None:

@@ -7,6 +7,10 @@ file imports no JAX; on a machine with a card:
     python -m pytest tests/test_torch_ccl_cuda.py -q -m cuda --noconftest
 
 Equality is exact: every output is a label plane, a 0/1 plane or a flag.
+The sweep kernels run on the cluster path or the global path by shape
+(ops/ccl_sweeps.py::choose_path); the tests below the first ones hold both
+paths on shapes on each side of the cut, at the wrappers' limits and at the
+run-table check's 96 x 128.
 The frames are bench frames, adversarial frames (dense noise, a spiral,
 nested rings with a blob in the innermost hole, blobs cut by the edges) and
 a uniform frame; the masks are the run-table check's (a row of 20 runs
@@ -162,3 +166,115 @@ def test_classic_label_and_joint_detect(card):
 @pytest.mark.cuda
 def test_check_runtable_script(card):
     assert check_runtable.main([]) == 0
+
+
+# Each side of the cluster path's cut (16 blocks hold the sweep CCL's planes
+# up to 608 rows of 640, the joint fixpoint's with its mask rows up to 544),
+# the wrappers' limits (the sweep CCL's 1008 x 1024; the joint fixpoint's
+# frames have fewer than 2^19 px) and the run-table check's masks.
+SWEEP_CUT = [(96, 128), (608, 640), (609, 640), (1008, 1024)]
+JOINT_CUT = [(96, 128), (544, 640), (545, 640), (724, 724)]
+
+
+def _paths(h, w, joint=False):
+    """The path the shape picks, then the other one where it runs."""
+    own = cs.choose_path(h, w, mask=joint)[0]
+    return [own] + (["global"] if own == "cluster" else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", SWEEP_CUT)
+@pytest.mark.parametrize("variant", list(cs.SWEEP_VARIANTS))
+def test_sweep_ccl_on_both_paths_at_the_cut(card, size, variant):
+    masks = _masks(*size).to(card)
+    want = cs.sweep_ccl_reference(masks, variant)
+    for path in _paths(*size):
+        got = cs.ccl_mask(masks, variant, path=path)
+        torch.cuda.synchronize()
+        assert cs.ccl_mask.last_path == path
+        assert torch.equal(got, want), (variant, path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", JOINT_CUT)
+@pytest.mark.parametrize("variant", list(jl.VARIANTS))
+def test_joint_on_both_paths_at_the_cut(card, size, variant):
+    masks = _masks(*size).to(card)
+    want = jl.joint_mask_reference(masks, variant)
+    for path in _paths(*size, joint=True):
+        got = jl.joint_mask(masks, variant, path=path)
+        torch.cuda.synchronize()
+        assert jl.joint_mask.last_path == path
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (variant, path)
+
+
+@pytest.mark.cuda
+def test_paths_at_the_cut_are_the_shapes(card):
+    for h, w in SWEEP_CUT:
+        cs.ccl_mask(_masks(h, w).to(card))
+        assert cs.ccl_mask.last_path == ("cluster" if h <= 608 and w <= 640
+                                         else "global"), (h, w)
+    for h, w in JOINT_CUT:
+        jl.joint_mask(_masks(h, w).to(card))
+        assert jl.joint_mask.last_path == ("cluster" if h <= 544 and w <= 640
+                                           else "global"), (h, w)
+    with pytest.raises(ValueError):
+        cs.ccl_mask(_masks(609, 640).to(card), path="cluster")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["cluster", "global"])
+@pytest.mark.parametrize("variant", ["cur", "cheapcert", "fixed2"])
+def test_done_frames_are_left_untouched(card, path, variant):
+    masks = _masks(480, 640).to(card)
+    B = masks.shape[0]
+    done = torch.tensor([i % 3 == 1 for i in range(B)], dtype=torch.int32,
+                        device=card)
+    out = torch.full(masks.shape, -7, dtype=torch.int32, device=card)
+    got = cs.ccl_mask(masks, variant, path=path, done=done, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    skip = done.bool()
+    assert bool((out[skip] == -7).all())
+    assert torch.equal(out[~skip],
+                       cs.sweep_ccl_reference(masks[~skip], variant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["cluster", "global"])
+@pytest.mark.parametrize("base", ["cur", "asym_r10", "unit2", "noguard"])
+def test_fixed_units_match_plain_unit_for_unit(card, path, base):
+    """Labels after 1, 2, 3 and 4 units (no certificate) equal the plain
+    version's after as many: the kernels' phases read one plane and write
+    the other, so a unit lowers labels exactly as far as the plain one."""
+    x = _frames(480, 640).to(card)
+    masks = torch.cat([sk.label_kernel(x, CT, "fill"),
+                       _masks(480, 640).to(card)])
+    for n in (1, 2, 3, 4):
+        cfg = cs.SWEEP_VARIANTS[base]._replace(fixed=n)
+        got = cs.ccl_mask(masks, cfg, path=path)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cs.sweep_ccl_reference(masks, cfg)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["cluster", "global"])
+def test_runtable_fallback_on_both_paths(card, path):
+    masks = _masks(480, 640).to(card)
+    got, fits = cs.ccl_runtable(masks, 6, path=path)
+    torch.cuda.synchronize()
+    assert cs.ccl_mask.last_path == path
+    want, want_fits = cs.runtable_reference(masks, 6)
+    assert torch.equal(fits, want_fits) and torch.equal(got, want)
+    assert 0 < int(fits.sum()) < masks.shape[0]
+
+
+@pytest.mark.cuda
+def test_active_clusters_at_640x480(card):
+    for joint in (False, True):
+        n = cs.active_clusters(480, 640, joint)
+        print(f"{'joint' if joint else 'sweep'}: "
+              f"{cs.band_layout(480, 640, joint)} (blocks, pass) -> {n} "
+              f"clusters at once")
+        assert n >= 1
