@@ -73,17 +73,29 @@ Phases (each prints a line; any failure exits non-zero without a result):
      d. the split kernels at 640x480 (the label kernel at every stage, the
         stats kernel on its labels): bench frames, adversarial frames with
         K = 64 and K = 4, 2 frames of 477x631, and a uniform frame with no
-        foreground (contrast 15) and all foreground (contrast -15); on each,
+        foreground (contrast 15) and all foreground (contrast -15); then
+        the tile and label cases that 3a runs through B1 (640x480,
+        477x631, 13x17, 3x3) and the bit cases (scene.bit_case_frames at
+        40x31, 40x32, 40x33, 70x641), contrast 15 and -15; on each,
         stats(labels) with the labels equals the fused kernel's outputs;
+        and each stage's CUDA kernels, traced at 640x480 and 13x17 (one
+        tile), equal hd_label_launches(stage, H, W) and name only the
+        design's kernels (LABEL_STAGE_KERNELS);
      e. the preprocess and hole-fill probes at 640x480 on 3d's frames: the
         roll stages, the preprocess variants (the exact four also equal to
         the label kernel's "pre"; mxu_conv's mean within 1e-3 of the float32
         product, and its pre plane differing only within the morphology's
         reach of a mean near a half-integer), the run-id product, the nine
         sweep fills (each also equal to the label kernel's union-find
-        "fill"),
-        and the stats kernel on a label plane whose labels need not name a
-        root;
+        "fill", and run by its (grow, guard) instance); then the nine fills
+        alone (fill_mask) against the plain sweep fill and the tile
+        union-find fill on scene.tile_case_masks, fix_case_masks and
+        bit_case_masks at 640x480, 477x631, 13x17, 3x3, the bit cases'
+        sizes and the largest planes the fill takes (1008x640, 636x1024),
+        and on the label kernel's "pre" planes of 3d's frames; the CUDA
+        kernels of one fill_sweeps call and one fill_mask call, traced (2
+        and 1); and the stats kernel on a label plane whose labels need not
+        name a root;
      f. the labeling probes at 640x480 on 3e's frames: the fifteen CCL
         variants (sweeps and run tables at R = 12, 10, 8, 6) and the four
         joint variants against their plain versions, every fixpoint also
@@ -251,18 +263,20 @@ Phases (each prints a line; any failure exits non-zero without a result):
         and the breakdown line) and examples/performance_analysis on the
         card (5 batches, its JSON report), and a ProfilingSession.trace of
         the split kernels after the 1-rank NCCL world of 4g, taken once:
-        it lists their CUDA kernels (k_label among them, or the run
+        it lists their CUDA kernels (k_label_tiles among them, or the run
         fails) or raises, naming the loss; then each split kernel's plain
         version and bound;
      e. the probes path, with the probe kernels' launch counts set to 0
         just before and read just after: the port's profile_pre_variants
         and profile_fill_variants (batch 256, 10 iterations; every
-        variant's us/frame, mxu_conv's flips, the union-find fill beside the
-        sweep fills) and the roll stages of 5d's profile_preprocess run
-        (counted from 0 over that run); then each probe's plain version and
-        bound, and the tensor-core products beside the PyTorch call that
-        computes the same (torch.matmul of the banded matrices, torch.cumsum
-        of the run starts), with their launch counts;
+        variant's us/frame with its pre stage and alone, its instance,
+        mxu_conv's flips, the union-find fill beside the sweep fills) and
+        the roll stages of 5d's profile_preprocess run (counted from 0 over
+        that run); then each probe's plain version and bound, and the
+        tensor-core products beside the PyTorch call that computes the same
+        (torch.matmul of the banded matrices; the run ids, an entry of
+        their own, beside torch.cumsum of the run starts), with their
+        launch counts;
      f. the labeling probes path, with the labeling probes' launch counts
         set to 0 just before and read just after: the port's check_runtable
         (no timing), profile_ccl_variants and profile_joint_variants (batch
@@ -315,6 +329,22 @@ H2, W2 = 1080, 1920
 ODD_2MP = (1037, 1531)        # a height that is not a multiple of the band
 # The CUDA kernels one call of the fused detect (640x480) and of the band
 # labels (1920x1080) launch, each once.
+# The CUDA kernels of one label_kernel call at each stage (hd_label): gray,
+# or the one-pass preprocess stopped at the stage, then the tile fill and
+# the tile labels (their merges only where the frame has more than one
+# tile); and of one fill_sweeps call (the "pre" stage, then the carry
+# fill).
+_FILL = ("k_fill_tiles", "k_fill_merge", "k_fill_write")
+_LABELS = ("k_label_tiles", "k_label_merge", "k_label_write")
+LABEL_STAGE_KERNELS = {
+    "gray": ("k_gray",), "blur5": ("k_preprocess",),
+    "mean11": ("k_preprocess",), "pre": ("k_preprocess",),
+    "fill": ("k_preprocess",) + _FILL,
+    "ccl": ("k_preprocess",) + _FILL + _LABELS}
+FILL_SWEEPS_KERNELS = {"k_preprocess": 1, "k_carry_fill": 1}
+# The sweep fill's largest planes at 640 and 1024 columns (the limit of
+# ops/fill_sweeps.py::_check_plane).
+FILL_LARGEST = ((1008, 640), (636, 1024))
 FUSED_KERNELS = ("k_preprocess", "k_fill_tiles", "k_fill_merge",
                  "k_fill_write", "k_label_tiles", "k_label_merge",
                  "k_label_write", "k_row_roots", "k_frame_roots", "k_stats",
@@ -2473,8 +2503,9 @@ def check_split(name, x, k, ct=CONTRAST):
 def split_trace(dev, x, out_dir, when):
     """ProfilingSession.trace of the split kernels (label_kernel, then
     stats_kernel) on frames x, taken once.  Returns {"kernels": the card's
-    kernels it lists} when it lists them, k_label's among them (it fails
-    if it lists the spins but no k_label), or {"raised": its error} when it
+    kernels it lists} when it lists them, k_label_tiles among them (it
+    fails if it lists the spins but no k_label_tiles, a kernel of the label
+    kernel's design), or {"raised": its error} when it
     raised, as it must where the profiler lost the block's kernels (past
     the trace's lead, which it may drop; ROADMAP.md, section C)."""
     from heimdall_tpu_torch.ops import split_kernels as sk
@@ -2487,12 +2518,58 @@ def split_trace(dev, x, out_dir, when):
         phase(f"profiling path: ProfilingSession.trace {when} raised at its "
               f"first and only try: {e}")
         return {"raised": str(e)}
-    if "k_label" not in session.trace_table:
-        fail(f"ProfilingSession.trace {when} lists no k_label kernel")
+    if "k_label_tiles" not in session.trace_table:
+        fail(f"ProfilingSession.trace {when} lists no k_label_tiles kernel")
     phase(f"profiling path: ProfilingSession.trace {when} listed "
           f"{session.trace_kernels} CUDA kernels at its first try "
           f"({os.path.getsize(session.trace_path)} bytes of Chrome trace)")
     return {"kernels": session.trace_kernels}
+
+
+def check_split_cases(dev):
+    """Phase 3d's cases that attack the label kernel's parts: the tile and
+    label cases that 3a runs through B1 (scene.tile_case_frames and
+    scene.label_case_masks drawn as frames at 640x480, 477x631, 13x17 and
+    3x3) and the bit cases (scene.bit_case_frames at BIT_CASE_SIZES), at
+    contrast 15 and -15, each through check_split; then each stage's CUDA
+    kernels, traced at 640x480 and at 13x17 (one tile), against
+    hd_label_launches(stage, H, W) and LABEL_STAGE_KERNELS.  Returns the
+    largest error (0 or the run fails)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import _cuda
+    from heimdall_tpu_torch.ops import split_kernels as sk
+
+    def planes(frames):
+        return torch.from_numpy(np.ascontiguousarray(
+            frames.transpose(0, 3, 1, 2))).to(dev)
+
+    sets = [(f"tile and label cases {h}x{w}", planes(np.concatenate([
+        np.stack(list(scene.tile_case_frames(h, w).values())),
+        scene.mask_frames(list(scene.label_case_masks(h, w).values()))])))
+        for h, w in ((480, 640), (477, 631), (13, 17), (3, 3))]
+    sets += [(f"bit cases {h}x{w}", planes(scene.bit_case_frames(h, w)))
+             for h, w in scene.BIT_CASE_SIZES]
+    err = 0
+    for name, x in sets:
+        for c in (CONTRAST, -CONTRAST):
+            err = max(err, check_split(name, x, K, c))
+    lib = _cuda.library("fused_detect")
+    for h, w in ((480, 640), (13, 17)):
+        x = planes(scene.make_frames(2, h, w, seed=3))
+        traced = {}
+        for i, stage in enumerate(sk.STAGES):
+            got = cuda_kernels(lambda: sk.label_kernel(x, CONTRAST, stage))
+            traced[stage] = got
+            told = lib.hd_label_launches(i, h, w)
+            if (sum(got.values()) != told or max(got.values()) != 1
+                    or set(got) - set(LABEL_STAGE_KERNELS[stage])):
+                fail(f"label_kernel at {stage} on {h}x{w} launched {got}: "
+                     f"not {told} of {LABEL_STAGE_KERNELS[stage]}")
+        phase(f"label_kernel {h}x{w}: CUDA kernels per call (traced) "
+              f"{traced}, as hd_label_launches reports")
+    return err
 
 
 def split_phases(dev, smi, cases):
@@ -2528,6 +2605,7 @@ def split_phases(dev, smi, cases):
             ("uniform_no_foreground", uniform, K, CONTRAST),
             ("uniform_full_foreground", uniform, K, -CONTRAST)):
         err = max(err, check_split(name, x, k, ct))
+    err = max(err, check_split_cases(dev))
     full = sk.label_kernel(uniform, -CONTRAST, "fill")
     if not bool(full.all()):
         fail("the full-foreground case is not all foreground")
@@ -2580,7 +2658,7 @@ def split_phases(dev, smi, cases):
     moved = {s: px * (3 + (4 if s == "ccl" else 1)) for s in sk.STAGES}
     moved["stats"] = px * 7 + BATCH * (16 * K + 1) * 4
     lib = _cuda.library("fused_detect")
-    per_call = {s: lib.hd_label_launches(sk.STAGES.index(s))
+    per_call = {s: lib.hd_label_launches(sk.STAGES.index(s), 480, 640)
                 for s in sk.STAGES}
     per_call["stats"] = lib.hd_stats_from_labels_launches()
     timings = {}
@@ -2614,12 +2692,24 @@ def split_phases(dev, smi, cases):
              "label_stage_pre": ("pre", profiled),
              "label_stage_fill": ("fill", profiled),
              "label_stage_ccl": ("ccl", profiled)}
+    design = {
+        "gray": "k_gray, one launch",
+        "blur5": "k_preprocess stopped at the blur, one launch",
+        "mean11": "k_preprocess stopped at the threshold, one launch",
+        "pre": "k_preprocess stopped at the closed mask, one launch",
+        "fill": "k_preprocess, then the tile fill of tile_uf.cuh in place "
+                "(4 launches)",
+        "ccl": "k_preprocess, the tile fill, then the tile labels of "
+               "tile_uf.cuh with one band of H rows (7 launches)",
+        "stats": "k_from_labels, then the fused detect's stats passes "
+                 "(5 launches)"}
     entries = []
     for name, (key, replaces) in names.items():
         t = timings[key]
         entries.append({
             "name": name, "route": "cuda",
             "source": "heimdall_tpu_torch/csrc/fused_detect.cu",
+            "design": design[key],
             "replaces": replaces, "equal": err == 0,
             "launches": launches[key], "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -2673,6 +2763,8 @@ def check_probes(name, x, ct):
         (fs.fill_sweeps_reference(x, ct),), (uf,))
     for v in fs.VARIANTS:
         errs[f"fill_{v}"] = max_abs_err((fs.fill_sweeps(x, ct, v),), (uf,))
+        errs[f"fill_{v}_instance"] = int(
+            fs.fill_mask.instance != fs.INSTANCES[v])
     torch.cuda.synchronize()
     phase(f"check probes {name} (contrast {ct}): max_abs_err {errs}; "
           f"mxu_conv mean max err {mean_err:.3e} (tolerance {MEAN_TOL}), "
@@ -2682,6 +2774,62 @@ def check_probes(name, x, ct):
         fail(f"a probe kernel differs from its plain version, or a sweep "
              f"fill from the union-find fill, on {name}")
     return max(errs.values()), mean_err, flips
+
+
+def check_fill_cases(dev):
+    """Phase 3e's cases that attack the sweep fill's words and the tile
+    fill's tiles: every variant of fill_mask against the plain sweep fill
+    and the tile union-find fill (ccl_tiled.flood_fill) on
+    scene.tile_case_masks, fix_case_masks and bit_case_masks at 640x480,
+    477x631, 13x17, 3x3, the bit cases' sizes and FILL_LARGEST; then the
+    CUDA kernels of one fill_sweeps and one fill_mask call, traced.
+    Returns the largest error (0 or the run fails)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import ccl_tiled
+    from heimdall_tpu_torch.ops import fill_sweeps as fs
+    from heimdall_tpu_torch.ops import split_kernels as sk
+
+    makers = {"tile": scene.tile_case_masks, "fix": scene.fix_case_masks,
+              "bit": scene.bit_case_masks}
+    sizes = ((480, 640), (477, 631), (13, 17), (3, 3), *FILL_LARGEST)
+    err = 0
+    for kind, make in makers.items():
+        for h, w in sizes + (scene.BIT_CASE_SIZES if kind == "bit" else ()):
+            masks = make(h, w)
+            mask = torch.from_numpy(np.stack(list(masks.values()))
+                                    .astype(np.uint8)).to(dev)
+            want = fs.sweep_fill_reference(mask)
+            errs = {"plain_vs_union_find": max_abs_err(
+                (want,), (ccl_tiled.flood_fill(mask),))}
+            for v in fs.VARIANTS:
+                errs[v] = max_abs_err((fs.fill_mask(mask, v),), (want,))
+                if fs.fill_mask.instance != fs.INSTANCES[v]:
+                    fail(f"fill_mask {v} ran {fs.fill_mask.instance}, not "
+                         f"{fs.INSTANCES[v]}")
+            torch.cuda.synchronize()
+            phase(f"check fill {kind} cases {h}x{w} ({len(masks)} masks): "
+                  f"max_abs_err {errs}")
+            err = max(err, *errs.values())
+    if err:
+        fail("a sweep fill variant differs from the plain fill or the tile "
+             "union-find fill on the fill cases")
+    x = torch.from_numpy(np.ascontiguousarray(
+        scene.make_frames(2, seed=3).transpose(0, 3, 1, 2))).to(dev)
+    traced = {}
+    for v in {i: v for v, i in reversed(fs.INSTANCES.items())}.values():
+        traced[v] = cuda_kernels(lambda: fs.fill_sweeps(x, CONTRAST, v))
+        if traced[v] != FILL_SWEEPS_KERNELS:
+            fail(f"fill_sweeps {v} launched {traced[v]}, not "
+                 f"{FILL_SWEEPS_KERNELS}")
+    pre = sk.label_kernel(x, CONTRAST, "pre")
+    alone = cuda_kernels(lambda: fs.fill_mask(pre))
+    phase(f"fill_sweeps: CUDA kernels per call (traced, one variant of "
+          f"each instance) {traced}; fill_mask alone {alone}")
+    if alone != {"k_carry_fill": 1}:
+        fail(f"fill_mask launched {alone}, not one k_carry_fill")
+    return err
 
 
 def probe_phases(dev, smi, cases, t_roll, roll_launches):
@@ -2715,6 +2863,7 @@ def probe_phases(dev, smi, cases, t_roll, roll_launches):
             ("uniform_full_foreground", uniform, -CONTRAST)):
         e, m, f = check_probes(name, x, ct)
         err, mean_err, flips = max(err, e), max(mean_err, m), flips + f
+    fill_err = check_fill_cases(dev)
     x = torch.cat([cases["bench8_channel_major"][0], cases[adv][0]])
     labels = scene.non_root_labels(sk.label_kernel(x, CONTRAST))
     got = sk.stats_kernel(x, labels, K)
@@ -2728,29 +2877,35 @@ def probe_phases(dev, smi, cases, t_roll, roll_launches):
 
     # -- 5e. the probes path -----------------------------------------------
     torch.cuda.synchronize()
-    for w in (pv.pre_variant, fs.fill_sweeps):
+    for w in (pv.pre_variant, fs.fill_sweeps, fs.fill_mask):
         w.launches = 0
     pv.pre_variant.variant_launches.clear()
     fs.fill_sweeps.variant_launches.clear()
+    fs.fill_mask.variant_launches.clear()
     t_var, batch_flips = profile_pre_variants.main([str(BATCH), "10"])
-    t_fill = profile_fill_variants.main([str(BATCH), "10"])
+    t_fill, t_alone = profile_fill_variants.main([str(BATCH), "10"])
     torch.cuda.synchronize()
     launches = {"roll_stages": roll_launches[0],
                 "pre_variants": pv.pre_variant.launches,
-                "fill_sweeps": fs.fill_sweeps.launches}
+                "fill_sweeps": fs.fill_sweeps.launches,
+                "fill_mask": fs.fill_mask.launches}
     phase(f"probes path: profile_preprocess (phase 5d's run) + "
           f"profile_pre_variants + profile_fill_variants launched "
           f"{launches}; by stage {roll_launches[1]}, by variant "
           f"{dict(pv.pre_variant.variant_launches)} "
-          f"{dict(fs.fill_sweeps.variant_launches)}")
-    if not all(launches.values()):
+          f"{dict(fs.fill_sweeps.variant_launches)}; fill_mask by variant "
+          f"{dict(fs.fill_mask.variant_launches)}")
+    if not all(launches.values()) or set(
+            fs.fill_mask.variant_launches) != set(fs.VARIANTS):
         fail("the probes path did not launch every probe kernel")
     if not all(v > 0 for v in (*t_roll.values(), *t_var.values(),
-                                *t_fill.values())):
+                                *t_fill.values(), *t_alone.values())):
         fail("the probes path's timings are wrong")
-    phase(f"{smi}: sweep fill 'new' {t_fill['new']:.3f} us/frame against "
-          f"the union-find fill {t_fill['union_find']:.3f} (pre + fill, "
-          f"batch {BATCH}); mxu_conv flips {batch_flips} in {BATCH} frames")
+    phase(f"{smi}: sweep fill 'new' {t_fill['new']:.3f} us/frame with its "
+          f"pre stage, {t_alone['new']:.3f} alone "
+          f"({fs.INSTANCES['new']}), against the union-find fill "
+          f"{t_fill['union_find']:.3f} (pre + fill, batch {BATCH}); "
+          f"mxu_conv flips {batch_flips} in {BATCH} frames")
 
     # -- 5e. plain versions, bounds, the products and their library calls --
     x = torch.from_numpy(np.ascontiguousarray(
@@ -2786,43 +2941,63 @@ def probe_phases(dev, smi, cases, t_roll, roll_launches):
           f"cuda_ms's runs)")
     if (pv.mxu_mean.launches, fs.run_ids.launches) != (11, 11):
         fail("a tensor-core product was not launched once per timed call")
+    run_ids_launches = fs.run_ids.launches
     plain = {"roll_stages": lambda: pv.roll_stage_reference(x, CONTRAST,
                                                             "full_roll"),
              "pre_variants": lambda: pv.pre_variant_reference(x, CONTRAST,
                                                               "mxu_conv"),
-             "fill_sweeps": lambda: fs.fill_sweeps_reference(x, CONTRAST)}
+             "fill_sweeps": lambda: fs.fill_sweeps_reference(x, CONTRAST),
+             "run_ids": lambda: fs.run_ids_reference(pre)}
     us = {"roll_stages": t_roll["full_roll"],
-          "pre_variants": t_var["mxu_conv"], "fill_sweeps": t_fill["new"]}
+          "pre_variants": t_var["mxu_conv"], "fill_sweeps": t_fill["new"],
+          "run_ids": prod_ms["run_ids"][0] / BATCH * 1e3}
+    launches["run_ids"] = run_ids_launches
     variants = {"roll_stages": {s: t_roll[s] for s in pv.ROLL_STAGES},
                 "pre_variants": t_var, "fill_sweeps": t_fill}
-    bytes_ms = px * 4 / HBM_BYTES_PER_S * 1e3      # frame in, plane out
+    # bytes and operations: frame in, plane out, the f32 mean (and
+    # mxu_conv's products); the run ids: mask in, two int16 planes out
+    bytes_ms = px * 4 / HBM_BYTES_PER_S * 1e3
     ops_ms = max(mean_ops_ms(px),
                  px * MXU_FLOPS_PER_PX / TF32_FLOPS_PER_S * 1e3)
+    bounds = {n: (bytes_ms, ops_ms) for n in plain}
+    bounds["run_ids"] = (px * 5 / HBM_BYTES_PER_S * 1e3, 0.0)
     replaces = {
         "roll_stages": "scripts/profile_preprocess.py:100",
         "pre_variants": "scripts/profile_pre_variants.py:186",
-        "fill_sweeps": "scripts/profile_fill_variants.py:211"}
+        "fill_sweeps": "scripts/profile_fill_variants.py:211",
+        "run_ids": "scripts/profile_fill_variants.py:211"}
     sources = {"roll_stages": "pre_variants.cu",
                "pre_variants": "pre_variants.cu",
-               "fill_sweeps": "fill_sweeps.cu"}
+               "fill_sweeps": "fill_sweeps.cu", "run_ids": "fill_sweeps.cu"}
+    design = {
+        "roll_stages": "global passes, one launch a pass (8)",
+        "pre_variants": "global passes, one launch a pass (8; mxu_conv 9)",
+        "fill_sweeps": "hd_label's pre (k_preprocess), then k_carry_fill: "
+                       "one 512-thread block a frame, bit planes in shared "
+                       "memory, run-ORs as carries (2 launches)",
+        "run_ids": "k_run_ids along the rows and the columns, a "
+                   "tensor-core product each (2 launches)"}
     entries = []
     for name, fn in plain.items():
         fn()
         torch.cuda.synchronize()
         plain_ms = cuda_ms(fn, 1)
+        b_ms, o_ms = bounds[name]
         entry = {
             "name": name, "route": "cuda",
             "source": "heimdall_tpu_torch/csrc/" + sources[name],
+            "design": design[name],
             "replaces": replaces[name], "equal": err == 0,
             "launches": launches[name], "max_abs_err": err,
             "ms": us[name] * BATCH / 1e3, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": None,
             "library_note": "no single PyTorch call computes it",
-            "variants": {v: t * BATCH / 1e3
-                         for v, t in variants[name].items()},
             "batch": BATCH, "frame": "640x480x3"}
+        if name in variants:
+            entry["variants"] = {v: t * BATCH / 1e3
+                                 for v, t in variants[name].items()}
         if name == "pre_variants":
             entry.update(
                 library_ms=prod_ms["mxu_mean"][1],
@@ -2833,16 +3008,30 @@ def probe_phases(dev, smi, cases, t_roll, roll_launches):
                 mxu_conv_mean_max_abs_err=mean_err,
                 mxu_conv_flips=batch_flips)
         elif name == "fill_sweeps":
+            alone_ms = px * 2 / HBM_BYTES_PER_S * 1e3  # mask in, plane out
+            entry.update(
+                ms_of="new", instances=fs.INSTANCES,
+                max_abs_err_fill_cases=fill_err,
+                launches_fill_mask=launches["fill_mask"],
+                alone_ms={v: t * BATCH / 1e3 for v, t in t_alone.items()},
+                alone_bound_ms=alone_ms, alone_bound_by="bytes",
+                union_find_ms=t_fill["union_find"] * BATCH / 1e3)
+        elif name == "run_ids":
             entry.update(
                 library_ms=prod_ms["run_ids"][1],
                 library_note="torch.cumsum of the run starts along the rows "
-                             "and the columns (the run-id product alone; "
-                             "product_ms is the kernel's)",
-                product_ms=prod_ms["run_ids"][0], ms_of="new",
-                union_find_ms=t_fill["union_find"] * BATCH / 1e3)
+                             "and the columns",
+                ms_of="mxu, no guard rows")
         else:
             entry["ms_of"] = "full_roll"
         entries.append(entry)
+        if name == "run_ids":
+            phase(f"{smi}: run_ids {us[name]:.3f} us/frame (batch {BATCH} "
+                  f"of 640x480 masks); plain version "
+                  f"{plain_ms / BATCH * 1e3:.1f} us/frame; torch.cumsum "
+                  f"{prod_ms['run_ids'][1] / BATCH * 1e3:.3f} us/frame; "
+                  f"bound {entry['bound_ms'] / BATCH * 1e3:.3f} us/frame")
+            continue
         phase(f"{smi}: {name} ({entry['ms_of']}) {us[name]:.3f} us/frame "
               f"(probes path, batch {BATCH} of 640x480x3); plain version "
               f"{plain_ms / BATCH * 1e3:.1f} us/frame; bound "

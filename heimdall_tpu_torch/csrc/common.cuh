@@ -1,9 +1,8 @@
 // Device helpers shared by the port's kernels (fused_detect.cu,
 // ccl_tiled.cu, stats_tiled.cu, runtable_tiled.cu, pre_variants.cu,
 // fill_sweeps.cu): the 32 x 8 pixel mapping and its per-frame skip, the
-// preprocess's taps, borders, gray and 3x3 erode/dilate pass, warp run starts,
-// union-find with atomicMin hooking and the background union-find of the
-// hole fill, block scans and sums for 256-thread blocks, a search in a sorted
+// preprocess's taps, borders, gray and 3x3 erode/dilate pass, union-find
+// with atomicMin hooking, block scans and sums for 256-thread blocks, a search in a sorted
 // root table, the slot-list writer, the launch check of the entry points,
 // the preprocess's passes up to the threshold (exact, or with the probes'
 // borders and paired taps), and the sweep probes' machinery
@@ -16,6 +15,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 // In an entry point: return the error of the launch just queued, if any.
 #define HD_CHECK()                                 \
@@ -97,6 +97,13 @@ struct Taps {
   float k11[11];
 };
 
+inline Taps taps_of(const int* q8, const float* k11) {
+  Taps t;
+  memcpy(t.q8, q8, sizeof(t.q8));
+  memcpy(t.k11, k11, sizeof(t.k11));
+  return t;
+}
+
 __device__ __forceinline__ int reflect101(int i, int n) {
   i = i < 0 ? -i : i;
   return i >= n ? 2 * (n - 1) - i : i;
@@ -143,12 +150,11 @@ __global__ void k_morph(Geom g, const uint8_t* in, uint8_t* out, int is_min) {
 // The preprocess's passes up to the threshold, one launch each over [B, H, W]
 // planes: gray + the blur's row pass (acc int32), its column pass (blurred
 // u8), the mean's row pass (mh float32) and its column pass with the INV
-// threshold.  fused_detect.cu runs them exact (<kExact, false>: reflect-101
-// for the blur, replicate for the mean); pre_variants.cu swaps in the
-// probes' borders and paired taps.  The f32 taps are summed in sequence with
-// __fmul_rn/__fadd_rn (never contracted; every file is also built with
-// -fmad=false) and rounded half to even: a border only moves where a tap
-// reads, never the order of the sum.
+// threshold: pre_variants.cu's, exact (reflect-101 for the blur, replicate
+// for the mean) or with the probes' borders and paired taps.  The f32 taps
+// are summed in sequence with __fmul_rn/__fadd_rn (never contracted; every
+// file is also built with -fmad=false) and rounded half to even: a border
+// only moves where a tap reads, never the order of the sum.
 
 // The border of a pass: exact, wrap-around (a roll, (j mod n)), or the exact
 // one only where a tap leaves the axis and an unchecked read elsewhere.
@@ -180,10 +186,9 @@ __device__ __forceinline__ int blur_sum(const Taps& t, const int (&v)[5]) {
   return s;
 }
 
-// The blur's row pass into acc; with kWriteGray also the gray plane.
-template <int kBorder, bool kPair, bool kWriteGray>
-__global__ void k_gray_blur_h(Frames f, Geom g, Taps t, uint8_t* gray,
-                              int32_t* acc) {
+// Gray and the blur's row pass into acc.
+template <int kBorder, bool kPair>
+__global__ void k_gray_blur_h(Frames f, Geom g, Taps t, int32_t* acc) {
   Pix q = pix(g);
   if (!q.in) return;
   long long row = (long long)q.y * g.W;
@@ -192,9 +197,7 @@ __global__ void k_gray_blur_h(Frames f, Geom g, Taps t, uint8_t* gray,
   for (int i = 0; i < 5; ++i)
     v[i] = gray_at(f, q.b, row + tap_src<kBorder, true>(q.x + i - 2, g.W,
                                                          inner));
-  long long o = q.b * g.HW + q.p;
-  if (kWriteGray) gray[o] = (uint8_t)gray_at(f, q.b, q.p);
-  acc[o] = blur_sum<kPair>(t, v);
+  acc[q.b * g.HW + q.p] = blur_sum<kPair>(t, v);
 }
 
 template <int kBorder, bool kPair>
@@ -272,16 +275,6 @@ inline dim3 tile_grid(const Geom& g, int B) {
   return dim3((g.W + kTileW - 1) / kTileW, rows, B);
 }
 
-// Linear index of the first pixel of this lane's run of equal `v` within the
-// warp's 32-pixel row segment.  Every lane of the warp must call it.
-__device__ __forceinline__ int run_start(bool v, const Pix& q) {
-  unsigned bits = __ballot_sync(kFull, v);
-  unsigned starts = (bits ^ (bits << 1)) | 1u;
-  unsigned upto = starts & ((2u << q.lane) - 1u);
-  int start_lane = 31 - __clz(upto);
-  return (int)(q.p - (q.lane - start_lane));
-}
-
 __device__ __forceinline__ int find_root(const volatile int32_t* P, int x) {
   int p = P[x];
   while (p != x) {
@@ -308,41 +301,6 @@ __device__ void unite(int32_t* P, int a, int b) {
     if (old == b) return;
     b = old;
   }
-}
-
-// Hole fill, background 4-connected, over parents seeded with run starts
-// (run_start).  Links inside a warp's row segment are already made by the
-// run-start parents; an up link is skipped when the left and up-left pixels
-// are background (their own links imply it).
-__global__ void k_link_bg(Geom g, const uint8_t* fg, int32_t* parent) {
-  for_each_tile(g, [&](Pix q) {
-    if (!q.in) return;
-    const uint8_t* m = fg + q.b * g.HW;
-    int32_t* P = parent + q.b * g.HW;
-    int p = (int)q.p;
-    if (m[p]) return;
-    bool left = q.x > 0 && !m[p - 1];
-    if (left && q.lane == 0) unite(P, p, p - 1);
-    if (q.y > 0 && !m[p - g.W] && !(left && !m[p - g.W - 1]))
-      unite(P, p, p - g.W);
-  });
-}
-
-// Compress background paths and flag the roots that touch the frame border
-// (reach is zeroed beforehand); a background pixel is filled iff its root's
-// flag stays 0.
-template <typename Reach>
-__global__ void k_compress_mark(Geom g, const uint8_t* fg, int32_t* parent,
-                                Reach* reach) {
-  for_each_tile(g, [&](Pix q) {
-    if (!q.in) return;
-    long long base = q.b * g.HW;
-    if (fg[base + q.p]) return;
-    int r = find_root(parent + base, (int)q.p);
-    parent[base + q.p] = r;
-    if (q.x == 0 || q.y == 0 || q.x == g.W - 1 || q.y == g.H - 1)
-      reach[base + r] = 1;
-  });
 }
 
 // Exclusive scan over a 256-thread block; *total gets the block's sum.

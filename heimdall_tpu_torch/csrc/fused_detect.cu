@@ -46,12 +46,11 @@
 // one-pass preprocess" below): no plane of scratch, and its bound is the
 // mean's 44 uncontracted float operations a pixel on the SMs' 128 FP32
 // lanes, above its 3 (Mono8) or 5 (BGR) bytes a pixel.  hd_label and
-// hd_stats_from_labels are the two-kernel split of the first design's
-// eight-pass chain, with pixel-level union-finds on global planes (the
-// profiling path, heimdall_tpu_torch/ops/split_kernels.py); the chain stays
-// because its stages are the profilers' truncations.
-
-#include <string.h>
+// hd_stats_from_labels are the two-kernel split of the detect (the
+// profiling path, heimdall_tpu_torch/ops/split_kernels.py): hd_label's
+// stages are the profilers' truncations, each reached by the same kernels
+// as the detect (the one-pass preprocess stopped at the stage, then the
+// tile fill and the tile labels).
 
 #include "tile_uf.cuh"
 
@@ -60,80 +59,16 @@ namespace {
 constexpr int kStatsRows = 64;    // rows per block in the stats kernel
 
 // ---------------------------------------------------------------- preprocess
-// (Taps, reflect101, clampi, gray_at, minmax3, k_morph and the passes up to
-// the threshold are in common.cuh; this file runs them <kExact, false>)
+// (Taps, reflect101, clampi and gray_at are in common.cuh)
+
+// The stages of hd_label, in order: it stops after `stage`.
+enum Stage { kGray = 0, kBlur5, kMean11, kPre, kFill, kCcl, kNumStages };
 
 // The gray plane alone (hd_label's gray stage).
 __global__ void k_gray(Frames f, Geom g, uint8_t* gray) {
   Pix q = pix(g);
   if (!q.in) return;
   gray[q.b * g.HW + q.p] = (uint8_t)gray_at(f, q.b, q.p);
-}
-
-// Last erode of the close; also seeds the hole-fill union-find (parents =
-// run starts) and clears the border-reach flags.
-__global__ void k_close_erode_init(Geom g, const uint8_t* in, uint8_t* fg,
-                                   int32_t* parent, int32_t* reach) {
-  Pix q = pix(g);
-  int v = q.in ? minmax3(in + q.b * g.HW, g, q, true) : 0;
-  int start = run_start(v != 0, q);
-  if (!q.in) return;
-  long long o = q.b * g.HW + q.p;
-  fg[o] = (uint8_t)v;
-  parent[o] = start;
-  reach[o] = 0;
-}
-
-// ------------------------------------------------------------- union-find
-// (the hole fill's k_link_bg and k_compress_mark are in common.cuh)
-
-// filled = fg | (bg not reached from the border); seeds the labeling
-// union-find with run starts of the filled mask.  Each thread reads and
-// writes only its own parent entry.
-__global__ void k_fill_init(Geom g, uint8_t* fg, int32_t* parent,
-                            const int32_t* reach) {
-  Pix q = pix(g);
-  long long base = q.b * g.HW;
-  bool v = false;
-  if (q.in) v = fg[base + q.p] || !reach[base + parent[base + q.p]];
-  int start = run_start(v, q);
-  if (!q.in) return;
-  fg[base + q.p] = v;
-  parent[base + q.p] = start;
-}
-
-// Foreground, 8-connected: left, up-left, up, up-right, with the links that
-// the left pixel's (or the up pixel's row) already implies skipped.
-__global__ void k_link_fg(Geom g, const uint8_t* fg, int32_t* parent) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const uint8_t* m = fg + q.b * g.HW;
-  int32_t* P = parent + q.b * g.HW;
-  int p = (int)q.p;
-  if (!m[p]) return;
-  bool left = q.x > 0 && m[p - 1];
-  if (left && q.lane == 0) unite(P, p, p - 1);
-  if (q.y == 0) return;
-  int u = p - g.W;
-  bool up = m[u];
-  bool ul = q.x > 0 && m[u - 1];
-  bool ur = q.x < g.W - 1 && m[u + 1];
-  if (left) {
-    if (!up && ur) unite(P, p, u + 1);
-  } else if (up) {
-    unite(P, p, u);
-  } else {
-    if (ul) unite(P, p, u - 1);
-    if (ur) unite(P, p, u + 1);
-  }
-}
-
-__global__ void k_label(Geom g, const uint8_t* fg, int32_t* parent) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  long long base = q.b * g.HW;
-  parent[base + q.p] =
-      fg[base + q.p] ? find_root(parent + base, (int)q.p) : (int)g.HW;
 }
 
 // ------------------------------------------------------------ roots, slots
@@ -329,75 +264,6 @@ __global__ void k_bbox_sums(Frames f, Geom g, int K, const int32_t* nblobs,
   }
 }
 
-// The stages of hd_label, in order: it stops after `stage`.
-enum Stage { kGray = 0, kBlur5, kMean11, kPre, kFill, kCcl, kNumStages };
-
-// hd_label's preprocess passes, up to the dilate of the close: gray in `gray`, the dilated plane in plane1 (plane2 and work are
-// scratch).  With stage kGray, kBlur5 or kMean11 it stops after that stage,
-// whose plane is then in gray, plane1 or plane2 (threshold 0/255).  Returns
-// the first CUDA error.
-int launch_to_close_dilate(const Frames& f, const Geom& g, int B, int ct,
-                           const int* q8, const float* k11, int stage,
-                           uint8_t* gray, uint8_t* plane1, uint8_t* plane2,
-                           int32_t* work, cudaStream_t st) {
-  Taps t;
-  memcpy(t.q8, q8, sizeof(t.q8));
-  memcpy(t.k11, k11, sizeof(t.k11));
-  dim3 blk(kTileW, kTileH);
-  dim3 grid((g.W + kTileW - 1) / kTileW, (g.H + kTileH - 1) / kTileH, B);
-  float* fwork = reinterpret_cast<float*>(work);
-  if (stage == kGray) {
-    k_gray<<<grid, blk, 0, st>>>(f, g, gray);
-    HD_CHECK();
-    return 0;
-  }
-  k_gray_blur_h<kExact, false, true><<<grid, blk, 0, st>>>(f, g, t, gray,
-                                                        work);
-  HD_CHECK();
-  k_blur_v<kExact, false><<<grid, blk, 0, st>>>(g, t, work, plane1);
-  HD_CHECK();
-  if (stage == kBlur5) return 0;
-  k_mean_h<kExact><<<grid, blk, 0, st>>>(g, t, plane1, fwork);
-  HD_CHECK();
-  uint8_t on = stage == kMean11 ? 255 : 1;
-  k_mean_v_threshold<kExact><<<grid, blk, 0, st>>>(g, t, ct, on, fwork,
-                                                   plane1, plane2);
-  HD_CHECK();
-  if (stage == kMean11) return 0;
-  k_morph<<<grid, blk, 0, st>>>(g, plane2, plane1, 1);   // open: erode
-  HD_CHECK();
-  k_morph<<<grid, blk, 0, st>>>(g, plane1, plane2, 0);   //       dilate
-  HD_CHECK();
-  k_morph<<<grid, blk, 0, st>>>(g, plane2, plane1, 0);   // close: dilate
-  HD_CHECK();
-  return 0;
-}
-
-// From the close's dilated plane in plane1: the last erode into plane2
-// (seeding the union-finds), the hole fill (plane2 = filled mask, 0/1) and,
-// unless stage is kFill, the labels (`labels`, background H*W; the hole
-// fill's parents live there before).  work is scratch.
-int launch_fill_label(const Geom& g, int B, int stage, uint8_t* plane1,
-                      uint8_t* plane2, int32_t* work, int32_t* labels,
-                      cudaStream_t st) {
-  dim3 blk(kTileW, kTileH);
-  dim3 grid((g.W + kTileW - 1) / kTileW, (g.H + kTileH - 1) / kTileH, B);
-  k_close_erode_init<<<grid, blk, 0, st>>>(g, plane1, plane2, labels, work);
-  HD_CHECK();
-  k_link_bg<<<grid, blk, 0, st>>>(g, plane2, labels);
-  HD_CHECK();
-  k_compress_mark<<<grid, blk, 0, st>>>(g, plane2, labels, work);
-  HD_CHECK();
-  k_fill_init<<<grid, blk, 0, st>>>(g, plane2, labels, work);
-  HD_CHECK();
-  if (stage == kFill) return 0;
-  k_link_fg<<<grid, blk, 0, st>>>(g, plane2, labels);
-  HD_CHECK();
-  k_label<<<grid, blk, 0, st>>>(g, plane2, labels);
-  HD_CHECK();
-  return 0;
-}
-
 // The first-K-root statistics from the foreground plane fg (0/1), the label
 // plane and the gray plane: slot ranking (rank int32 [B, H, W] and rowcnt /
 // rowoff int32 [B, H] are scratch), per-slot sums and bbox, bbox-window sums
@@ -455,6 +321,12 @@ int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
 // those words (erode = AND of the shifted words, dilate = OR), with positions
 // outside the frame holding each pass's neutral value, so no out-of-frame
 // neighbour wins.
+//
+// hd_label's stages blur5, mean11 and pre run instances of the same kernel
+// that stop at the stage (kStop, a template parameter) and write its plane
+// from shared memory: the Q8 blur (u8), the threshold (0/255) or the closed
+// mask (0/1), with no gray (kGrayOut false).  The main path's instance,
+// <kPre, true>, holds no test of either.
 
 constexpr int kPreTY = 64, kPreTX = 120, kPreThreads = 384, kRun = 8;
 // the threshold's run: its kRE / kRunV x kNW tasks split evenly over the
@@ -486,8 +358,10 @@ __device__ __forceinline__ bool in_frame(int i, int n) {
 }
 
 // One tile of k_preprocess.  kI: the tile and its halo lie inside the
-// frame, so no tap needs a border and no position a frame check.
-template <bool kI>
+// frame, so no tap needs a border and no position a frame check.  kStop:
+// the last stage (kBlur5, kMean11 or kPre), whose plane goes to `binary`;
+// kGrayOut: the tile's gray goes to gray_out.
+template <bool kI, int kStop, bool kGrayOut>
 __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
                                                 const Taps& t, int ct,
                                                 uint8_t* gray_out,
@@ -551,7 +425,7 @@ __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
             if (c >= 0 && c < kCA) A[r * kCA + c] = (uint8_t)g;
           }
           // words 3 .. 3 + kPreTX / 4 hold the tile's own columns
-          if (inside(r - 11, kPreTY) && inside(w - 3, kPreTX / 4))
+          if (kGrayOut && inside(r - 11, kPreTY) && inside(w - 3, kPreTX / 4))
             *reinterpret_cast<uint32_t*>(
                 gray_out + obase + (long long)(y0 - 11 + r) * W + x0 +
                 4 * (w - 3)) = g4;
@@ -588,7 +462,7 @@ __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
           int c = lane + 32 * k, gx = x0 - 11 + c;
           if (c >= kCA || !in_frame<kI>(gx, W)) continue;
           A[r * kCA + c] = (uint8_t)v[rr][k];
-          if (inside(r - 11, ty) && inside(c - 11, tx))
+          if (kGrayOut && inside(r - 11, ty) && inside(c - 11, tx))
             gray_out[obase + (long long)gy * W + gx] = v[rr][k];
         }
       }
@@ -649,6 +523,13 @@ __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
     }
   }
   __syncthreads();
+  if (kStop == kBlur5) {        // the tile's blurred plane goes out
+    for (int r = warp; r < ty; r += warps)
+      for (int c = lane; c < tx; c += 32)
+        binary[obase + (long long)(y0 + r) * W + x0 + c] =
+            C[(r + 9) * kCB + c + 9];
+    return;
+  }
 
   // 4. the mean's row pass (as the blur's), over the gray and blur-row
   //    buffers, which are no longer read.
@@ -716,7 +597,7 @@ __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
   //    each pass the positions outside the frame take the next pass's
   //    neutral value (1 before an erode, 0 before a dilate).
 #pragma unroll
-  for (int pass = 0; pass < 4; ++pass) {
+  for (int pass = 0; pass < (kStop == kPre ? 4 : 0); ++pass) {
     const bool erode = pass == 0 || pass == 3;
     const uint32_t fill = erode ? kFull : 0u;
     const uint32_t next_neutral = pass == 2 ? kFull : 0u;
@@ -751,15 +632,17 @@ __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
     __syncthreads();
   }
 
-  // 7. the tile's binary plane (0/1) goes out, four pixels a store where
-  //    the tile is interior and the rows word-aligned.
+  // 7. the tile's binary plane goes out (the closed mask 0/1, or stopped
+  //    at the threshold 0/255), four pixels a store where the tile is
+  //    interior and the rows word-aligned.
+  constexpr uint32_t on = kStop == kMean11 ? 255u : 1u;
   if (kI && vec) {
     for (int it = threadIdx.x; it < kPreTY * (kPreTX / 4); it += kPreThreads) {
       int r = it / (kPreTX / 4), c = it % (kPreTX / 4) * 4, cc = c + 4;
       uint32_t x = E[(r + 4) * kNW + cc / 32] >> (cc % 32) & 15u;  // 4 | cc
       *reinterpret_cast<uint32_t*>(binary + obase + (long long)(y0 + r) * W +
                                    x0 + c) =
-          (x & 1u) | (x & 2u) << 7 | (x & 4u) << 14 | (x & 8u) << 21;
+          ((x & 1u) | (x & 2u) << 7 | (x & 4u) << 14 | (x & 8u) << 21) * on;
     }
     return;
   }
@@ -768,19 +651,47 @@ __device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
       int cc = c + 4;
       uint32_t word = E[(r + 4) * kNW + cc / 32];
       binary[obase + (long long)(y0 + r) * W + x0 + c] =
-          (word >> (cc % 32)) & 1u;
+          ((word >> (cc % 32)) & 1u) * on;
     }
 }
 
+template <int kStop, bool kGrayOut>
 __global__ void __launch_bounds__(kPreThreads, 4)
 k_preprocess(Frames f, int H, int W, Taps t, int ct, uint8_t* gray_out,
              uint8_t* binary, bool vec) {
   extern __shared__ __align__(16) uint8_t smem[];
   int y0 = blockIdx.y * kPreTY, x0 = blockIdx.x * kPreTX;
   if (y0 >= 11 && x0 >= 11 && y0 + kPreTY + 11 <= H && x0 + kPreTX + 11 <= W)
-    preprocess_tile<true>(f, H, W, t, ct, gray_out, binary, smem, vec);
+    preprocess_tile<true, kStop, kGrayOut>(f, H, W, t, ct, gray_out, binary,
+                                           smem, vec);
   else
-    preprocess_tile<false>(f, H, W, t, ct, gray_out, binary, smem, vec);
+    preprocess_tile<false, kStop, kGrayOut>(f, H, W, t, ct, gray_out, binary,
+                                            smem, vec);
+}
+
+// One launch of k_preprocess<kStop, kGrayOut> over B frames.
+template <int kStop, bool kGrayOut>
+int launch_preprocess(const Frames& f, int B, int H, int W, const Taps& t,
+                      int ct, uint8_t* gray, uint8_t* binary,
+                      cudaStream_t st) {
+  auto kernel = k_preprocess<kStop, kGrayOut>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPreSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((W + kPreTX - 1) / kPreTX, (H + kPreTY - 1) / kPreTY, B);
+  // planes whose rows start on 32-bit words (pixel stride 1, W and the
+  // plane offsets multiples of 4, aligned bases) take word loads and stores
+  bool vec = f.pstride == 1 && W % 4 == 0 && (uintptr_t)f.data % 4 == 0 &&
+             (f.C == 1 || f.cstride % 4 == 0) && (uintptr_t)gray % 4 == 0 &&
+             (uintptr_t)binary % 4 == 0;
+  kernel<<<grid, kPreThreads, kPreSmem, st>>>(f, H, W, t, ct, gray, binary,
+                                              vec);
+  HD_CHECK();
+  return 0;
 }
 
 }  // namespace
@@ -793,28 +704,9 @@ extern "C" int hd_preprocess(const uint8_t* frames, int B, int H, int W,
                              int C, long long cstride, long long pstride,
                              int ct, const int* q8, const float* k11,
                              uint8_t* gray, uint8_t* binary, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  Taps t;
-  memcpy(t.q8, q8, sizeof(t.q8));
-  memcpy(t.k11, k11, sizeof(t.k11));
   Frames f{frames, C, (long long)C * H * W, cstride, pstride};
-  cudaError_t e = cudaFuncSetAttribute(
-      k_preprocess, cudaFuncAttributeMaxDynamicSharedMemorySize, kPreSmem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(k_preprocess,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((W + kPreTX - 1) / kPreTX, (H + kPreTY - 1) / kPreTY, B);
-  // planes whose rows start on 32-bit words (pixel stride 1, W and the
-  // plane offsets multiples of 4, aligned bases) take word loads and stores
-  bool vec = pstride == 1 && W % 4 == 0 && (uintptr_t)frames % 4 == 0 &&
-             (C == 1 || cstride % 4 == 0) && (uintptr_t)gray % 4 == 0 &&
-             (uintptr_t)binary % 4 == 0;
-  k_preprocess<<<grid, kPreThreads, kPreSmem, st>>>(f, H, W, t, ct, gray,
-                                                    binary, vec);
-  HD_CHECK();
-  return 0;
+  return launch_preprocess<kPre, true>(f, B, H, W, taps_of(q8, k11), ct, gray,
+                                       binary, (cudaStream_t)stream);
 }
 
 // Runs the whole detect on `stream` (see the top of this file).  Scratch:
@@ -870,46 +762,71 @@ extern "C" int hd_fused_detect_launches(int H, int W) {
 // ::_make_stats_kernel (frame + label plane -> the fused kernel's tables),
 // and the profilers' truncations of the label kernel
 // (scripts/profile_fused.py, scripts/profile_preprocess.py), which are
-// hd_label's stages.  Both take BGR planes [B, 3, H, W]: hd_label runs the
-// eight global passes of the preprocess and the pixel-level union-finds
-// (launch_to_close_dilate, launch_fill_label), hd_stats_from_labels the
-// fused detect's stats passes; B6b(frame) then B6a(frame, labels) gives the
-// fused detect's outputs.  What bounds them on an H100 SXM: bytes.
-// hd_label reads the frame (3 B/px) and writes one plane (1 B/px, 4 B/px
-// for the labels); hd_stats_from_labels reads the frame and the labels
-// (7 B/px) and writes ~4 KB of tables.  They pass every stage through
-// global-memory scratch rather than approach that bound.
+// hd_label's stages.  Both take BGR planes [B, 3, H, W]; B6b(frame) then
+// B6a(frame, labels) gives the fused detect's outputs.  hd_label reaches
+// each stage by hd_fused_detect's own kernels: gray by k_gray; blur5,
+// mean11 and pre by one launch of the one-pass preprocess stopped at the
+// stage; fill by pre, then the tile fill in place (tile_uf.cuh, 3
+// launches, 2 for a frame of one tile); ccl by fill, then the foreground
+// tile labels with one band of H rows (3 launches, 2 at one tile).  So it
+// launches 1 kernel up to pre, 4 at fill and 7 at ccl.
+// hd_stats_from_labels runs the fused detect's stats passes.  What bounds
+// them on an H100 SXM: hd_label reads the frame (3 B/px) and writes one
+// plane (1 B/px, 4 B/px for the labels), and from mean11 on computes the
+// mean's 44 float operations a pixel, which take longer than those bytes;
+// hd_stats_from_labels reads the frame and the labels (7 B/px) and writes
+// ~4 KB of tables.
 
-// Frame -> the plane of `stage`: gray (gray), Q8 blur5 (plane1), the INV
-// threshold of the f32 mean11 as 0/255 (plane2), the opened and closed mask
-// (plane2, 0/1), the hole-filled mask (plane2, 0/1) or the 8-connected
-// labels (labels, background H*W).  Scratch: gray/plane1/plane2 u8 and
-// work/labels int32, all [B, H, W].  Returns the first CUDA error.
+// Frame -> the plane of `stage`: gray, the Q8 blur5, the INV threshold of
+// the f32 mean11 as 0/255, the opened and closed mask (0/1) or the
+// hole-filled mask (0/1), each in `plane` u8 [B, H, W]; or the 8-connected
+// labels (`labels` int32 [B, H, W], background H*W; `plane` then holds the
+// filled mask).  Scratch from fill on: table int32 [B, hd_flood_entries(H,
+// W)] (ccl_tiled.cu's); at ccl: flags u8 [B, hd_label_tiles(H, W)].
+// Returns the first CUDA error.
 extern "C" int hd_label(const uint8_t* frames, int B, int H, int W, int ct,
                         int stage, const int* q8, const float* k11,
-                        uint8_t* gray, uint8_t* plane1, uint8_t* plane2,
-                        int32_t* work, int32_t* labels, void* stream) {
+                        int32_t* table, uint8_t* flags, uint8_t* plane,
+                        int32_t* labels, void* stream) {
   if (stage < 0 || stage >= kNumStages) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  Geom g{H, W, (long long)H * W, H, 1};
-  Frames f{frames, 3, 3 * g.HW, g.HW, 1};
-  int err = launch_to_close_dilate(f, g, B, ct, q8, k11, stage, gray, plane1,
-                                   plane2, work, st);
-  if (err || stage <= kMean11) return err;
-  if (stage == kPre) {
-    dim3 blk(kTileW, kTileH);
-    dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-    k_morph<<<grid, blk, 0, st>>>(g, plane1, plane2, 1);   // close: erode
-    HD_CHECK();
-    return 0;
+  Frames f{frames, 3, 3LL * H * W, (long long)H * W, 1};
+  Taps t = taps_of(q8, k11);
+  int err;
+  switch (stage) {
+    case kGray: {
+      Geom g{H, W, (long long)H * W, H, 1};
+      dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+      k_gray<<<grid, dim3(kTileW, kTileH), 0, st>>>(f, g, plane);
+      HD_CHECK();
+      return 0;
+    }
+    case kBlur5:
+      return launch_preprocess<kBlur5, false>(f, B, H, W, t, ct, nullptr,
+                                              plane, st);
+    case kMean11:
+      return launch_preprocess<kMean11, false>(f, B, H, W, t, ct, nullptr,
+                                               plane, st);
+    default:
+      err = launch_preprocess<kPre, false>(f, B, H, W, t, ct, nullptr, plane,
+                                           st);
   }
-  return launch_fill_label(g, B, stage, plane1, plane2, work, labels, st);
+  if (!err && stage >= kFill)
+    err = launch_flood_fill(plane, B, H, W, nullptr, table, plane, st);
+  if (err || stage == kFill || stage == kPre) return err;
+  int tiles = hd_label_tiles(H, W);
+  LabelGeom lg = with_flags(label_geom(H, W, H, 8, 1, nullptr), flags, tiles,
+                            tiles, 0);
+  return launch_tile_labels<false>(plane, B, lg, labels, nullptr, nullptr,
+                                   st);
 }
 
-// Number of kernel launches one hd_label call makes at `stage`.
-extern "C" int hd_label_launches(int stage) {
-  static const int n[kNumStages] = {1, 2, 4, 8, 11, 13};
-  return stage >= 0 && stage < kNumStages ? n[stage] : 0;
+// Number of kernel launches one hd_label call makes at `stage` on H x W
+// frames: 1 up to pre; the fill and the labels 3 each (2 at one tile).
+extern "C" int hd_label_launches(int stage, int H, int W) {
+  if (stage < 0 || stage >= kNumStages) return 0;
+  int per = hd_label_tiles(H, W) > 1 ? 3 : 2;
+  return 1 + (stage >= kFill ? per : 0) + (stage >= kCcl ? per : 0);
 }
 
 // Frame + label plane -> the fused detect's tables: sums [B,8,K], bbox

@@ -34,12 +34,10 @@
 //
 // What bounds it on an H100 SXM: bytes.  A call reads the frame (3 B/px)
 // and writes one plane (1 B/px), 0.37 us per 640x480 frame at 3.35 TB/s;
-// mxu_conv's band products are far below the tensor cores' rate.  Like
-// hd_label, it passes every stage through global-memory scratch (8 launches
-// to "pre", 9 with mxu_conv's band table), so these are probes of the
-// ingredients, not of the bound.
-
-#include <string.h>
+// mxu_conv's band products are far below the tensor cores' rate.  It passes
+// every stage through global-memory scratch (8 launches to "pre", 9 with
+// mxu_conv's band table), as the TPU probes' separate passes do, so these
+// are probes of the ingredients, not of the bound.
 
 #include "common.cuh"
 
@@ -48,7 +46,7 @@ namespace {
 enum Stage { kBlur5 = 1, kMean11 = 2, kPre = 3 };   // hd_label's numbers
 
 // (the passes up to the threshold, with their Border and pair template
-// parameters, are in common.cuh, shared with fused_detect.cu)
+// parameters, are in common.cuh)
 
 // ------------------------------------------------ mxu_conv on tensor cores
 
@@ -212,8 +210,7 @@ template <int kBorder, bool kPair>
 int launch_blur(const Frames& f, const Geom& g, dim3 grid, const Taps& t,
                 int32_t* acc, uint8_t* blurred, cudaStream_t st) {
   dim3 blk(kTileW, kTileH);
-  k_gray_blur_h<kBorder, kPair, false><<<grid, blk, 0, st>>>(f, g, t, nullptr,
-                                                           acc);
+  k_gray_blur_h<kBorder, kPair><<<grid, blk, 0, st>>>(f, g, t, acc);
   HD_CHECK();
   k_blur_v<kBorder, kPair><<<grid, blk, 0, st>>>(g, t, acc, blurred);
   HD_CHECK();
@@ -233,12 +230,6 @@ int launch_mean(const Geom& g, dim3 grid, const Taps& t, int ct, uint8_t on,
   return 0;
 }
 
-Taps taps_of(const int* q8, const float* k11) {
-  Taps t;
-  memcpy(t.q8, q8, sizeof(t.q8));
-  memcpy(t.k11, k11, sizeof(t.k11));
-  return t;
-}
 
 }  // namespace
 

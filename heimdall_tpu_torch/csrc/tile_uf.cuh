@@ -1,6 +1,7 @@
 // Block union-find over tiles in shared memory, shared by ccl_tiled.cu and
 // fused_detect.cu: the hole fill (hd_flood_fill, B5b) and the foreground
-// labeling (hd_band_ccl, B5a, and the labels of hd_fused_detect, B1).
+// labeling (hd_band_ccl, B5a, and the labels of hd_fused_detect, B1); the
+// label kernel's fill and ccl stages (hd_label, B6b) run both.
 //
 // One block takes a tile of kUfTH x kUfTW pixels of a frame and labels one
 // class of its pixels (background, 4-connected, for the fill; foreground, 8-

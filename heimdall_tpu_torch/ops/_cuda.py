@@ -37,8 +37,8 @@ SIGNATURES = {
         "hd_fused_detect_launches": [_I, _I],
         "hd_preprocess": [_P, _I, _I, _I, _I, _LL, _LL, _I, _P, _P, _P, _P,
                           _P],
-        "hd_label": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-        "hd_label_launches": [_I],
+        "hd_label": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        "hd_label_launches": [_I, _I, _I],
         "hd_stats_from_labels": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P],
         "hd_stats_from_labels_launches": [],
@@ -70,7 +70,7 @@ SIGNATURES = {
     },
     "fill_sweeps": {
         "hd_run_ids": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
-        "hd_sweep_fill": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "hd_sweep_fill": [_P, _I, _I, _I, _I, _I, _P, _P],
     },
     "ccl_sweeps": {
         "hd_sweep_ccl": [_P] + [_I] * 12 + [_P] * 7,

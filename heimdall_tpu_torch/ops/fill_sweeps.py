@@ -1,15 +1,14 @@
 """The sweep hole fill probe: the preprocess, then the hole fill by row and
-column sweeps of run-packed doubling scans to a certificate, with one
-ingredient swapped.  Counterpart of the Pallas kernel of heimdall_tpu's
-timing probe scripts/profile_fill_variants.py (S4; the fill is
+column sweeps to a certificate, with one ingredient swapped.  Counterpart
+of the Pallas kernel of heimdall_tpu's timing probe
+scripts/profile_fill_variants.py (S4; the fill is
 pallas_kernels.py::_fill_holes_sweeps); the port's profiler
 heimdall_tpu_torch/scripts/profile_fill_variants.py runs it.
 
 Each of VARIANTS is (pack, scan, grow, guard), the TPU code's names:
 
 * pack: the run ids' start flags from a clamped read ("mxu") or from a
-  wrapped read and the penalty clamp ("ladder"); the run ids are then a
-  tensor-core product with the triangular 0/1 matrix either way;
+  wrapped read and the penalty clamp ("ladder");
 * scan: the doubling ladder's edge fill as a wrapped read with an additive
   penalty ("masked") or as an index test and select ("iota");
 * grow: a row max of masked lane reads then an up/down max ("new"), or four
@@ -19,13 +18,20 @@ Each of VARIANTS is (pack, scan, grow, guard), the TPU code's names:
 "new" is pallas_kernels.py::_fill_holes_sweeps as it stands, which is r3's
 tuple.  All nine compute one function, the hole fill (background not
 4-connected to the border becomes foreground), so they share one plain
-version; it equals the label kernel's "fill" stage.
+version, which runs the TPU code's ladders; it equals the label kernel's
+"fill" stage.
+
+The card's design (csrc/fill_sweeps.cu) takes each sweep's run-OR as carry
+arithmetic on bit words, with no ladder and no run ids, so "pack" and
+"scan" have no counterpart there: a variant runs the instance of its
+(grow, guard) pair, INSTANCES[variant], and ``fill_mask.instance`` names
+the last call's.  ``run_ids`` (the first design's tensor-core run ids,
+which the sweep CCL probes still run) stays a probe of its own.
 
 Frames are BGR planes [B, 3, H, W] uint8 with W <= 1024 and H <= 1008.  On
 a CUDA tensor ``fill_sweeps`` runs the label kernel's "pre" stage, then
-csrc/fill_sweeps.cu (hd_run_ids, hd_sweep_fill), and raises if it cannot;
-on a CPU tensor it runs the plain version.  ``run_ids`` is the run-id
-product alone.
+``fill_mask`` (csrc/fill_sweeps.cu, hd_sweep_fill: one launch), and raises
+if it cannot; on a CPU tensor it runs the plain version.
 """
 
 import collections
@@ -49,6 +55,9 @@ VARIANTS = {
     "ladder_only": ("ladder", "iota", "old", False),
     "new2": ("ladder", "masked", "new", True),
 }
+# the instance of csrc/fill_sweeps.cu that each variant runs: (grow, guard)
+INSTANCES = {name: f"{grow}_grow_{'guard' if guard else 'noguard'}"
+             for name, (_, _, grow, guard) in VARIANTS.items()}
 GUARD_ROWS = 8
 MAX_LINE = 1024          # a row or a guarded column of at most 1024 px
 SMEM_BYTES = 232448      # one block's shared memory on an H100
@@ -169,20 +178,6 @@ def _check_plane(H, W):
                          f" rows, got {H}x{W}")
 
 
-def _launch_run_ids(mask, guard, pack):
-    from heimdall_tpu_torch.ops import _cuda
-
-    B, H, W = mask.shape
-    Hg = H + (2 * GUARD_ROWS if guard else 0)
-    rb_r = torch.empty((B, Hg, W), dtype=torch.int16, device=mask.device)
-    rb_t = torch.empty((B, W, Hg), dtype=torch.int16, device=mask.device)
-    err = _cuda.library("fill_sweeps").hd_run_ids(
-        mask.data_ptr(), B, H, W, int(guard), ("mxu", "ladder").index(pack),
-        rb_r.data_ptr(), rb_t.data_ptr(), _launch.stream(mask))
-    _launch.raise_on(err, "run_ids")
-    return rb_r, rb_t
-
-
 def run_ids(mask: torch.Tensor, guard: bool = False, pack: str = "mxu"):
     """The run ids of the background of mask u8 [B, H, W] (1 = foreground):
     the tensor-core product of the start flags with the triangular matrix
@@ -191,45 +186,84 @@ def run_ids(mask: torch.Tensor, guard: bool = False, pack: str = "mxu"):
     launches."""
     if pack not in ("mxu", "ladder"):
         raise ValueError(f"pack must be 'mxu' or 'ladder', got {pack!r}")
-    _, H, W = _launch.check_mask(mask)
+    B, H, W = _launch.check_mask(mask)
     _check_plane(H, W)
     if mask.device.type == "cpu":
         return run_ids_reference(mask, guard)
+    from heimdall_tpu_torch.ops import _cuda
+
     _launch.check_cuda(mask, "mask", (torch.uint8,))
-    out = _launch_run_ids(mask, guard, pack)
+    Hg = H + (2 * GUARD_ROWS if guard else 0)
+    rb_r = torch.empty((B, Hg, W), dtype=torch.int16, device=mask.device)
+    rb_t = torch.empty((B, W, Hg), dtype=torch.int16, device=mask.device)
+    err = _cuda.library("fill_sweeps").hd_run_ids(
+        mask.data_ptr(), B, H, W, int(guard), ("mxu", "ladder").index(pack),
+        rb_r.data_ptr(), rb_t.data_ptr(), _launch.stream(mask))
+    _launch.raise_on(err, "run_ids")
     run_ids.launches += 1
-    return out
+    return rb_r, rb_t
 
 
 run_ids.launches = 0
 
 
-def fill_sweeps(frames: torch.Tensor, contrast_threshold,
-                variant: str = "new") -> torch.Tensor:
-    """The filled mask (u8 0/1 [B, H, W]) of frames [B, 3, H, W] uint8 by
-    the sweep fill of ``variant`` (one of VARIANTS).
-    ``fill_sweeps.launches`` counts kernel launches (the label kernel's
-    "pre" stage counts its own) and ``fill_sweeps.variant_launches`` counts
-    them by variant."""
+def _check_variant(variant):
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {tuple(VARIANTS)}, got "
                          f"{variant!r}")
-    B, H, W = check_frames(frames)
+
+
+def fill_mask(mask: torch.Tensor, variant: str = "new") -> torch.Tensor:
+    """The hole fill (u8 0/1 [B, H, W]) of mask u8 [B, H, W] (nonzero =
+    foreground) by the sweep fill of ``variant`` (one of VARIANTS): on a
+    CUDA tensor one launch of hd_sweep_fill's (grow, guard) instance,
+    INSTANCES[variant], on a CPU tensor the plain version.
+    ``fill_mask.launches`` counts kernel launches,
+    ``fill_mask.variant_launches`` counts them by variant and
+    ``fill_mask.instance`` names the last launch's instance ("plain" on
+    the CPU)."""
+    _check_variant(variant)
+    B, H, W = _launch.check_mask(mask)
     _check_plane(H, W)
-    if frames.device.type == "cpu":
-        return fill_sweeps_reference(frames, contrast_threshold)
+    if mask.device.type == "cpu":
+        fill_mask.instance = "plain"
+        return sweep_fill_reference(mask)
     from heimdall_tpu_torch.ops import _cuda
 
-    _launch.check_cuda(frames, "frames", (torch.uint8,))
-    pack, scan, grow, guard = VARIANTS[variant]
-    pre = label_kernel(frames, contrast_threshold, "pre")
-    rb_r, rb_t = _launch_run_ids(pre, guard, pack)
-    filled = torch.empty((B, H, W), dtype=torch.uint8, device=frames.device)
+    _launch.check_cuda(mask, "mask", (torch.uint8,))
+    _, _, grow, guard = VARIANTS[variant]
+    filled = torch.empty((B, H, W), dtype=torch.uint8, device=mask.device)
     err = _cuda.library("fill_sweeps").hd_sweep_fill(
-        pre.data_ptr(), B, H, W, int(guard), ("masked", "iota").index(scan),
-        ("new", "old").index(grow), rb_r.data_ptr(), rb_t.data_ptr(),
-        filled.data_ptr(), _launch.stream(frames))
+        mask.data_ptr(), B, H, W, int(guard), ("new", "old").index(grow),
+        filled.data_ptr(), _launch.stream(mask))
     _launch.raise_on(err, "fill_sweeps")
+    fill_mask.launches += 1
+    fill_mask.variant_launches[variant] += 1
+    fill_mask.instance = INSTANCES[variant]
+    return filled
+
+
+fill_mask.launches = 0
+fill_mask.variant_launches = collections.Counter()
+fill_mask.instance = None
+
+
+def fill_sweeps(frames: torch.Tensor, contrast_threshold,
+                variant: str = "new") -> torch.Tensor:
+    """The filled mask (u8 0/1 [B, H, W]) of frames [B, 3, H, W] uint8 by
+    the sweep fill of ``variant`` (one of VARIANTS): the label kernel's
+    "pre" stage, then fill_mask (whose ``instance`` names the instance
+    that ran).  ``fill_sweeps.launches`` counts the probe's calls that
+    launched (the label kernel and fill_mask count their own launches) and
+    ``fill_sweeps.variant_launches`` counts them by variant."""
+    _check_variant(variant)
+    check_frames(frames)
+    _check_plane(*frames.shape[-2:])
+    if frames.device.type == "cpu":
+        return fill_sweeps_reference(frames, contrast_threshold)
+    _launch.check_cuda(frames, "frames", (torch.uint8,))
+    filled = fill_mask(label_kernel(frames, contrast_threshold, "pre"),
+                       variant)
     fill_sweeps.launches += 1
     fill_sweeps.variant_launches[variant] += 1
     return filled

@@ -8,10 +8,12 @@ scripts/profile_preprocess.py).  The profiling path runs them
 (heimdall_tpu_torch/scripts/profile_fused.py, profile_preprocess.py).
 
 Both take BGR planes [B, 3, H, W] uint8 (the layout of the Pallas kernels'
-blocks).  On a CUDA tensor each wrapper launches its hand-written kernel of
-csrc/fused_detect.cu (hd_label, hd_stats_from_labels) and raises if it
-cannot; on a CPU tensor it runs its plain version.  stats_kernel on
-label_kernel's labels gives contamination_fused's outputs, field for field.
+blocks).  On a CUDA tensor each wrapper launches its hand-written kernels
+of csrc/fused_detect.cu (hd_label: the fused detect's one-pass preprocess
+stopped at the stage, its tile fill and its tile labels;
+hd_stats_from_labels) and raises if it cannot; on a CPU tensor it runs its
+plain version.  stats_kernel on label_kernel's labels gives
+contamination_fused's outputs, field for field.
 """
 
 import collections
@@ -72,9 +74,14 @@ def label_kernel(frames: torch.Tensor, contrast_threshold,
                  stage: str = "ccl") -> torch.Tensor:
     """The label kernel (B6b) up to ``stage`` (one of STAGES; "ccl", the
     default, is the whole kernel): frames [B, 3, H, W] uint8 -> the stage's
-    plane [B, H, W].
+    plane [B, H, W].  On the card each stage is reached by the fused
+    detect's kernels: gray by its own pass, blur5 to pre by the one-pass
+    preprocess stopped at the stage, fill by pre and the tile fill, ccl by
+    fill and the tile labels; a call launches
+    ``hd_label_launches(stage, H, W)`` CUDA kernels (1 up to pre, 4 at fill,
+    7 at ccl, fewer for a frame of one 32x128 tile).
 
-    ``label_kernel.launches`` counts kernel launches and
+    ``label_kernel.launches`` counts wrapper calls that launched and
     ``label_kernel.stage_launches`` counts them by stage."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
@@ -85,20 +92,31 @@ def label_kernel(frames: torch.Tensor, contrast_threshold,
 
     _launch.check_cuda(frames, "frames", (torch.uint8,))
     dev = frames.device
-    gray, plane1, plane2 = (torch.empty((B, H, W), dtype=torch.uint8,
-                                        device=dev) for _ in range(3))
-    work, labels = (torch.empty((B, H, W), dtype=torch.int32, device=dev)
-                    for _ in range(2))
+    s = STAGES.index(stage)
+    lib = _cuda.library("fused_detect")
+    plane = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
+    table = flags = labels = None
+    if stage in ("fill", "ccl"):
+        table = torch.empty(
+            (B, _cuda.library("ccl_tiled").hd_flood_entries(H, W)),
+            dtype=torch.int32, device=dev)
+    if stage == "ccl":
+        flags = torch.empty((B, lib.hd_label_tiles(H, W)), dtype=torch.uint8,
+                            device=dev)
+        labels = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     q8, k11 = kernel_taps()
-    err = _cuda.library("fused_detect").hd_label(
-        frames.data_ptr(), B, H, W, int(contrast_threshold),
-        STAGES.index(stage), q8, k11, gray.data_ptr(), plane1.data_ptr(),
-        plane2.data_ptr(), work.data_ptr(), labels.data_ptr(),
+    err = lib.hd_label(
+        frames.data_ptr(), B, H, W, int(contrast_threshold), s, q8, k11,
+        _ptr(table), _ptr(flags), plane.data_ptr(), _ptr(labels),
         _launch.stream(frames))
     _launch.raise_on(err, "label")
     label_kernel.launches += 1
     label_kernel.stage_launches[stage] += 1
-    return {"gray": gray, "blur5": plane1, "ccl": labels}.get(stage, plane2)
+    return plane if labels is None else labels
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 label_kernel.launches = 0

@@ -555,6 +555,120 @@ def window_case_masks(h, w):
     }
 
 
+# The sweep fill's words (csrc/fill_sweeps.cu): a row is held as words of
+# 32 columns.  Sizes of the bit cases: widths one under, at and one over a
+# word and one past 640, heights past the 31 rows of the TPU ladder's
+# column reach.
+BIT_WORD = 32
+BIT_CASE_SIZES = ((40, 31), (40, 32), (40, 33), (70, 641))
+SNAKE_LEGS = 8
+
+
+def _word_runs(h, w):
+    """Foreground but, on every other row from row 2, background runs that
+    end on a word's last column, start on a word's first column, cross a
+    word edge, run through the whole row (touching both sides of the frame)
+    or through all but its first and last columns, and on alternate
+    columns; the rows between stay foreground, so each run is a hole unless
+    it touches the frame's side."""
+    m = np.ones((h, w), bool)
+    for i, y in enumerate(range(2, h - 2, 2)):
+        kind = i % 6
+        for k in range(-(-w // BIT_WORD)):
+            x0 = k * BIT_WORD
+            if kind == 0:                       # ends on bit 31
+                m[y, x0 + 16:x0 + BIT_WORD] = False
+            elif kind == 1:                     # starts on bit 0
+                m[y, x0:x0 + 15] = False
+            elif kind == 2:                     # crosses the word edge
+                m[y, x0 + 20:x0 + 45] = False
+        if kind == 3:
+            m[y, :] = False
+        elif kind == 4:
+            m[y, 1:w - 1] = False
+        elif kind == 5:
+            m[y, 1::2] = False
+    return m
+
+
+def _column_snake(h, w, open_to_border):
+    """Foreground but a one-pixel background corridor of SNAKE_LEGS legs
+    down and up alternate columns (from column 24, across the word edge at
+    32, where the frame is 48 wide; else from column 2), each from row 1 to
+    row h - 2, joined at alternate ends: each leg longer than 31 rows when
+    h > 33.  With open_to_border it starts at the top edge."""
+    m = np.ones((h, w), bool)
+    if h < 4 or w < 4:
+        return m
+    start = 24 if w >= 48 else 2
+    cols = list(range(start, w - 2, 2))[:SNAKE_LEGS]
+    for i, x in enumerate(cols):
+        m[1:h - 1, x] = False
+        if i + 1 < len(cols):
+            y = h - 2 if i % 2 == 0 else 1
+            m[y, x:cols[i + 1] + 1] = False
+    if open_to_border and cols:
+        m[0, cols[0]] = False
+    return m
+
+
+def _edge_holes(h, w, opened):
+    """Foreground but background runs along row 1, row h - 2, column 1 and
+    column w - 2, each a hole against the frame's edge; with `opened` each
+    run also reaches the edge through one pixel."""
+    m = np.ones((h, w), bool)
+    if h < 7 or w < 7:
+        return m
+    m[1, 2:w - 2] = m[h - 2, 2:w - 2] = False
+    m[3:h - 3, 1] = m[3:h - 3, w - 2] = False
+    if opened:
+        m[0, w // 2] = m[h - 1, w // 2] = False
+        m[h // 2, 0] = m[h // 2, w - 1] = False
+    return m
+
+
+def _word_stripes(h, w):
+    """Background stripes of whole words (columns 32k .. 32k + 31 for even
+    k) from row 2 to row h - 2, under two foreground rows and over one: the
+    first stripe touches the frame's left side, a last one on column w - 1
+    its right side, the others are holes."""
+    m = np.ones((h, w), bool)
+    if h < 5:
+        return m
+    xx = np.arange(w)
+    m[2:h - 1, (xx // BIT_WORD) % 2 == 0] = False
+    return m
+
+
+def bit_case_masks(h, w):
+    """Masks that attack the sweep fill's bit words, bool [h, w] by name
+    (True = foreground): background runs ending on bit 31, starting on bit
+    0, crossing words, through a whole row and on alternate columns
+    (word_runs); a corridor snaking down and up columns through more than
+    31 rows, closed and open (snake_closed, snake_open); holes against the
+    first and last rows and columns, closed and opened through one pixel
+    (edge_holes, edge_open); background stripes of whole words
+    (word_stripes); all foreground and all background.  At
+    BIT_CASE_SIZES."""
+    return {
+        "word_runs": _word_runs(h, w),
+        "snake_closed": _column_snake(h, w, False),
+        "snake_open": _column_snake(h, w, True),
+        "edge_holes": _edge_holes(h, w, False),
+        "edge_open": _edge_holes(h, w, True),
+        "word_stripes": _word_stripes(h, w),
+        "all_fg": np.ones((h, w), bool),
+        "all_bg": np.zeros((h, w), bool),
+    }
+
+
+def bit_case_frames(h, w):
+    """BGR frames u8 [n, h, w, 3] of bit_case_masks drawn dark on light
+    (mask_frames), in bit_case_masks' order: the label kernel's stages and
+    the fill probes on them."""
+    return mask_frames(list(bit_case_masks(h, w).values()))
+
+
 def ring_frames(n, h, w, seed=0):
     """[n, h, w, 3] uint8 frames for the contamination inspector: dark
     rings (0-39) with light centres (150-255) on a light ground (215), one

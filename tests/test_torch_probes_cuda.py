@@ -8,8 +8,11 @@ machine with a card:
 
 Equality is exact for every integer plane: the roll stages, the four exact
 preprocess variants (also equal to the label kernel's "pre"), the run ids,
-all nine sweep fills (also equal to the label kernel's "fill") and the
-stats tables.  mxu_conv's mean is a tensor-core product of TF32 splits:
+all nine sweep fills (also equal to the label kernel's "fill"; and on the
+masks of the cases that attack the fill's tiles, the union-finds' row
+blocks and the bit words, equal to the plain sweep fill and to the tile
+union-find fill, at 480x640, 477x631, 13x17, 3x3, the bit cases' sizes
+and the largest planes the fill takes) and the stats tables.  mxu_conv's mean is a tensor-core product of TF32 splits:
 within 1e-3 of the float32 product, its threshold flips counted.
 """
 
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from heimdall_tpu_torch import scene
+from heimdall_tpu_torch.ops import ccl_tiled
 from heimdall_tpu_torch.ops import fill_sweeps as fs
 from heimdall_tpu_torch.ops import pre_variants as pv
 from heimdall_tpu_torch.ops import split_kernels as sk
@@ -155,3 +159,32 @@ def test_stats_kernel_on_non_root_labels(card, k):
     torch.cuda.synchronize()
     for a, b in zip(got, sk.stats_kernel_reference(x, labels, k)):
         assert torch.equal(a, b)
+
+
+# (kind, h, w) of the fill's mask cases; 1008x640 and 636x1024 are the
+# largest planes of their widths that the fill takes
+FILL_CASES = [("tile", 480, 640), ("tile", 477, 631), ("tile", 13, 17),
+              ("tile", 3, 3), ("fix", 301, 517), ("fix", 7, 517),
+              *(("bit", h, w) for h, w in scene.BIT_CASE_SIZES),
+              ("bit", 480, 640), ("bit", 1008, 640), ("bit", 636, 1024)]
+
+
+def _case_masks(kind, h, w):
+    masks = {"tile": scene.tile_case_masks, "fix": scene.fix_case_masks,
+             "bit": scene.bit_case_masks}[kind](h, w)
+    return torch.from_numpy(np.stack(list(masks.values())).astype(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FILL_CASES, ids=lambda c: "%s_%dx%d" % c)
+def test_fill_mask_variants_on_case_masks(card, case):
+    mask = _case_masks(*case).to(card)
+    want = fs.sweep_fill_reference(mask)
+    assert torch.equal(want, ccl_tiled.flood_fill(mask))
+    for variant in fs.VARIANTS:
+        before = fs.fill_mask.variant_launches[variant]
+        got = fs.fill_mask(mask, variant)
+        torch.cuda.synchronize()
+        assert fs.fill_mask.variant_launches[variant] == before + 1
+        assert fs.fill_mask.instance == fs.INSTANCES[variant]
+        assert torch.equal(got, want), variant

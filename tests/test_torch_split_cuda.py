@@ -7,7 +7,12 @@ JAX; on a machine with a card:
 
 Equality is exact: every stage is an integer plane and the stats are
 integer tables.  The stats kernel on the label kernel's labels must also
-equal the fused kernel's outputs.
+equal the fused kernel's outputs.  Besides the bench, adversarial and
+uniform frames, every stage runs on the cases that attack the kernels it
+is made of (heimdall_tpu_torch/scene.py): the preprocess's tiles
+(tile_case_frames), the labels' tiles (label_case_masks drawn as frames),
+the union-finds' row blocks (fix_case_masks drawn) and the bit cases
+(bit_case_frames), at contrast 15 and -15.
 """
 
 import numpy as np
@@ -19,6 +24,10 @@ from heimdall_tpu_torch.ops import split_kernels as sk
 from heimdall_tpu_torch.ops.fused_kernels import contamination_fused
 
 CT = 15
+# (kind, h, w) of the case frames
+CASES = [("tile", 480, 640), ("tile", 477, 631), ("tile", 13, 17),
+         ("tile", 3, 3), ("label", 480, 640), ("label", 13, 17),
+         ("fix", 301, 517), *(("bit", h, w) for h, w in scene.BIT_CASE_SIZES)]
 
 
 @pytest.fixture
@@ -37,6 +46,19 @@ def _frames(h, w):
         scene.mask_frames(list(scene.adversarial_masks(h, w, seed=1)
                                .values())),
         np.full((1, h, w, 3), 128, np.uint8)])
+    return torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2)))
+
+
+def _case_frames(kind, h, w):
+    """The frames of one case set as BGR planes [n, 3, h, w]."""
+    if kind == "tile":
+        frames = np.stack(list(scene.tile_case_frames(h, w).values()))
+    elif kind == "bit":
+        frames = scene.bit_case_frames(h, w)
+    else:
+        masks = (scene.label_case_masks if kind == "label"
+                 else scene.fix_case_masks)(h, w)
+        frames = scene.mask_frames(list(masks.values()))
     return torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2)))
 
 
@@ -77,3 +99,22 @@ def test_full_foreground(card):
     for a, b in zip(got, sk.stats_kernel_reference(x, labels)):
         assert torch.equal(a, b)
     assert got[3].tolist() == [1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "%s_%dx%d" % c)
+@pytest.mark.parametrize("ct", [CT, -CT])
+def test_label_kernel_on_case_frames(card, case, ct):
+    """Every stage equals its plain version, and B6a(B6b) the fused
+    kernel, on the frames that attack the preprocess's tiles, the fill's
+    and the labels' tiles, the union-finds' blocks and the bit words."""
+    x = _case_frames(*case).to(card)
+    for stage in sk.STAGES:
+        got = sk.label_kernel(x, ct, stage)
+        torch.cuda.synchronize()
+        want = sk.label_kernel_reference(x, ct, stage)
+        assert got.dtype == want.dtype and torch.equal(got, want), stage
+    labels = sk.label_kernel(x, ct)
+    for a, b in zip(sk.stats_kernel(x, labels, 64),
+                    contamination_fused(x, ct, 64, channel_major=True)):
+        assert torch.equal(a, b)
