@@ -94,8 +94,12 @@ Phases (each prints a line; any failure exits non-zero without a result):
         sizes and the largest planes the fill takes (1008x640, 636x1024),
         and on the label kernel's "pre" planes of 3d's frames; the CUDA
         kernels of one fill_sweeps call and one fill_mask call, traced (2
-        and 1); and the stats kernel on a label plane whose labels need not
-        name a root;
+        and 1); the roll stages and the variants on scene.tile_case_frames
+        at PROBE_CASE_SIZES (every tile a border tile, the wrap halo
+        wrapping more than once at 6x6), contrast +-15, and the CUDA
+        kernels of one call of each, traced (one k_pre_variant; mxu_conv
+        also k_band_table); and the stats kernel on a label plane whose
+        labels need not name a root;
      f. the labeling probes at 640x480 on 3e's frames: the fifteen CCL
         variants (sweeps and run tables at R = 12, 10, 8, 6) and the four
         joint variants against their plain versions, every fixpoint also
@@ -108,8 +112,12 @@ Phases (each prints a line; any failure exits non-zero without a result):
         path; the run-table check's and the adversarial masks on each side
         of the cluster path's cut (LABEL_CUT_SHAPES: 544 / 545 rows of 640
         for the joint fixpoint, 608 / 609 for the sweep CCL), every variant
-        on both paths where both run, with last_path checked; and the
-        run-table check
+        on both paths where both run, with last_path checked; the run
+        tables on scene.run_case_masks at RUN_CASE_SIZES (rows of exactly
+        R and R + 1 runs, runs on the 16-column lanes' and 512-column
+        steps' seams; each size a batch of frames that fit and frames that
+        overflow) at R = 12, 10, 8, 6 on both paths, the run-id product's
+        frames equal to those that do not fit; and the run-table check
         (scripts/check_runtable.py's 7 masks at R = 12 and 8: sweeps ==
         run tables == the plain labels, the overflow mask not fitting);
      g. the primitive microbench's 27 variants (scripts/microbench_vpu.py's
@@ -183,8 +191,9 @@ Phases (each prints a line; any failure exits non-zero without a result):
         the models at full width from seeded weights (UNet base 16,
         classifier width 32, AE width 16) on 8 frames at 640x480:
         DefectSegmenter.predict within 1e-5 of the CPU path,
-        SegmentationDetector on the card's map (the band route's kernels)
-        equal to the CPU path on that map, QuantizedSegmenter within 1e-6,
+        SegmentationDetector on the card's map (6 of JAX's sweeps and
+        blob_stats, PyTorch ops as JAX's are XLA ops) equal to the CPU
+        path on that map, QuantizedSegmenter within 1e-6,
         DefectClassifier on extract_blob_patches of the detector's table
         and AnomalyDetector.score within 1e-2 (bf16); demosaic (4 Bayer
         patterns) and yuv422_to_bgr at 1920x1080 equal to the CPU path;
@@ -289,7 +298,10 @@ Phases (each prints a line; any failure exits non-zero without a result):
         included), every variant on both paths, beside the plain versions
         of cur, the run tables and rowFull_col5 and the bounds (5 and 6
         B/px), with the cluster path's blocks, pass width, shared memory
-        and clusters at once (cudaOccupancyMaxActiveClusters);
+        and clusters at once (cudaOccupancyMaxActiveClusters); the run
+        tables' CUDA kernels of one call, traced (the tables, the two run-id
+        launches and the sweep), and the frames its run-id product numbered
+        on the bench batch, where every frame fits (0);
      g. the primitive microbench path, with its launch count set to 0 just
         before and read just after: the port's microbench_vpu (every
         variant at N = 4 and 36, one warm-up and 6 timed calls each: 378
@@ -345,6 +357,14 @@ FILL_SWEEPS_KERNELS = {"k_preprocess": 1, "k_carry_fill": 1}
 # The sweep fill's largest planes at 640 and 1024 columns (the limit of
 # ops/fill_sweeps.py::_check_plane).
 FILL_LARGEST = ((1008, 640), (636, 1024))
+# The preprocess probes' small-frame cases (scene.tile_case_frames): frames
+# below one tile and its 11-pixel halo, so that every tile is a border tile
+# (at 6x6 the wrap halo wraps more than once), and a frame of interior and
+# border tiles with partial tiles at its right and bottom.
+PROBE_CASE_SIZES = ((6, 6), (7, 13), (13, 17), (70, 131), (200, 397))
+# The run tables' cases (scene.run_case_masks): the bench width, an odd
+# width (byte loads), a row of two 512-column steps, narrow frames.
+RUN_CASE_SIZES = ((24, 640), (24, 531), (40, 1024), (9, 17), (33, 48))
 FUSED_KERNELS = ("k_preprocess", "k_fill_tiles", "k_fill_merge",
                  "k_fill_write", "k_label_tiles", "k_label_merge",
                  "k_label_write", "k_row_roots", "k_frame_roots", "k_stats",
@@ -1530,8 +1550,15 @@ def guard_plains():
 
     def guard(fn, name):
         def guarded(*args, **kwargs):
-            if any(isinstance(t, torch.Tensor) and t.is_cuda
-                   for t in list(args) + list(kwargs.values())):
+            # connected_components with sweeps or max_iters is JAX's sweep
+            # labeling, the counterpart of XLA ops that the segmentation
+            # detector runs on the card as JAX runs them on the TPU; no
+            # kernel's plain version passes either
+            sweep_labels = (kwargs.get("sweeps", 0) > 0
+                            or kwargs.get("max_iters", 0) > 0)
+            if not sweep_labels and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for t in list(args) + list(kwargs.values())):
                 on_card.append(name)
             return fn(*args, **kwargs)
         return guarded
@@ -2776,6 +2803,69 @@ def check_probes(name, x, ct):
     return max(errs.values()), mean_err, flips
 
 
+def check_probe_cases(dev):
+    """Phase 3e's cases for the preprocess probes: every roll stage and
+    variant against its plain version on scene.tile_case_frames at
+    PROBE_CASE_SIZES, contrast +-15 (the exact variants also against the
+    label kernel's "pre", mxu_conv's pre within flip_reach); then the CUDA
+    kernels of one call of each on the bench frames, traced, against
+    pre_variants.launches_per_call.  Returns (largest error, {name:
+    traced kernels})."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import pre_variants as pv
+    from heimdall_tpu_torch.ops import split_kernels as sk
+    err = 0
+    for h, w in PROBE_CASE_SIZES:
+        frames = np.stack(list(scene.tile_case_frames(h, w, seed=2)
+                               .values()))
+        x = torch.from_numpy(np.ascontiguousarray(
+            frames.transpose(0, 3, 1, 2))).to(dev)
+        errs = {}
+        for ct in (CONTRAST, -CONTRAST):
+            for stage in pv.ROLL_STAGES:
+                errs[f"{stage}_{ct}"] = max_abs_err(
+                    (pv.roll_stage(x, ct, stage),),
+                    (pv.roll_stage_reference(x, ct, stage),))
+            pre = sk.label_kernel(x, ct, "pre")
+            for v in pv.VARIANTS:
+                got = pv.pre_variant(x, ct, v)
+                if v == "mxu_conv":
+                    mean = pv.mxu_mean_reference(
+                        sk.label_kernel(x, ct, "blur5"))
+                    differ = got != pv.pre_variant_reference(x, ct, v)
+                    errs[f"{v}_{ct}_flips_out_of_reach"] = int(
+                        (differ & ~pv.flip_reach(mean, MEAN_TOL)).sum())
+                    continue
+                errs[f"{v}_{ct}"] = max(
+                    max_abs_err((got,), (pv.pre_variant_reference(x, ct, v),)),
+                    max_abs_err((got,), (pre,)))
+        torch.cuda.synchronize()
+        phase(f"check probe cases {h}x{w} ({x.shape[0]} frames): "
+              f"max_abs_err {errs}")
+        err = max(err, *errs.values())
+    if err:
+        fail("a preprocess probe differs from its plain version on the "
+             "small-frame cases")
+    x = torch.from_numpy(np.ascontiguousarray(
+        scene.make_frames(2, seed=3).transpose(0, 3, 1, 2))).to(dev)
+    calls = {s: (lambda s=s: pv.roll_stage(x, CONTRAST, s))
+             for s in pv.ROLL_STAGES}
+    calls.update({v: (lambda v=v: pv.pre_variant(x, CONTRAST, v))
+                  for v in pv.VARIANTS})
+    traced = {}
+    for name, fn in calls.items():
+        traced[name] = cuda_kernels(fn)
+        want = {"k_pre_variant": 1}
+        if pv.launches_per_call(name) == 2:
+            want["k_band_table"] = 1
+        if traced[name] != want:
+            fail(f"{name} launched {traced[name]}, not {want}")
+    phase(f"preprocess probes: CUDA kernels per call (traced) {traced}")
+    return err, traced
+
+
 def check_fill_cases(dev):
     """Phase 3e's cases that attack the sweep fill's words and the tile
     fill's tiles: every variant of fill_mask against the plain sweep fill
@@ -2864,6 +2954,8 @@ def probe_phases(dev, smi, cases, t_roll, roll_launches):
         e, m, f = check_probes(name, x, ct)
         err, mean_err, flips = max(err, e), max(mean_err, m), flips + f
     fill_err = check_fill_cases(dev)
+    case_err, probe_kernels = check_probe_cases(dev)
+    err = max(err, case_err)
     x = torch.cat([cases["bench8_channel_major"][0], cases[adv][0]])
     labels = scene.non_root_labels(sk.label_kernel(x, CONTRAST))
     got = sk.stats_kernel(x, labels, K)
@@ -2970,8 +3062,12 @@ def probe_phases(dev, smi, cases, t_roll, roll_launches):
                "pre_variants": "pre_variants.cu",
                "fill_sweeps": "fill_sweeps.cu", "run_ids": "fill_sweeps.cu"}
     design = {
-        "roll_stages": "global passes, one launch a pass (8)",
-        "pre_variants": "global passes, one launch a pass (8; mxu_conv 9)",
+        "roll_stages": "the one-pass tile preprocess with the wrap halo "
+                       "loaded at wrapped frame positions (1 launch)",
+        "pre_variants": "the one-pass tile preprocess, an instance a "
+                        "variant (1 launch; mxu_conv 2: its band tables, "
+                        "then the mean's products on the tensor cores "
+                        "inside the tile)",
         "fill_sweeps": "hd_label's pre (k_preprocess), then k_carry_fill: "
                        "one 512-thread block a frame, bit planes in shared "
                        "memory, run-ORs as carries (2 launches)",
@@ -2998,6 +3094,10 @@ def probe_phases(dev, smi, cases, t_roll, roll_launches):
         if name in variants:
             entry["variants"] = {v: t * BATCH / 1e3
                                  for v, t in variants[name].items()}
+        if name in ("roll_stages", "pre_variants"):
+            entry["cuda_kernels_per_call"] = {
+                v: probe_kernels[v] for v in variants[name]}
+            entry["max_abs_err_small_frames"] = case_err
         if name == "pre_variants":
             entry.update(
                 library_ms=prod_ms["mxu_mean"][1],
@@ -3154,6 +3254,45 @@ def check_label_cut(dev):
     return err, paths
 
 
+def check_runtable_cases(dev):
+    """Phase 3f's cases for the run tables: scene.run_case_masks (rows of
+    exactly 6 to 13 runs, runs that start, end and cross the 16-column
+    lanes and the 512-column steps, one-pixel runs, full rows) at
+    RUN_CASE_SIZES, each size one batch of frames that fit and frames that
+    overflow, at R 12, 10, 8, 6 on both paths: labels and fits against the
+    plain version, and the run-id product's frames against the frames that
+    do not fit.  Returns the largest error (0 or the run fails)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import ccl_sweeps as cs
+    err = 0
+    for h, w in RUN_CASE_SIZES:
+        m = torch.from_numpy(np.stack(list(scene.run_case_masks(h, w)
+                                           .values())).astype(np.uint8))
+        m = m.to(dev)
+        errs, ran = {}, {}
+        for r in (12, 10, 8, 6):
+            want = cs.runtable_reference(m, r)
+            for p in ("cluster", "global"):
+                if p == "cluster" and cs.band_layout(h, w) is None:
+                    continue
+                got = cs.ccl_runtable(m, r, path=p)
+                n = int(cs.ccl_runtable.runid_frames)
+                errs[f"R{r}_{p}"] = max_abs_err(got, want)
+                errs[f"R{r}_{p}_runid_frames"] = abs(
+                    n - (m.shape[0] - int(want[1].sum())))
+                ran[f"R{r}_{p}"] = f"{n} of {m.shape[0]}"
+        torch.cuda.synchronize()
+        phase(f"check run-table cases {h}x{w}: run-id frames {ran}; "
+              f"max_abs_err {errs}")
+        err = max(err, *errs.values())
+    if err:
+        fail("the run tables differ from their plain version on the run "
+             "cases, or numbered run ids of frames that fit")
+    return err
+
+
 def label_probe_phases(dev, smi, cases):
     """Phases 3f and 5f: the labeling probes (sweep and run-table CCL,
     joint fixpoint) against their plain versions on phase 3e's frames and
@@ -3166,6 +3305,7 @@ def label_probe_phases(dev, smi, cases):
     from heimdall_tpu_torch import scene
     from heimdall_tpu_torch.ops import ccl_sweeps as cs
     from heimdall_tpu_torch.ops import joint_label as jl
+    from heimdall_tpu_torch.ops import split_kernels as sk
     from heimdall_tpu_torch.scripts import (check_runtable,
                                             profile_ccl_variants,
                                             profile_joint_variants)
@@ -3183,7 +3323,7 @@ def label_probe_phases(dev, smi, cases):
             ("uniform_full_foreground", uniform, -CONTRAST)):
         err = max(err, check_label_probes(name, x, ct))
     cut_err, cut_paths = check_label_cut(dev)
-    err = max(err, cut_err)
+    err = max(err, cut_err, check_runtable_cases(dev))
 
     # -- 5f. the labeling probes path ----------------------------------------
     torch.cuda.synchronize()
@@ -3228,6 +3368,20 @@ def label_probe_phases(dev, smi, cases):
         scene.make_frames(BATCH, seed=0).transpose(0, 3, 1, 2))).to(dev)
     px = BATCH * 480 * 640
     alone, plain_alone, design = label_kernels_alone(smi, x)
+    # the run tables on the bench batch: every frame fits, so the run-id
+    # product numbers none; and the CUDA kernels of one call, traced
+    filled = sk.label_kernel(x, CONTRAST, "fill")
+    rt_fits = int(cs.ccl_runtable(filled, 12)[1].sum())
+    rt_runid_frames = int(cs.ccl_runtable.runid_frames)
+    rt_kernels = cuda_kernels(lambda: cs.ccl_runtable(filled, 12))
+    phase(f"runtable (R 12) on the bench batch: {rt_fits} of {BATCH} "
+          f"frames fit, the run-id product numbered {rt_runid_frames}; "
+          f"CUDA kernels per call (traced) {rt_kernels}")
+    if rt_runid_frames != BATCH - rt_fits:
+        fail("the run-id product numbered frames that fit")
+    if rt_kernels != {"k_runtable_ccl": 1, "k_run_ids": 2,
+                      "k_sweep_ccl_cluster": 1}:
+        fail(f"the run tables launched {rt_kernels}")
     masks = torch.from_numpy(np.stack(list(
         scene.check_runtable_masks().values()))).to(dev)
     mpx = masks.numel()
@@ -3310,6 +3464,15 @@ def label_probe_phases(dev, smi, cases):
             "batch": BATCH, "frame": "640x480 mask",
             "variants_ms_by_path": {v: alone[kind][v] for v in variants},
             "design": design[kind], "cut_paths": cut_paths})
+        if name == "runtable_ccl":
+            entries[-1].update(
+                cuda_kernels_per_call=rt_kernels,
+                runid_frames_bench=rt_runid_frames, fits_bench=rt_fits,
+                fallback_cluster=design[kind],
+                design="tables from the mask's bits a warp a row, one "
+                       "512-thread block a frame (two an SM), then the run "
+                       "ids and the sweep CCL of the frames that do not "
+                       "fit: 4 launches")
         e = entries[-1]
         phase(f"{smi}: {name} alone ({ms_of}, batch {BATCH} of 640x480 "
               f"masks) {e['ms'] / BATCH * 1e3:.3f} us/frame on the cluster "
@@ -3986,8 +4149,10 @@ def training_phases(dev, smi):
     import _torch_step_rule as rule
 
     wrappers = _sp_wrappers()
-    must = ("fused_detect", "band_ccl", "merge_bands", "banded_stats",
-            "bbox_sums")
+    # model_training's capture and classical detector run B1; its
+    # segmentation detectors label with JAX's sweeps (PyTorch ops) and
+    # launch no kernel of the repo's
+    must = ("fused_detect",)
     figures = {"card": smi, "ms_a_step": {}, "held": {}}
     ms, held = figures["ms_a_step"], figures["held"]
 

@@ -1,11 +1,10 @@
 // Device helpers shared by the port's kernels (fused_detect.cu,
 // ccl_tiled.cu, stats_tiled.cu, runtable_tiled.cu, pre_variants.cu,
 // fill_sweeps.cu): the 32 x 8 pixel mapping and its per-frame skip, the
-// preprocess's taps, borders, gray and 3x3 erode/dilate pass, union-find
-// with atomicMin hooking, block scans and sums for 256-thread blocks, a search in a sorted
-// root table, the slot-list writer, the launch check of the entry points,
-// the preprocess's passes up to the threshold (exact, or with the probes'
-// borders and paired taps), and the sweep probes' machinery
+// preprocess's taps, borders and gray, union-find with atomicMin hooking,
+// block scans and sums for 256-thread blocks, a search in a sorted root
+// table, the slot-list writer, the launch check of the entry points, and
+// the sweep probes' machinery
 // (fill_sweeps.cu, ccl_sweeps.cu, joint_label.cu): the guarded plane, the
 // run ids of its lines on the tensor cores, and the warp's doubling ladder
 // over run-packed keys.  Each .cu that includes this file is its own
@@ -120,133 +119,6 @@ __device__ __forceinline__ int gray_at(const Frames& f, int b, long long p) {
     return (bb * 3735 + gg * 19235 + rr * 9798 + (1 << 14)) >> 15;
   }
   return d[0];
-}
-
-// 3x3 erode (is_min) or dilate over in-frame neighbours: cv2's constant
-// border of 255 for erode and 0 for dilate never wins the reduction.
-__device__ __forceinline__ int minmax3(const uint8_t* in, const Geom& g,
-                                       const Pix& q, bool is_min) {
-  int v = is_min ? 255 : 0;
-  for (int dy = -1; dy <= 1; ++dy) {
-    int yy = q.y + dy;
-    if (yy < 0 || yy >= g.H) continue;
-    for (int dx = -1; dx <= 1; ++dx) {
-      int xx = q.x + dx;
-      if (xx < 0 || xx >= g.W) continue;
-      int u = in[(long long)yy * g.W + xx];
-      v = is_min ? min(v, u) : max(v, u);
-    }
-  }
-  return v;
-}
-
-// One 3x3 erode (is_min) or dilate pass over a [B, H, W] u8 batch.
-__global__ void k_morph(Geom g, const uint8_t* in, uint8_t* out, int is_min) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  out[q.b * g.HW + q.p] = (uint8_t)minmax3(in + q.b * g.HW, g, q, is_min);
-}
-
-// The preprocess's passes up to the threshold, one launch each over [B, H, W]
-// planes: gray + the blur's row pass (acc int32), its column pass (blurred
-// u8), the mean's row pass (mh float32) and its column pass with the INV
-// threshold: pre_variants.cu's, exact (reflect-101 for the blur, replicate
-// for the mean) or with the probes' borders and paired taps.  The f32 taps
-// are summed in sequence with __fmul_rn/__fadd_rn (never contracted; every
-// file is also built with -fmad=false) and rounded half to even: a border
-// only moves where a tap reads, never the order of the sum.
-
-// The border of a pass: exact, wrap-around (a roll, (j mod n)), or the exact
-// one only where a tap leaves the axis and an unchecked read elsewhere.
-enum Border { kExact = 0, kWrap = 1, kSplit = 2 };
-
-// (j mod n) for -n <= j < 2n: the wrap-around read of a roll.
-__device__ __forceinline__ int wrapi(int j, int n) {
-  return j < 0 ? j + n : (j >= n ? j - n : j);
-}
-
-// Source index of the tap at j = x + i - r along an axis of n: the exact
-// border (reflect-101 for the blur, replicate for the mean), wrap-around,
-// or, with kSplit, j itself where `inner` (no tap leaves the axis).
-template <int kBorder, bool kReflect>
-__device__ __forceinline__ int tap_src(int j, int n, bool inner) {
-  if (kBorder == kWrap) return wrapi(j, n);
-  if (kBorder == kSplit && inner) return j;
-  return kReflect ? reflect101(j, n) : clampi(j, 0, n - 1);
-}
-
-// The Q8 blur's sum over five taps v[0..4]: in tap order, or paired as
-// t2*c + t1*(a+b) + t0*(a'+b') (the taps are symmetric; exact in int).
-template <bool kPair>
-__device__ __forceinline__ int blur_sum(const Taps& t, const int (&v)[5]) {
-  if (kPair)
-    return t.q8[2] * v[2] + t.q8[1] * (v[1] + v[3]) + t.q8[0] * (v[0] + v[4]);
-  int s = 0;
-  for (int i = 0; i < 5; ++i) s += t.q8[i] * v[i];
-  return s;
-}
-
-// Gray and the blur's row pass into acc.
-template <int kBorder, bool kPair>
-__global__ void k_gray_blur_h(Frames f, Geom g, Taps t, int32_t* acc) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  long long row = (long long)q.y * g.W;
-  bool inner = q.x >= 2 && q.x < g.W - 2;
-  int v[5];
-  for (int i = 0; i < 5; ++i)
-    v[i] = gray_at(f, q.b, row + tap_src<kBorder, true>(q.x + i - 2, g.W,
-                                                         inner));
-  acc[q.b * g.HW + q.p] = blur_sum<kPair>(t, v);
-}
-
-template <int kBorder, bool kPair>
-__global__ void k_blur_v(Geom g, Taps t, const int32_t* acc,
-                         uint8_t* blurred) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const int32_t* a = acc + q.b * g.HW;
-  bool inner = q.y >= 2 && q.y < g.H - 2;
-  int v[5];
-  for (int i = 0; i < 5; ++i)
-    v[i] = a[(long long)tap_src<kBorder, true>(q.y + i - 2, g.H, inner) *
-                 g.W + q.x];
-  int s = blur_sum<kPair>(t, v);
-  blurred[q.b * g.HW + q.p] = (uint8_t)clampi((s + (1 << 15)) >> 16, 0, 255);
-}
-
-template <int kBorder>
-__global__ void k_mean_h(Geom g, Taps t, const uint8_t* blurred, float* mh) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const uint8_t* r = blurred + q.b * g.HW + (long long)q.y * g.W;
-  bool inner = q.x >= 5 && q.x < g.W - 5;
-  float s = __fmul_rn(t.k11[0],
-                      (float)r[tap_src<kBorder, false>(q.x - 5, g.W, inner)]);
-  for (int i = 1; i < 11; ++i)
-    s = __fadd_rn(s, __fmul_rn(t.k11[i], (float)r[tap_src<kBorder, false>(
-                                             q.x + i - 5, g.W, inner)]));
-  mh[q.b * g.HW + q.p] = s;
-}
-
-// Foreground pixels get `on` (1, or 255 for the mean11 stage).
-template <int kBorder>
-__global__ void k_mean_v_threshold(Geom g, Taps t, int ct, uint8_t on,
-                                   const float* mh, const uint8_t* blurred,
-                                   uint8_t* bin) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  const float* m = mh + q.b * g.HW;
-  bool inner = q.y >= 5 && q.y < g.H - 5;
-  float s = __fmul_rn(
-      t.k11[0], m[(long long)tap_src<kBorder, false>(q.y - 5, g.H, inner) *
-                      g.W + q.x]);
-  for (int i = 1; i < 11; ++i)
-    s = __fadd_rn(s, __fmul_rn(t.k11[i],
-                               m[(long long)tap_src<kBorder, false>(
-                                     q.y + i - 5, g.H, inner) * g.W + q.x]));
-  long long o = q.b * g.HW + q.p;
-  bin[o] = (int)blurred[o] <= __float2int_rn(s) - ct ? on : 0;
 }
 
 // Calls body(q) for every tile row this block covers: its own tile when no
@@ -447,13 +319,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
 // previous position clamped ("mxu") or wrapped with the penalty clamp
 // ("ladder", pallas_kernels.py:241-244); the other runs read it clamped.
 // A class run starts at position 0 and wherever the class changes.
-template <bool kCols, int kPack, int kRuns>
+// kSkip: frames whose skip[b] is nonzero are left unwritten, and *ran
+// counts the frames numbered (one add a frame).
+template <bool kCols, int kPack, int kRuns, bool kSkip = false>
 __global__ void k_run_ids(Plane pl, const uint8_t* mask, int scale,
-                          int16_t* out) {
+                          int16_t* out, const int32_t* skip = nullptr,
+                          int32_t* ran = nullptr) {
   extern __shared__ uint32_t s_start[];     // [16][stride / 2] bf16 pairs
   int nlines = kCols ? pl.W : pl.Hg, L = kCols ? pl.Hg : pl.W;
   int Lp = (L + 15) & ~15, stride = Lp + 8;  // in bf16; +8 spreads banks
   int line0 = blockIdx.x * 16, b = blockIdx.y;
+  if (kSkip) {
+    if (skip[b]) return;
+    if (ran != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+      atomicAdd(ran, 1);
+  }
   const uint8_t* m = mask + (long long)b * pl.H * pl.W;
   uint16_t* s16 = reinterpret_cast<uint16_t*>(s_start);
   for (int i = threadIdx.x; i < 16 * Lp; i += blockDim.x) {
@@ -514,28 +394,34 @@ __global__ void k_run_ids(Plane pl, const uint8_t* mask, int scale,
   }
 }
 
-template <bool kCols, int kPack, int kRuns>
+template <bool kCols, int kPack, int kRuns, bool kSkip = false>
 int launch_run_ids(const Plane& pl, int B, const uint8_t* mask, int scale,
-                   int16_t* out, cudaStream_t st) {
+                   int16_t* out, cudaStream_t st,
+                   const int32_t* skip = nullptr, int32_t* ran = nullptr) {
   int nlines = kCols ? pl.W : pl.Hg, L = kCols ? pl.Hg : pl.W;
   size_t smem = (size_t)16 * (((L + 15) & ~15) + 8) * 2;
-  auto kernel = k_run_ids<kCols, kPack, kRuns>;
+  auto kernel = k_run_ids<kCols, kPack, kRuns, kSkip>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3((nlines + 15) / 16, B), kPackWarps * 32, smem, st>>>(
-      pl, mask, scale, out);
+      pl, mask, scale, out, skip, ran);
   HD_CHECK();
   return 0;
 }
 
-// Both orientations' run ids (rows into rb_r, columns into rb_t).
-template <int kPack, int kRuns>
+// Both orientations' run ids (rows into rb_r, columns into rb_t); with
+// kSkip only of the frames whose skip[b] is 0, counted in *ran by the rows'
+// launch.
+template <int kPack, int kRuns, bool kSkip = false>
 int launch_run_ids_rc(const Plane& pl, int B, const uint8_t* mask, int scale,
-                      int16_t* rb_r, int16_t* rb_t, cudaStream_t st) {
-  int err = launch_run_ids<false, kPack, kRuns>(pl, B, mask, scale, rb_r, st);
+                      int16_t* rb_r, int16_t* rb_t, cudaStream_t st,
+                      const int32_t* skip = nullptr, int32_t* ran = nullptr) {
+  int err = launch_run_ids<false, kPack, kRuns, kSkip>(pl, B, mask, scale,
+                                                       rb_r, st, skip, ran);
   if (err) return err;
-  return launch_run_ids<true, kPack, kRuns>(pl, B, mask, scale, rb_t, st);
+  return launch_run_ids<true, kPack, kRuns, kSkip>(pl, B, mask, scale, rb_t,
+                                                   st, skip, nullptr);
 }
 
 // In-place doubling max-scan of one warp's line v (position 32 * j + lane

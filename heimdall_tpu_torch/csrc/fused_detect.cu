@@ -42,16 +42,17 @@
 // -fmad=false), and rounded half to even with __float2int_rn.
 //
 // hd_preprocess runs the preprocess stages alone for frames of any size,
-// for the 2 MP routes, as one launch over shared-memory tiles (see "the
-// one-pass preprocess" below): no plane of scratch, and its bound is the
-// mean's 44 uncontracted float operations a pixel on the SMs' 128 FP32
-// lanes, above its 3 (Mono8) or 5 (BGR) bytes a pixel.  hd_label and
+// for the 2 MP routes, as one launch over shared-memory tiles (the tile
+// preprocess of preprocess_tile.cuh): no plane of scratch, and its bound
+// is the mean's 44 uncontracted float operations a pixel on the SMs' 128
+// FP32 lanes, above its 3 (Mono8) or 5 (BGR) bytes a pixel.  hd_label and
 // hd_stats_from_labels are the two-kernel split of the detect (the
 // profiling path, heimdall_tpu_torch/ops/split_kernels.py): hd_label's
 // stages are the profilers' truncations, each reached by the same kernels
 // as the detect (the one-pass preprocess stopped at the stage, then the
 // tile fill and the tile labels).
 
+#include "preprocess_tile.cuh"
 #include "tile_uf.cuh"
 
 namespace {
@@ -61,8 +62,7 @@ constexpr int kStatsRows = 64;    // rows per block in the stats kernel
 // ---------------------------------------------------------------- preprocess
 // (Taps, reflect101, clampi and gray_at are in common.cuh)
 
-// The stages of hd_label, in order: it stops after `stage`.
-enum Stage { kGray = 0, kBlur5, kMean11, kPre, kFill, kCcl, kNumStages };
+// (the stages of hd_label, Stage, are in preprocess_tile.cuh)
 
 // The gray plane alone (hd_label's gray stage).
 __global__ void k_gray(Frames f, Geom g, uint8_t* gray) {
@@ -296,364 +296,11 @@ int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
 
 // ------------------------------------------------- the one-pass preprocess
 //
-// hd_preprocess: one launch, one block per output tile of kPreTY x kPreTX
-// pixels of a frame.  The block loads the tile with an 11-pixel halo (2 for
-// the blur, 5 for the mean, 1 for each of the four 3x3 passes), clipped to
-// the frame, into shared memory once, computing gray as it loads; every
-// stage then computes exactly the region its successor reads, shrinking by
-// its reach, and only the frame read and the gray and binary writes touch
-// device memory.  Borders are taken in frame coordinates (reflect-101 for
-// the blur, replicate for the mean) and mapped into the tile's buffers: a
-// reflected or clamped index moves at most 2 or 5 pixels inward, which the
-// halo holds, so a stage only ever computes in-frame positions; a tile
-// whose halo lies inside the frame (most of them) takes a copy of the code
-// with no border arithmetic and no frame checks, and, for planar frames
-// with word-aligned rows, 32-bit loads and stores.  The horizontal passes
-// give each thread a row and a run of kRun outputs whose taps stay in
-// registers (one shared load per output and a few more per run); the
-// vertical passes a column and a run of rows the same way.  The block
-// takes 384 threads, four blocks an SM: the stencil phases are bound by
-// instruction issue and shared-memory latency, and the tile's load is not
-// overlapped with its compute.  The blur sums exact integers; the mean
-// keeps its strict tap order (row pass, then column pass over the
-// unrounded row sums, __fmul_rn/__fadd_rn, rounded half to even).  The
-// threshold is ballotted into words of 32 pixels, and the open and close run on
-// those words (erode = AND of the shifted words, dilate = OR), with positions
-// outside the frame holding each pass's neutral value, so no out-of-frame
-// neighbour wins.
-//
-// hd_label's stages blur5, mean11 and pre run instances of the same kernel
-// that stop at the stage (kStop, a template parameter) and write its plane
-// from shared memory: the Q8 blur (u8), the threshold (0/255) or the closed
-// mask (0/1), with no gray (kGrayOut false).  The main path's instance,
-// <kPre, true>, holds no test of either.
-
-constexpr int kPreTY = 64, kPreTX = 120, kPreThreads = 384, kRun = 8;
-// the threshold's run: its kRE / kRunV x kNW tasks split evenly over the
-// block's warps
-constexpr int kRunV = 9;
-// Regions, as (rows, columns) and their origin relative to the tile's:
-constexpr int kRA = kPreTY + 22, kCA = kPreTX + 22;  // gray        (-11, -11)
-constexpr int kCB = kPreTX + 18;                     // blur rows   (-11, -9)
-constexpr int kRC = kPreTY + 18;                     // blurred     (-9, -9)
-constexpr int kCD = kPreTX + 8, kSD = kCD + 1;       // mean rows   (-9, -4)
-constexpr int kRE = kPreTY + 8;                      // binary bits (-4, -4)
-constexpr int kNW = (kCD + 31) / 32;                 // words per bit row
-constexpr int kOffB = kRA * kCA;                     // u16 blur rows after gray
-constexpr int kOffC = (kOffB + kRA * kCB * 2 > kRC * kSD * 4)
-                          ? kOffB + kRA * kCB * 2 : kRC * kSD * 4;
-constexpr int kOffE = kOffC + kRC * kCB;
-constexpr int kPreSmem = kOffE + 2 * kRE * kNW * 4;
-static_assert(kOffB % 2 == 0 && kOffC % 4 == 0 && kOffE % 4 == 0,
-              "shared buffers misaligned");
-
-__device__ __forceinline__ bool inside(int i, int n) {
-  return i >= 0 && i < n;
-}
-
-// inside(i, n), known true in a tile whose halo lies inside the frame
-template <bool kI>
-__device__ __forceinline__ bool in_frame(int i, int n) {
-  return kI || inside(i, n);
-}
-
-// One tile of k_preprocess.  kI: the tile and its halo lie inside the
-// frame, so no tap needs a border and no position a frame check.  kStop:
-// the last stage (kBlur5, kMean11 or kPre), whose plane goes to `binary`;
-// kGrayOut: the tile's gray goes to gray_out.
-template <bool kI, int kStop, bool kGrayOut>
-__device__ __forceinline__ void preprocess_tile(const Frames& f, int H, int W,
-                                                const Taps& t, int ct,
-                                                uint8_t* gray_out,
-                                                uint8_t* binary,
-                                                uint8_t* smem, bool vec) {
-  uint8_t* A = smem;                                       // gray
-  uint16_t* Bh = reinterpret_cast<uint16_t*>(smem + kOffB);  // blur rows
-  float* D = reinterpret_cast<float*>(smem);          // mean rows, over A, B
-  uint8_t* C = smem + kOffC;                               // blurred
-  uint32_t* E = reinterpret_cast<uint32_t*>(smem + kOffE); // 2 bit planes
-  const int b = blockIdx.z, y0 = blockIdx.y * kPreTY, x0 = blockIdx.x * kPreTX;
-  const int ty = min(kPreTY, H - y0), tx = min(kPreTX, W - x0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = kPreThreads / 32;
-  const long long HW = (long long)H * W, obase = b * HW;
-
-  // 1. gray of the tile and its halo; the tile's own gray goes out.  A
-  //    warp takes two rows at a time, all their loads in flight at once:
-  //    aligned 32-bit words of each plane where the tile is interior and
-  //    the planes' rows are word-aligned (vec), else bytes.
-  if (kI && vec) {
-    constexpr int kWords = (kCA + 1 + 3) / 4;   // columns -12 .. kCA - 11
-    constexpr int kPer = (kWords + 31) / 32, kRowsAtOnce = 2;
-    for (int r0 = warp * kRowsAtOnce; r0 < kRA; r0 += warps * kRowsAtOnce) {
-      uint32_t v[kRowsAtOnce][kPer][3];
-#pragma unroll
-      for (int rr = 0; rr < kRowsAtOnce; ++rr) {
-        int r = r0 + rr;
-        const uint8_t* row = f.data + b * f.fstride +
-                             (long long)(y0 - 11 + r) * W + x0 - 12;
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          int w = lane + 32 * k;
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch) {
-            v[rr][k][ch] = 0;
-            if (r < kRA && w < kWords && (ch == 0 || f.C == 3))
-              v[rr][k][ch] = *reinterpret_cast<const uint32_t*>(
-                  row + ch * f.cstride + 4 * w);
-          }
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRowsAtOnce; ++rr) {
-        int r = r0 + rr;
-        if (r >= kRA) break;
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          int w = lane + 32 * k;
-          if (w >= kWords) continue;
-          uint32_t g4 = 0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            int c = 4 * w + j - 1;
-            int bb = v[rr][k][0] >> (8 * j) & 255;
-            int g = f.C == 3 ? (bb * 3735 + (v[rr][k][1] >> (8 * j) & 255) *
-                                19235 + (v[rr][k][2] >> (8 * j) & 255) * 9798 +
-                                (1 << 14)) >> 15
-                             : bb;
-            g4 |= (uint32_t)g << (8 * j);
-            if (c >= 0 && c < kCA) A[r * kCA + c] = (uint8_t)g;
-          }
-          // words 3 .. 3 + kPreTX / 4 hold the tile's own columns
-          if (kGrayOut && inside(r - 11, kPreTY) && inside(w - 3, kPreTX / 4))
-            *reinterpret_cast<uint32_t*>(
-                gray_out + obase + (long long)(y0 - 11 + r) * W + x0 +
-                4 * (w - 3)) = g4;
-        }
-      }
-    }
-  } else {
-    constexpr int kPer = (kCA + 31) / 32, kRowsAtOnce = 2;
-    for (int r0 = warp * kRowsAtOnce; r0 < kRA; r0 += warps * kRowsAtOnce) {
-      int v[kRowsAtOnce][kPer];
-#pragma unroll
-      for (int rr = 0; rr < kRowsAtOnce; ++rr) {
-        int r = r0 + rr, gy = y0 - 11 + r;
-        bool row_in = r < kRA && in_frame<kI>(gy, H);
-        const uint8_t* row =
-            f.data + b * f.fstride + (long long)gy * W * f.pstride;
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          int c = lane + 32 * k, gx = x0 - 11 + c;
-          v[rr][k] = 0;
-          if (!row_in || c >= kCA || !in_frame<kI>(gx, W)) continue;
-          const uint8_t* d = row + (long long)gx * f.pstride;
-          v[rr][k] = f.C == 3 ? (d[0] * 3735 + d[f.cstride] * 19235 +
-                                 d[2 * f.cstride] * 9798 + (1 << 14)) >> 15
-                              : d[0];
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRowsAtOnce; ++rr) {
-        int r = r0 + rr, gy = y0 - 11 + r;
-        if (r >= kRA || !in_frame<kI>(gy, H)) continue;
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          int c = lane + 32 * k, gx = x0 - 11 + c;
-          if (c >= kCA || !in_frame<kI>(gx, W)) continue;
-          A[r * kCA + c] = (uint8_t)v[rr][k];
-          if (kGrayOut && inside(r - 11, ty) && inside(c - 11, tx))
-            gray_out[obase + (long long)gy * W + gx] = v[rr][k];
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // 2. the blur's row pass (a thread takes a row and a run of kRun
-  //    columns; neighbouring threads neighbouring rows).
-  {
-    constexpr int runs = (kCB + kRun - 1) / kRun;
-    for (int it = threadIdx.x; it < kRA * runs; it += kPreThreads) {
-      int r = it % kRA, c0 = it / kRA * kRun;
-      int gy = y0 - 11 + r, gx0 = x0 - 9 + c0;
-      if (!in_frame<kI>(gy, H)) continue;
-      int v[kRun + 4];
-#pragma unroll
-      for (int k = 0; k < kRun + 4; ++k) {
-        int src = (kI ? gx0 + k - 2 : reflect101(gx0 + k - 2, W)) - (x0 - 11);
-        v[k] = inside(src, kCA) ? A[r * kCA + src] : 0;
-      }
-#pragma unroll
-      for (int j = 0; j < kRun; ++j) {
-        int c = c0 + j;
-        if (c >= kCB || !in_frame<kI>(gx0 + j, W)) continue;
-        int s = 0;
-#pragma unroll
-        for (int i = 0; i < 5; ++i) s += t.q8[i] * v[j + i];
-        Bh[r * kCB + c] = (uint16_t)s;
-      }
-    }
-  }
-  __syncthreads();
-
-  // 3. the blur's column pass (a thread takes a column and a run of kRun
-  //    rows; neighbouring threads neighbouring columns).
-  {
-    constexpr int runs = (kRC + kRun - 1) / kRun;
-    for (int it = threadIdx.x; it < kCB * runs; it += kPreThreads) {
-      int c = it % kCB, r0 = it / kCB * kRun;
-      int gx = x0 - 9 + c, gy0 = y0 - 9 + r0;
-      if (!in_frame<kI>(gx, W)) continue;
-      int v[kRun + 4];
-#pragma unroll
-      for (int k = 0; k < kRun + 4; ++k) {
-        int src = (kI ? gy0 + k - 2 : reflect101(gy0 + k - 2, H)) - (y0 - 11);
-        v[k] = inside(src, kRA) ? Bh[src * kCB + c] : 0;
-      }
-#pragma unroll
-      for (int j = 0; j < kRun; ++j) {
-        int r = r0 + j;
-        if (r >= kRC || !in_frame<kI>(gy0 + j, H)) continue;
-        int s = 0;
-#pragma unroll
-        for (int i = 0; i < 5; ++i) s += t.q8[i] * v[j + i];
-        C[r * kCB + c] = (uint8_t)clampi((s + (1 << 15)) >> 16, 0, 255);
-      }
-    }
-  }
-  __syncthreads();
-  if (kStop == kBlur5) {        // the tile's blurred plane goes out
-    for (int r = warp; r < ty; r += warps)
-      for (int c = lane; c < tx; c += 32)
-        binary[obase + (long long)(y0 + r) * W + x0 + c] =
-            C[(r + 9) * kCB + c + 9];
-    return;
-  }
-
-  // 4. the mean's row pass (as the blur's), over the gray and blur-row
-  //    buffers, which are no longer read.
-  {
-    constexpr int runs = (kCD + kRun - 1) / kRun;
-    for (int it = threadIdx.x; it < kRC * runs; it += kPreThreads) {
-      int r = it % kRC, c0 = it / kRC * kRun;
-      int gy = y0 - 9 + r, gx0 = x0 - 4 + c0;
-      if (!in_frame<kI>(gy, H)) continue;
-      float v[kRun + 10];
-#pragma unroll
-      for (int k = 0; k < kRun + 10; ++k) {
-        int src = (kI ? gx0 + k - 5 : clampi(gx0 + k - 5, 0, W - 1)) - (x0 - 9);
-        v[k] = inside(src, kCB) ? (float)C[r * kCB + src] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kRun; ++j) {
-        int c = c0 + j;
-        if (c >= kCD || !in_frame<kI>(gx0 + j, W)) continue;
-        float s = __fmul_rn(t.k11[0], v[j]);
-#pragma unroll
-        for (int i = 1; i < 11; ++i)
-          s = __fadd_rn(s, __fmul_rn(t.k11[i], v[j + i]));
-        D[r * kSD + c] = s;
-      }
-    }
-  }
-  __syncthreads();
-
-  // 5. the mean's column pass and the INV threshold (lane = column, a run
-  //    of kRun rows), ballotted into bit words; outside the frame a bit is 1,
-  //    the erode's neutral value.
-  {
-    constexpr int runs = (kRE + kRunV - 1) / kRunV;
-    for (int task = warp; task < runs * kNW; task += warps) {
-      int g = task / runs, r0 = task % runs * kRunV, c = g * 32 + lane;
-      int gx = x0 - 4 + c, gy0 = y0 - 4 + r0;
-      bool col = c < kCD && in_frame<kI>(gx, W);
-      float v[kRunV + 10];
-#pragma unroll
-      for (int k = 0; k < kRunV + 10; ++k) {
-        int src = (kI ? gy0 + k - 5 : clampi(gy0 + k - 5, 0, H - 1)) - (y0 - 9);
-        v[k] = col && inside(src, kRC) ? D[src * kSD + c] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kRunV; ++j) {
-        int r = r0 + j;
-        if (r >= kRE) break;                 // uniform over the warp
-        bool bit = true;
-        if (col && in_frame<kI>(gy0 + j, H)) {
-          float s = __fmul_rn(t.k11[0], v[j]);
-#pragma unroll
-          for (int i = 1; i < 11; ++i)
-            s = __fadd_rn(s, __fmul_rn(t.k11[i], v[j + i]));
-          bit = (int)C[(r + 5) * kCB + c + 5] <= __float2int_rn(s) - ct;
-        }
-        unsigned word = __ballot_sync(kFull, bit);
-        if (lane == 0) E[r * kNW + g] = word;
-      }
-    }
-  }
-  __syncthreads();
-
-  // 6. open (erode, dilate) and close (dilate, erode) on the bit words; after
-  //    each pass the positions outside the frame take the next pass's
-  //    neutral value (1 before an erode, 0 before a dilate).
-#pragma unroll
-  for (int pass = 0; pass < (kStop == kPre ? 4 : 0); ++pass) {
-    const bool erode = pass == 0 || pass == 3;
-    const uint32_t fill = erode ? kFull : 0u;
-    const uint32_t next_neutral = pass == 2 ? kFull : 0u;
-    const uint32_t* in = E + (pass & 1) * kRE * kNW;
-    uint32_t* out = E + ((pass + 1) & 1) * kRE * kNW;
-    for (int k = threadIdx.x; k < kRE * kNW; k += kPreThreads) {
-      int r = k / kNW, w = k % kNW;
-      uint32_t acc = fill;
-      for (int dy = -1; dy <= 1; ++dy) {
-        int rr = r + dy;
-        uint32_t x = fill, prev = fill, next = fill;
-        if (inside(rr, kRE)) {
-          x = in[rr * kNW + w];
-          if (w > 0) prev = in[rr * kNW + w - 1];
-          if (w < kNW - 1) next = in[rr * kNW + w + 1];
-        }
-        uint32_t left = (x << 1) | (prev >> 31);
-        uint32_t right = (x >> 1) | (next << 31);
-        uint32_t h = erode ? (x & left & right) : (x | left | right);
-        acc = erode ? (acc & h) : (acc | h);
-      }
-      // in-frame columns of this word, and whether its row is in the frame
-      int gx = x0 - 4 + w * 32, gy = y0 - 4 + r;
-      uint32_t cols = 0;
-      if (in_frame<kI>(gy, H)) {
-        int lo = max(0, -gx), hi = min(32, min(W - gx, kCD - w * 32));
-        if (hi > lo)
-          cols = (hi - lo == 32 ? kFull : ((1u << (hi - lo)) - 1u)) << lo;
-      }
-      out[k] = (acc & cols) | (next_neutral & ~cols);
-    }
-    __syncthreads();
-  }
-
-  // 7. the tile's binary plane goes out (the closed mask 0/1, or stopped
-  //    at the threshold 0/255), four pixels a store where the tile is
-  //    interior and the rows word-aligned.
-  constexpr uint32_t on = kStop == kMean11 ? 255u : 1u;
-  if (kI && vec) {
-    for (int it = threadIdx.x; it < kPreTY * (kPreTX / 4); it += kPreThreads) {
-      int r = it / (kPreTX / 4), c = it % (kPreTX / 4) * 4, cc = c + 4;
-      uint32_t x = E[(r + 4) * kNW + cc / 32] >> (cc % 32) & 15u;  // 4 | cc
-      *reinterpret_cast<uint32_t*>(binary + obase + (long long)(y0 + r) * W +
-                                   x0 + c) =
-          ((x & 1u) | (x & 2u) << 7 | (x & 4u) << 14 | (x & 8u) << 21) * on;
-    }
-    return;
-  }
-  for (int r = warp; r < ty; r += warps)
-    for (int c = lane; c < tx; c += 32) {
-      int cc = c + 4;
-      uint32_t word = E[(r + 4) * kNW + cc / 32];
-      binary[obase + (long long)(y0 + r) * W + x0 + c] =
-          ((word >> (cc % 32)) & 1u) * on;
-    }
-}
+// hd_preprocess: one launch of k_preprocess, the tile preprocess of
+// preprocess_tile.cuh, whose instances stop at a stage (kStop) and write
+// the tile's gray (kGrayOut) or not.  hd_label's stages blur5, mean11 and
+// pre run the instances <kBlur5|kMean11|kPre, false>; the main path's
+// <kPre, true> holds no test of either.
 
 template <int kStop, bool kGrayOut>
 __global__ void __launch_bounds__(kPreThreads, 4)

@@ -10,72 +10,64 @@
 //     x[(i + j - r) mod n], deliberately wrong near the frame edge (a timing
 //     probe); the morphology stays exact;
 //   scripts/profile_pre_variants.py:186 (bodies :57-157, variants :159-166):
-//     roll_conv (rolled interior, exact border band: here an unchecked read
-//     path for pixels at least r from the edge and the exact formula for the
-//     rest), pair_sym (paired Q8 taps t2*c + t1*(a+b) + t0*(a'+b'), exact in
-//     int), roll_pair (both), mxu_conv (paired blur, then the f32 mean11 as
-//     two banded matrix products with the replicate border folded into the
-//     edge weights).
+//     roll_conv (rolled interior, exact border band), pair_sym (paired Q8
+//     taps t2*c + t1*(a+b) + t0*(a'+b'), exact in int), roll_pair (both),
+//     mxu_conv (paired blur, then the f32 mean11 as two banded matrix
+//     products with the replicate border folded into the edge weights).
 // The stage encodings are hd_label's: blur5 u8, mean11 0/255, pre 0/1.
 //
-// mxu_conv's products run on the tensor cores (mma.sync m16n8k8, TF32 in,
-// f32 accumulate), over the band's tiles only: an 11-tap band touches 3 of
-// the 8-wide k tiles of a row pass tile and 4 of a column pass tile, where a
-// dense product would take W/8 and H/8.  Each f32 operand that is not exact
-// in TF32 is split into hi + lo TF32 parts: the row pass (the blurred plane,
-// 0-255, is exact) takes 2 products per tile, the column pass 3 (hi*hi,
-// hi*lo, lo*hi), which keeps the mean within ~1e-4 of an f32 product.  Its
-// rounding is not the sequential tap sum's, so the threshold may flip where
-// the mean lies near a half-integer: that count is reported, not asserted.
-// Every other variant equals the exact preprocess bit for bit: the f32
-// mean's taps are summed in sequence with __fmul_rn/__fadd_rn (and the file
-// is built with -fmad=false), and the wrap index only moves where each tap
-// reads, never the order of the sum.
+// Design: every roll stage and variant is one launch of the one-pass tile
+// preprocess (preprocess_tile.cuh, the kernel of hd_preprocess and of
+// hd_label's stages), an instance with the probe's ingredient as a template
+// parameter; mxu_conv adds one launch before it for its band tables.  The
+// stages never leave shared memory; device memory sees the frame in and the
+// plane out.
+//   wrap       <kWrap>: a border tile loads its halo at the wrapped frame
+//              positions (a true modulo), so its stencils run as an interior
+//              tile's; the threshold's bits and the open and close keep the
+//              frame's own border;
+//   split      roll_conv and roll_pair: a rolled interior with an exact
+//              border band is the exact preprocess, and the tile design
+//              already runs its interior tiles with no border arithmetic
+//              (kI) and its border tiles exactly, so these are the same
+//              instances as cur and pair_sym, with launch counts of their
+//              own;
+//   pair       <kPair>: the paired taps in both blur passes;
+//   mma        <kMma>: the mean's row pass over the tile's blurred plane and
+//              its column pass over the row sums as mma.sync m16n8k8 TF32
+//              products (preprocess_tile.cuh), the threshold's bits ORed
+//              into the tile's words.
+// Every variant but mxu_conv equals the exact preprocess bit for bit: the
+// f32 mean's taps are summed in sequence with __fmul_rn/__fadd_rn (and the
+// file is built with -fmad=false), and the wrap index only moves where each
+// tap reads, never the order of the sum.  mxu_conv's mean rounds otherwise
+// (within ~1e-4 of an f32 product), so its threshold may flip where the
+// mean lies near a half-integer.
 //
-// What bounds it on an H100 SXM: bytes.  A call reads the frame (3 B/px)
-// and writes one plane (1 B/px), 0.37 us per 640x480 frame at 3.35 TB/s;
-// mxu_conv's band products are far below the tensor cores' rate.  It passes
-// every stage through global-memory scratch (8 launches to "pre", 9 with
-// mxu_conv's band table), as the TPU probes' separate passes do, so these
-// are probes of the ingredients, not of the bound.
+// What bounds it on an H100 SXM: the f32 mean's 44 uncontracted operations
+// a pixel on the SMs' FP32 lanes (0.404 us per 640x480 frame at 1980 MHz),
+// above the bytes (frame 3 B/px in, plane 1 B/px out: 0.367 us at 3.35
+// TB/s); mxu_conv's TF32 products take 0.179.  It runs hd_preprocess's
+// kernel, which is bound by its stencil phases' instruction issue and
+// shared-memory latency (fused_detect.cu).  Batch 256 of the bench's
+// 640x480 frames (chip_smoke.py phase 5e, NVIDIA H100 80GB HBM3, 700.00
+// W): the exact variants 3.56-3.64 us/frame and full_roll 3.18-3.20, from
+// 12.0-12.8 through global-memory passes (8 launches); the wrap instance's
+// border tiles run border-free, which is why it beats the exact one.
+// mxu_conv takes 5.45-5.51: its fragments' loads and TF32 splits cost
+// more than the scalar mean's 44 operations a pixel.  An interior tile's
+// mma weights come from a table of the taps' TF32 parts.
+//
+// hd_mxu_mean, mxu_conv's products alone over device memory (a warp per
+// 16 x 8 tile of the output, over the band's k tiles only), is timed beside
+// torch.matmul.
 
-#include "common.cuh"
+#include "preprocess_tile.cuh"
 
 namespace {
 
-enum Stage { kBlur5 = 1, kMean11 = 2, kPre = 3 };   // hd_label's numbers
-
-// (the passes up to the threshold, with their Border and pair template
-// parameters, are in common.cuh)
-
-// ------------------------------------------------ mxu_conv on tensor cores
-
-// x rounded to TF32 (nearest, ties away), as the .b32 operand of mma.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo + (a residual below 2^-22 |x|), both parts TF32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// d += a * b over one 16 x 8 x 8 tile.  Fragments (g = lane / 4,
-// t = lane % 4): a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4),
-// a3 (g + 8, t + 4); b0 (row t, col g), b1 (t + 4, g); d0 (g, 2t),
-// d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Which border a variant asks for (ops/pre_variants.py's VARIANTS).
+enum Border { kExact = 0, kWrapBorder = 1, kSplit = 2 };
 
 // T[k][c] of the 11-tap correlation with replicate border over an axis of
 // n (out[c] = sum_k x[k] T[k][c]): the taps i with clamp(c + i - 5, 0,
@@ -101,12 +93,53 @@ __global__ void k_band_table(Taps t, int W, int H, float* band) {
   band[i] = band_weight(t, c + j % 11 - 5, c, n);
 }
 
-// T[k][c] from an axis's band table.
-__device__ __forceinline__ float band_at(const float* band, int k, int c,
-                                         int n) {
-  int d = k - c + 5;
-  return c < n && (unsigned)d < 11u ? band[c * 11 + d] : 0.f;
+int launch_band_table(const Taps& t, int W, int H, float* band,
+                      cudaStream_t st) {
+  int n = 11 * (W + H);
+  k_band_table<<<(n + 255) / 256, 256, 0, st>>>(t, W, H, band);
+  HD_CHECK();
+  return 0;
 }
+
+// One tile preprocess over frames [B, 3, H, W] into out [B, H, W]: the
+// tile is interior (kI) or a border tile, as in k_preprocess.  The mma
+// instance takes three blocks an SM, for the registers of its fragments.
+template <int kStop, bool kWrap, bool kPair, bool kMma>
+__global__ void __launch_bounds__(kPreThreads, kMma ? 3 : 4)
+    k_pre_variant(Frames f, int H, int W, Taps t, int ct, uint8_t* out,
+                  bool vec, const float* band) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int y0 = blockIdx.y * kPreTY, x0 = blockIdx.x * kPreTX;
+  if (y0 >= 11 && x0 >= 11 && y0 + kPreTY + 11 <= H && x0 + kPreTX + 11 <= W)
+    preprocess_tile<true, kStop, false, kWrap, kPair, kMma>(
+        f, H, W, t, ct, nullptr, out, smem, vec, band);
+  else
+    preprocess_tile<false, kStop, false, kWrap, kPair, kMma>(
+        f, H, W, t, ct, nullptr, out, smem, vec, band);
+}
+
+template <int kStop, bool kWrap, bool kPair, bool kMma>
+int launch_variant(const Frames& f, int B, int H, int W, const Taps& t,
+                   int ct, uint8_t* out, const float* band, cudaStream_t st) {
+  auto kernel = k_pre_variant<kStop, kWrap, kPair, kMma>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPreSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((W + kPreTX - 1) / kPreTX, (H + kPreTY - 1) / kPreTY, B);
+  // word loads and stores where the rows start on 32-bit words
+  bool vec = W % 4 == 0 && (uintptr_t)f.data % 4 == 0 &&
+             f.cstride % 4 == 0 && (uintptr_t)out % 4 == 0;
+  kernel<<<grid, kPreThreads, kPreSmem, st>>>(f, H, W, t, ct, out, vec,
+                                              band);
+  HD_CHECK();
+  return 0;
+}
+
+// ------------------------------------------------ mxu_conv's products alone
 
 // One warp per 16 x 8 tile of out; a block of 8 warps covers 16 rows x 64
 // columns of one frame.
@@ -145,11 +178,8 @@ __global__ void k_mma_mean_h(Geom g, const float* band_w,
 }
 
 // Column pass: m[r][c] = sum_k Th[k][r] mh[k][c], over the k tiles of the
-// band (rows r0 - 5 .. r0 + 20).  With `mean` it writes m (f32); else the
-// INV threshold of rint(m) against blurred, `on` for foreground.
-__global__ void k_mma_mean_v(Geom g, const float* band_h, int ct,
-                             uint8_t on, const float* mh,
-                             const uint8_t* blurred, uint8_t* bin,
+// band (rows r0 - 5 .. r0 + 20), into mean (f32).
+__global__ void k_mma_mean_v(Geom g, const float* band_h, const float* mh,
                              float* mean) {
   int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   int r0 = blockIdx.y * 16;
@@ -177,116 +207,53 @@ __global__ void k_mma_mean_v(Geom g, const float* band_h, int ct,
   long long base = blockIdx.z * g.HW;
   for (int i = 0; i < 4; ++i) {
     int r = r0 + gid + (i >> 1) * 8, c = c0 + 2 * tig + (i & 1);
-    if (r >= g.H || c >= g.W) continue;
-    long long o = base + (long long)r * g.W + c;
-    if (mean)
-      mean[o] = d[i];
-    else
-      bin[o] = (int)blurred[o] <= __float2int_rn(d[i]) - ct ? on : 0;
+    if (r < g.H && c < g.W) mean[base + (long long)r * g.W + c] = d[i];
   }
 }
-
-// mxu_conv's mean: the band tables into band (float32 [11 * (W + H)]), the
-// row pass into mh, then the column pass: the mean into `mean` if given,
-// else the threshold into bin.
-int launch_mxu_mean(const Geom& g, int B, const Taps& t, int ct, uint8_t on,
-                    const uint8_t* blurred, float* band, float* mh,
-                    uint8_t* bin, float* mean, cudaStream_t st) {
-  int n = 11 * (g.W + g.H);
-  k_band_table<<<(n + 255) / 256, 256, 0, st>>>(t, g.W, g.H, band);
-  HD_CHECK();
-  dim3 grid((g.W + 8 * kMmaWarps - 1) / (8 * kMmaWarps), (g.H + 15) / 16, B);
-  k_mma_mean_h<<<grid, 32 * kMmaWarps, 0, st>>>(g, band, blurred, mh);
-  HD_CHECK();
-  k_mma_mean_v<<<grid, 32 * kMmaWarps, 0, st>>>(g, band + 11 * g.W, ct, on,
-                                                mh, blurred, bin, mean);
-  HD_CHECK();
-  return 0;
-}
-
-// ------------------------------------------------------------ launches
-
-template <int kBorder, bool kPair>
-int launch_blur(const Frames& f, const Geom& g, dim3 grid, const Taps& t,
-                int32_t* acc, uint8_t* blurred, cudaStream_t st) {
-  dim3 blk(kTileW, kTileH);
-  k_gray_blur_h<kBorder, kPair><<<grid, blk, 0, st>>>(f, g, t, acc);
-  HD_CHECK();
-  k_blur_v<kBorder, kPair><<<grid, blk, 0, st>>>(g, t, acc, blurred);
-  HD_CHECK();
-  return 0;
-}
-
-template <int kBorder>
-int launch_mean(const Geom& g, dim3 grid, const Taps& t, int ct, uint8_t on,
-                const uint8_t* blurred, float* mh, uint8_t* bin,
-                cudaStream_t st) {
-  dim3 blk(kTileW, kTileH);
-  k_mean_h<kBorder><<<grid, blk, 0, st>>>(g, t, blurred, mh);
-  HD_CHECK();
-  k_mean_v_threshold<kBorder><<<grid, blk, 0, st>>>(g, t, ct, on, mh,
-                                                    blurred, bin);
-  HD_CHECK();
-  return 0;
-}
-
 
 }  // namespace
 
-// Frames [B, 3, H, W] -> the plane of `stage` (1 blur5: plane1, u8; 2
-// mean11: plane2, 0/255; 3 pre: plane2, opened and closed, 0/1) with the
-// ingredients `border` (0 exact, 1 wrap-around, 2 unchecked interior with
-// an exact border band), `pair` (paired blur taps) and `mma` (the mean as
-// banded tensor-core products).  Scratch: work int32 [B, H, W] (also used
-// as float32), band float32 [11 * (W + H)] (mma only).  H, W >= 6 (the
-// mean's wrap reads one turn at most).  Returns the first CUDA error.
+// Frames [B, 3, H, W] -> out u8 [B, H, W], the plane of `stage` (1 blur5:
+// u8; 2 mean11: 0/255; 3 pre: opened and closed, 0/1) with the ingredients
+// `border` (0 exact; 1 wrap-around, any stage, no pair or mma; 2 unchecked
+// interior with an exact border band, which is the exact preprocess),
+// `pair` (paired blur taps) and `mma` (the mean as banded tensor-core
+// products, with pair).  The exact borders run only to pre.  Scratch: band
+// float32 [11 * (W + H)] (mma only).  H, W >= 6.  One launch (two with
+// mma: the band tables first).  Returns the first CUDA error.
 extern "C" int hd_pre_variant(const uint8_t* frames, int B, int H, int W,
                               int ct, int stage, int border, int pair,
                               int mma, const int* q8, const float* k11,
-                              uint8_t* plane1, uint8_t* plane2, int32_t* work,
-                              float* band, void* stream) {
+                              uint8_t* out, float* band, void* stream) {
+  bool wrap = border == kWrapBorder;
   if (stage < kBlur5 || stage > kPre || border < kExact || border > kSplit ||
-      H < 6 || W < 6)
+      H < 6 || W < 6 || (wrap && (pair || mma)) ||
+      (!wrap && stage != kPre) || (mma && !pair))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  Geom g{H, W, (long long)H * W, H, 1};
-  Frames f{frames, 3, 3 * g.HW, g.HW, 1};
+  Frames f{frames, 3, 3LL * H * W, (long long)H * W, 1};
   Taps t = taps_of(q8, k11);
-  dim3 blk(kTileW, kTileH);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  float* fwork = reinterpret_cast<float*>(work);
-  int err;
-  if (border == kWrap)
-    err = pair ? launch_blur<kWrap, true>(f, g, grid, t, work, plane1, st)
-               : launch_blur<kWrap, false>(f, g, grid, t, work, plane1, st);
-  else if (border == kSplit)
-    err = pair ? launch_blur<kSplit, true>(f, g, grid, t, work, plane1, st)
-               : launch_blur<kSplit, false>(f, g, grid, t, work, plane1, st);
-  else
-    err = pair ? launch_blur<kExact, true>(f, g, grid, t, work, plane1, st)
-               : launch_blur<kExact, false>(f, g, grid, t, work, plane1, st);
-  if (err || stage == kBlur5) return err;
-  uint8_t on = stage == kMean11 ? 255 : 1;
-  if (mma) {
-    err = launch_mxu_mean(g, B, t, ct, on, plane1, band, fwork, plane2,
-                          nullptr, st);
-  } else if (border == kWrap) {
-    err = launch_mean<kWrap>(g, grid, t, ct, on, plane1, fwork, plane2, st);
-  } else if (border == kSplit) {
-    err = launch_mean<kSplit>(g, grid, t, ct, on, plane1, fwork, plane2, st);
-  } else {
-    err = launch_mean<kExact>(g, grid, t, ct, on, plane1, fwork, plane2, st);
+  if (wrap) {
+    if (stage == kBlur5)
+      return launch_variant<kBlur5, true, false, false>(f, B, H, W, t, ct,
+                                                        out, nullptr, st);
+    if (stage == kMean11)
+      return launch_variant<kMean11, true, false, false>(f, B, H, W, t, ct,
+                                                         out, nullptr, st);
+    return launch_variant<kPre, true, false, false>(f, B, H, W, t, ct, out,
+                                                    nullptr, st);
   }
-  if (err || stage == kMean11) return err;
-  k_morph<<<grid, blk, 0, st>>>(g, plane2, plane1, 1);   // open: erode
-  HD_CHECK();
-  k_morph<<<grid, blk, 0, st>>>(g, plane1, plane2, 0);   //       dilate
-  HD_CHECK();
-  k_morph<<<grid, blk, 0, st>>>(g, plane2, plane1, 0);   // close: dilate
-  HD_CHECK();
-  k_morph<<<grid, blk, 0, st>>>(g, plane1, plane2, 1);   //        erode
-  HD_CHECK();
-  return 0;
+  if (mma) {
+    int err = launch_band_table(t, W, H, band, st);
+    if (err) return err;
+    return launch_variant<kPre, false, true, true>(f, B, H, W, t, ct, out,
+                                                   band, st);
+  }
+  if (pair)
+    return launch_variant<kPre, false, true, false>(f, B, H, W, t, ct, out,
+                                                    nullptr, st);
+  return launch_variant<kPre, false, false, false>(f, B, H, W, t, ct, out,
+                                                   nullptr, st);
 }
 
 // mxu_conv's f32 mean11 alone: blurred u8 [B, H, W] -> mean float32
@@ -296,8 +263,16 @@ extern "C" int hd_pre_variant(const uint8_t* frames, int B, int H, int W,
 extern "C" int hd_mxu_mean(const uint8_t* blurred, int B, int H, int W,
                            const float* k11, float* band, float* work,
                            float* mean, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   Geom g{H, W, (long long)H * W, H, 1};
   int q8[5] = {0, 0, 0, 0, 0};
-  return launch_mxu_mean(g, B, taps_of(q8, k11), 0, 0, blurred, band, work,
-                         nullptr, mean, (cudaStream_t)stream);
+  int err = launch_band_table(taps_of(q8, k11), W, H, band, st);
+  if (err) return err;
+  dim3 grid((W + 8 * kMmaWarps - 1) / (8 * kMmaWarps), (H + 15) / 16, B);
+  k_mma_mean_h<<<grid, 32 * kMmaWarps, 0, st>>>(g, band, blurred, work);
+  HD_CHECK();
+  k_mma_mean_v<<<grid, 32 * kMmaWarps, 0, st>>>(g, band + 11 * W, work,
+                                                mean);
+  HD_CHECK();
+  return 0;
 }

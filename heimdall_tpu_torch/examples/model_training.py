@@ -11,7 +11,7 @@ The loop runs on simulated line data:
   3. post-training-quantize it to int8,
   4. drop the quantized model into the detector stack and compare its
      verdicts with the float model and the classical detector (the
-     segmentation detector labels through the band route's kernels).
+     segmentation detector labels with 6 of JAX's sweeps, PyTorch ops).
 
 Usage: python -m heimdall_tpu_torch.examples.model_training [--device cpu]
 """

@@ -2,13 +2,13 @@
 (port of heimdall_tpu/models/segmentation.py).
 
 A compact encoder-decoder CNN predicts a per-pixel defect probability map;
-the detector thresholds it and labels the mask through the band route's
-kernels (ops/stats_tiled.py::label_and_table, csrc/ccl_tiled.cu
-and csrc/stats_tiled.cu on the card), so a learned model gives the same
-``Defect`` records as the classical detector.  The labels are the
-fixpoint (each component's least linear index) and the table's slots the
-first K roots in raster order, as JAX's ops.connected_components +
-blobs.blob_stats give them.
+the detector thresholds it, labels the mask with 6 of JAX's sweeps and no
+fixpoint check (ops/ccl.py::connected_components(sweeps=6), as
+heimdall_tpu/models/segmentation.py:172 labels) and builds the table from
+those labels as JAX's blobs.blob_stats does (ops/blobs.py), so a learned
+model gives JAX's ``Defect`` records, components that 6 sweeps leave split
+included.  JAX's detector reaches no Pallas kernel there (XLA ops), so on
+the card these are PyTorch ops too.
 
 The UNet computes in float32: TF32 is off for its convolutions on the card
 (models/layers.py::float32_convs), in a train step through its backward
@@ -29,13 +29,14 @@ from torch import nn
 
 from heimdall_tpu_torch.detectors.base import Defect
 from heimdall_tpu_torch.detectors.contamination_detector import (
-    TILED_BAND, download_table, resolve_device)
+    download_table, resolve_device)
 from heimdall_tpu_torch.models.layers import (conv_transpose_same,
                                               float32_convs,
                                               init_flax_defaults)
 from heimdall_tpu_torch.models.optim import Adam, train_step
+from heimdall_tpu_torch.ops.blobs import blob_stats
+from heimdall_tpu_torch.ops.ccl import connected_components
 from heimdall_tpu_torch.ops.color import bgr_to_gray
-from heimdall_tpu_torch.ops.stats_tiled import label_and_table
 
 
 def unet_forward(conv, up, x):
@@ -214,8 +215,9 @@ class SegmentationDetector:
             prob >= self.threshold)).to(dev)
         gray = bgr_to_gray(torch.from_numpy(
             np.ascontiguousarray(images)).to(dev)).contiguous()
-        _, table = label_and_table(mask, gray, band=TILED_BAND,
-                                   max_blobs=self.max_blobs, use_color=False)
+        labels = connected_components(mask, connectivity=8, sweeps=6)
+        table = blob_stats(labels, mask, gray, None,
+                           max_blobs=self.max_blobs, use_color=False)
         # one download; the table's own fields fill the confidence and gate
         # slots, which this detector does not use
         table = download_table(table, table.intensity_diff, table.valid)[0]

@@ -65,7 +65,7 @@ SIGNATURES = {
     },
     "pre_variants": {
         "hd_pre_variant": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                           _P, _P, _P, _P],
+                           _P, _P],
         "hd_mxu_mean": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "fill_sweeps": {
@@ -75,7 +75,7 @@ SIGNATURES = {
     "ccl_sweeps": {
         "hd_sweep_ccl": [_P] + [_I] * 12 + [_P] * 7,
         "hd_sweep_ccl_clusters": [_I] * 4,
-        "hd_runtable_ccl": [_P] + [_I] * 6 + [_P] * 7,
+        "hd_runtable_ccl": [_P] + [_I] * 6 + [_P] * 8,
     },
     "joint_label": {
         "hd_joint_label": [_P] + [_I] * 7 + [_P] * 7,

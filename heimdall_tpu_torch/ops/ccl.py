@@ -15,6 +15,16 @@ component, so the loop stops exactly when the neighbour minimum no longer
 changes any label, i.e. at the component minimum.  Labels are computed as
 global indices over the flattened batch (int64) and made frame-local at the
 end.  This is the plain version the fused CUDA kernel is held against.
+
+With ``sweeps`` or ``max_iters``, ``connected_components`` runs JAX's sweeps
+instead (heimdall_tpu/ops/ccl.py:74-125): the 3x3 neighbour min, then the
+masked segmented min-scans along the rows forward and back and along the
+columns forward and back, which together give each foreground run of a row
+(then of a column) its least label.  ``sweeps > 0`` runs exactly that many
+with no fixpoint check, as JAX's segmentation detector does, and may leave
+components split; ``max_iters > 0`` repeats them until none changes a label
+or max_iters have run.  These are the counterparts of JAX's XLA ops, not
+the plain version of a kernel.
 """
 
 import torch
@@ -66,16 +76,73 @@ def _as_batch(mask: torch.Tensor):
     return mask.reshape(-1, H, W).to(torch.bool), lead
 
 
-def connected_components(mask: torch.Tensor,
-                         connectivity: int = 8) -> torch.Tensor:
+def _run_min(lab: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Each foreground run of a row of lab [B, H, W] takes its least label
+    (JAX's forward and backward segmented min-scans, whose resets are the
+    background); background holds lab's value there."""
+    flat_m = mask.reshape(-1)
+    prev = torch.zeros_like(mask)
+    prev[..., 1:] = mask[..., :-1]
+    # a run never crosses a row: a row's first foreground pixel starts one
+    run = (mask & ~prev).reshape(-1).cumsum(0)
+    sentinel = lab.new_full((), torch.iinfo(lab.dtype).max)
+    vals = torch.where(flat_m, lab.reshape(-1), sentinel)
+    # one slot a pixel and one more: no host read of the run count
+    least = torch.full((run.numel() + 1,), torch.iinfo(lab.dtype).max,
+                       dtype=lab.dtype, device=lab.device)
+    least.scatter_reduce_(0, run, vals, reduce="amin")
+    return torch.where(mask, least[run].view(lab.shape), lab)
+
+
+def _sweep(lab: torch.Tensor, mask: torch.Tensor, sentinel: int,
+           connectivity: int) -> torch.Tensor:
+    """One of JAX's sweeps: the neighbour min, then the run minima along
+    the rows and along the columns, background held at the sentinel."""
+    lab = torch.where(mask, _neighbor_min(lab, sentinel, connectivity),
+                      sentinel)
+    lab = _run_min(lab, mask)
+    cols = _run_min(lab.transpose(1, 2).contiguous(),
+                    mask.transpose(1, 2).contiguous())
+    return cols.transpose(1, 2).contiguous()
+
+
+def _sweep_labels(m: torch.Tensor, connectivity: int, max_iters: int,
+                  sweeps: int) -> torch.Tensor:
+    """JAX's sweep labeling of m [B, H, W]: exactly ``sweeps`` sweeps, or
+    sweeps until none changes a label or ``max_iters`` have run."""
+    B, H, W = m.shape
+    S = H * W
+    lin = torch.arange(S, dtype=torch.int32, device=m.device).view(H, W)
+    lab = torch.where(m, lin, S)
+    if sweeps > 0:
+        for _ in range(sweeps):
+            lab = _sweep(lab, m, S, connectivity)
+        return lab
+    for _ in range(max_iters):
+        new = _sweep(lab, m, S, connectivity)
+        if torch.equal(new, lab):
+            break
+        lab = new
+    return lab
+
+
+def connected_components(mask: torch.Tensor, connectivity: int = 8,
+                         max_iters: int = 0,
+                         sweeps: int = 0) -> torch.Tensor:
     """Label connected components of a boolean mask [..., H, W].
 
     Returns int32 labels [..., H, W]: foreground pixels hold the linear
-    index of their component's minimal pixel, background holds H*W.
+    index of their component's minimal pixel, background holds H*W.  With
+    ``sweeps > 0``, exactly that many of JAX's sweeps and no fixpoint check
+    (a component may stay split, each part labelled by a pixel of it); with
+    ``max_iters > 0``, sweeps until a fixpoint or max_iters of them.
     """
     m, lead = _as_batch(mask)
     B, H, W = m.shape
     HW = H * W
+    if sweeps > 0 or max_iters > 0:
+        out = _sweep_labels(m, connectivity, max_iters, sweeps)
+        return out.reshape(lead + (H, W))
     lab = _global_labels(m, connectivity)
     base = torch.arange(B, device=m.device).view(B, 1, 1) * HW
     out = torch.where(m, lab - base, HW).to(torch.int32)

@@ -22,9 +22,11 @@ RUNTABLE_VARIANTS are the run-table CCL at R runs per row (scripts/
 profile_ccl_variants.py:33-148): per-row run tables [R, H], a min along each
 slot's vertical chains of overlapping runs and an 8-overlap exchange
 between rows to a certificate; a frame with a row of more than R runs takes
-"cur" instead.  Every variant but "fixed2" gives the labels of the label
-kernel's "ccl" stage (the least linear index of the component, background
-H*W); "fixed2" gives its own plain version's.
+"cur" instead.  On the card the tables come from the mask's bits, and only
+the frames that take "cur" get run ids (``ccl_runtable.runid_frames``).
+Every variant but "fixed2" gives the labels of the label kernel's "ccl"
+stage (the least linear index of the component, background H*W); "fixed2"
+gives its own plain version's.
 
 Masks are u8 [B, H, W] (nonzero = foreground) with W <= 1024 and H <= 1008.
 On a CUDA tensor ``ccl_mask`` and ``ccl_runtable`` launch
@@ -86,6 +88,9 @@ RUNTABLE_VARIANTS = {"runtable": 12, "runtable8": 8, "runtable6": 6,
 VARIANTS = tuple(SWEEP_VARIANTS) + tuple(RUNTABLE_VARIANTS)
 MAX_RUNS = 16            # run-table slots: one warp per slot
 BIGC = 1 << 20           # the run tables' "no run"
+# csrc/ccl_sweeps.cu's table block: its shared memory's limit (the
+# device's, less its static int)
+RUNTABLE_SMEM_MAX = SMEM_BYTES - 16
 # The cluster path: blocks a frame (the portable sizes, and 16 with the
 # non-portable opt-in), columns a pass of the column phase, and the flags
 # (the certificates' two sets of 16 ints, a pass's 32 column flags).
@@ -148,6 +153,14 @@ def nb8(lab: torch.Tensor, sentinel: int) -> torch.Tensor:
                                             shift(row, -1, -2, sentinel)))
 
 
+def runtable_bytes(rmax: int, H: int) -> int:
+    """Shared memory of csrc/ccl_sweeps.cu's table block (runtable_smem): a
+    slot of a row takes an int32 label and int16 first and last columns and
+    chain id, a row a byte of run count (rounded up to 16 bytes), and each
+    of the 16 warps stages 512 int32 labels."""
+    return (rmax * H * (4 + 2 + 2 + 2) + H + 15) // 16 * 16 + 16 * 512 * 4
+
+
 def sweep_phase_fits(W: int, lines: int) -> bool:
     """Whether common.cuh's sweep_phase fits one block's shared memory:
     a line buffer per warp (16 warps) or a tile of 33 x lines ints."""
@@ -162,11 +175,13 @@ def _check_mask_plane(H, W, rmax=None):
         raise ValueError(f"the CCL probes take masks of at most {MAX_LINE} "
                          f"columns and {MAX_LINE - 2 * GUARD_ROWS} rows, got "
                          f"{H}x{W}")
-    if rmax is not None and not (1 <= rmax <= MAX_RUNS
-                                 and 5 * rmax * H * 4 <= SMEM_BYTES
-                                 and (H + 2) * big + H * W < 1 << 30):
-        raise ValueError(f"rmax must be in [1, {MAX_RUNS}] with 5 x rmax x "
-                         f"H ints in shared memory, got {rmax} at H={H}")
+    if rmax is not None and not (
+            1 <= rmax <= MAX_RUNS
+            and runtable_bytes(rmax, H) <= RUNTABLE_SMEM_MAX
+            and (H + 2) * big + H * W < 1 << 30):
+        raise ValueError(f"rmax must be in [1, {MAX_RUNS}] with its tables "
+                         f"({runtable_bytes(rmax, H)} bytes) in shared "
+                         f"memory, got {rmax} at H={H}")
 
 
 def _sweep_steps(cfg: Sweep, H: int, W: int):
@@ -353,12 +368,15 @@ def _launch_runtable(mask, rmax, path, layout):
 
     B, H, W = mask.shape
     rb_r, rb_t, pa, pb, labels = _scratch(mask, path)
-    fits = torch.empty((B,), dtype=torch.int32, device=mask.device)
+    fits, ran = (torch.empty((n,), dtype=torch.int32, device=mask.device)
+                 for n in (B, 1))
     err = _cuda.library("ccl_sweeps").hd_runtable_ccl(
         mask.data_ptr(), B, H, W, rmax, *_path_args(layout),
         rb_r.data_ptr(), rb_t.data_ptr(), _ptr(pa), _ptr(pb),
-        fits.data_ptr(), labels.data_ptr(), _launch.stream(mask))
+        fits.data_ptr(), labels.data_ptr(), ran.data_ptr(),
+        _launch.stream(mask))
     _launch.raise_on(err, "runtable_ccl")
+    ccl_runtable.runid_frames = ran
     return labels, fits
 
 
@@ -414,7 +432,10 @@ def ccl_runtable(mask: torch.Tensor, rmax: int = 12, path=None):
     its per-frame choice: (labels int32 [B, H, W], fits int32 [B], 1 where
     the frame took the tables, 0 where it took "cur", on ``path`` as
     ccl_mask's).  Counted in ccl_mask's launches as runtable_variant(rmax);
-    sets ccl_mask.last_path."""
+    sets ccl_mask.last_path.  On the card each call (this one's, and
+    ccl_mask's of a run-table variant) leaves in ``ccl_runtable.runid_frames``
+    an int32 [1] tensor on the card: the frames that its run-id product
+    numbered, those that did not fit (read it after the call; no sync)."""
     _, H, W = _launch.check_mask(mask)
     _check_mask_plane(H, W, rmax)
     path, layout = choose_path(H, W, path=path)
@@ -426,6 +447,9 @@ def ccl_runtable(mask: torch.Tensor, rmax: int = 12, path=None):
     _count(runtable_variant(rmax))
     ccl_mask.last_path = path
     return out
+
+
+ccl_runtable.runid_frames = None
 
 
 def active_clusters(H: int, W: int, joint: bool = False) -> int:

@@ -21,7 +21,11 @@ run them.
 
 Frames are BGR planes [B, 3, H, W] uint8 with H, W >= 6.  On a CUDA tensor
 each wrapper launches csrc/pre_variants.cu (hd_pre_variant, hd_mxu_mean) and
-raises if it cannot; on a CPU tensor it runs its plain version, below.
+raises if it cannot; on a CPU tensor it runs its plain version, below.  A
+roll stage or variant is one launch of the one-pass tile preprocess
+(csrc/preprocess_tile.cuh), mxu_conv two (its band tables first):
+``launches_per_call``.  In that design roll_conv and roll_pair (a rolled
+interior with an exact border band) run cur's and pair_sym's instances.
 """
 
 import collections
@@ -185,24 +189,28 @@ def _check(frames):
     return B, H, W
 
 
+def launches_per_call(name: str) -> int:
+    """CUDA kernels one call of a roll stage or variant launches: the tile
+    preprocess, and for mxu_conv its band tables first."""
+    return 2 if VARIANTS.get(name, (0, False, False))[2] else 1
+
+
 def _launch_variant(frames, contrast_threshold, stage_id, border, pair, mma):
     from heimdall_tpu_torch.ops import _cuda
 
     _launch.check_cuda(frames, "frames", (torch.uint8,))
     B, _, H, W = frames.shape
     dev = frames.device
-    plane1, plane2 = (torch.empty((B, H, W), dtype=torch.uint8, device=dev)
-                      for _ in range(2))
-    work = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    band = torch.empty((11 * (H + W),), dtype=torch.float32, device=dev)
+    out = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
+    band = (torch.empty((11 * (H + W),), dtype=torch.float32, device=dev)
+            if mma else None)
     q8, k11 = kernel_taps()
     err = _cuda.library("pre_variants").hd_pre_variant(
         frames.data_ptr(), B, H, W, int(contrast_threshold), stage_id,
-        border, int(pair), int(mma), q8, k11, plane1.data_ptr(),
-        plane2.data_ptr(), work.data_ptr(), band.data_ptr(),
-        _launch.stream(frames))
+        border, int(pair), int(mma), q8, k11, out.data_ptr(),
+        None if band is None else band.data_ptr(), _launch.stream(frames))
     _launch.raise_on(err, "pre_variant")
-    return plane1 if stage_id == 1 else plane2
+    return out
 
 
 def roll_stage(frames: torch.Tensor, contrast_threshold,

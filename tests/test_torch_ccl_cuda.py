@@ -270,6 +270,48 @@ def test_runtable_fallback_on_both_paths(card, path):
     assert 0 < int(fits.sum()) < masks.shape[0]
 
 
+# The run tables' cases (scene.run_case_masks: rows of exactly 6 to 13 runs,
+# runs that start, end and cross the 16-column lanes and the 512-column
+# steps, one-pixel runs, full rows) at the bench width, an odd width (the
+# byte-load path), two steps of a row, and narrow frames.
+RUN_CASE_SIZES = [(24, 640), (24, 531), (40, 1024), (9, 17), (33, 48)]
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", RUN_CASE_SIZES, ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("rmax", [12, 10, 8, 6])
+@pytest.mark.parametrize("path", ["cluster", "global"])
+def test_runtable_on_run_cases(card, size, rmax, path):
+    """A batch mixing frames that fit with frames that overflow: labels and
+    fits equal the plain version's, and the run-id product numbers only
+    the frames that do not fit."""
+    masks = torch.from_numpy(np.stack(list(
+        scene.run_case_masks(*size).values())).astype(np.uint8))
+    want, want_fits = cs.runtable_reference(masks, rmax)
+    assert int(want_fits.sum()) > 0
+    if size[1] > 2 * rmax:          # every other column a run: overflows
+        assert int(want_fits.sum()) < masks.shape[0]
+    if path == "cluster" and cs.band_layout(*size) is None:
+        path = "global"
+    got, fits = cs.ccl_runtable(masks.to(card), rmax, path=path)
+    ran = int(cs.ccl_runtable.runid_frames)
+    assert torch.equal(fits.cpu(), want_fits)
+    assert torch.equal(got.cpu(), want)
+    assert ran == masks.shape[0] - int(want_fits.sum())
+
+
+@pytest.mark.cuda
+def test_runtable_numbers_no_run_ids_when_every_frame_fits(card):
+    masks = _masks(96, 128)
+    keep = cs.runtable_reference(masks, 12)[1].bool()
+    masks = masks[keep].to(card)
+    got, fits = cs.ccl_runtable(masks, 12)
+    assert int(fits.sum()) == masks.shape[0]
+    assert int(cs.ccl_runtable.runid_frames) == 0
+    assert torch.equal(got.cpu(), cs.runtable_reference(masks.cpu(), 12)[0])
+
+
 @pytest.mark.cuda
 def test_active_clusters_at_640x480(card):
     for joint in (False, True):

@@ -354,6 +354,40 @@ def test_check_runtable_masks_match_run_pair(rmax):
     np.testing.assert_array_equal(labels.numpy(), b)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_run_cases(h, w, rmax):
+    """The script's ccl_runtable on scene.run_case_masks(h, w)."""
+    masks = np.stack(list(scene.run_case_masks(h, w).values())).astype(
+        np.int32)
+    sentinel = h * w
+
+    def kernel(fg_ref, out_ref):
+        f = fg_ref[0]
+        row, col = _label_planes(h, w)
+        lab0 = jnp.where(f > 0, row * w + col, sentinel)
+        out_ref[0] = ccl_runtable(pk, jnp, jax, pltpu, lab0, f, sentinel,
+                                  Rmax=rmax)
+
+    return _pallas_masks(kernel, masks, 1)[0]
+
+
+@pytest.mark.parametrize("h,w,rmax", [(6, 48, 12), (6, 48, 6),
+                                      (4, 531, 8)])
+def test_runtable_on_run_case_masks(h, w, rmax):
+    """Rows of exactly 6 to 13 runs (R and R + 1), runs that start, end
+    and cross the 16-column lanes and the 512-column step, one-pixel runs
+    on every other column: the plain run tables equal JAX's ccl_runtable,
+    and fits is JAX's max(nrun) <= R (some frames fit, some do not)."""
+    masks = np.stack(list(scene.run_case_masks(h, w).values()))
+    labels, fits = cs.runtable_reference(
+        torch.from_numpy(masks.astype(np.uint8)), rmax)
+    np.testing.assert_array_equal(labels.numpy(), _jax_run_cases(h, w, rmax))
+    starts = masks & ~np.pad(masks, ((0, 0), (0, 0), (1, 0)))[..., :-1]
+    want = (starts.sum(-1).max(-1) <= rmax).astype(np.int32)
+    np.testing.assert_array_equal(fits.numpy(), want)
+    assert 0 < want.sum() < len(want)
+
+
 def test_check_runtable_script_with_plain_versions(capsys):
     assert check_runtable.main(["cpu"]) == 0
     out = capsys.readouterr().out

@@ -29,10 +29,12 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from heimdall_tpu.ops import pallas_kernels as pk
 
+from heimdall_tpu_torch import scene
 from heimdall_tpu_torch.ops import pre_variants as pv
 from heimdall_tpu_torch.ops import split_kernels as sk
 
@@ -171,6 +173,43 @@ def test_roll_stages_match_profiler_bodies(stage):
     if stage == "full_roll":                # the profiler keeps 255 for fg
         got = got.astype(np.int32) * 255
     _assert_frames_equal(_jax("roll", stage), got)
+
+
+def _jax_roll_frames(frames, stage):
+    """profile_preprocess.py's roll-stage body over BGR planes [n, 3, h, w]
+    of any size, one grid step a frame, in interpret mode."""
+    n, _, h, w = frames.shape
+
+    def kernel(ct_ref, frame_ref, out_ref):
+        out_ref[0] = _roll_stage_body(ct_ref, frame_ref, stage)
+
+    spec = pl.BlockSpec((1, 3, h, w), lambda i, c: (i, 0, 0, 0),
+                        memory_space=pltpu.VMEM)
+    gs = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1, grid=(n,), in_specs=[spec],
+        out_specs=[pl.BlockSpec((1, h, w), lambda i, c: (i, 0, 0),
+                                memory_space=pltpu.VMEM)])
+    return np.asarray(pl.pallas_call(
+        kernel, grid_spec=gs,
+        out_shape=(jax.ShapeDtypeStruct((n, h, w), jnp.int32),),
+        interpret=True)(_ct(), jnp.asarray(frames))[0])
+
+
+@pytest.mark.parametrize("size", [(6, 6), (7, 13), (13, 17)],
+                         ids=lambda s: "%dx%d" % s)
+def test_roll_stages_on_frames_where_the_halo_wraps(size):
+    """At 6x6 the mean's 11 taps wrap past the frame's far edge; at 7x13
+    and 13x17 the 11-pixel halo of the port's tiles does: the plain roll
+    stages equal the JAX bodies there (scene.tile_case_frames)."""
+    frames = np.ascontiguousarray(np.stack(list(scene.tile_case_frames(
+        *size, seed=2).values())).transpose(0, 3, 1, 2))
+    x = torch.from_numpy(frames)
+    for stage in pv.ROLL_STAGES:
+        got = pv.roll_stage_reference(x, CT, stage).numpy().astype(np.int32)
+        if stage == "full_roll":
+            got = got * 255
+        np.testing.assert_array_equal(got, _jax_roll_frames(frames, stage),
+                                      err_msg=stage)
 
 
 def test_roll_stages_differ_from_exact_only_near_the_edge():

@@ -12,8 +12,12 @@ all nine sweep fills (also equal to the label kernel's "fill"; and on the
 masks of the cases that attack the fill's tiles, the union-finds' row
 blocks and the bit words, equal to the plain sweep fill and to the tile
 union-find fill, at 480x640, 477x631, 13x17, 3x3, the bit cases' sizes
-and the largest planes the fill takes) and the stats tables.  mxu_conv's mean is a tensor-core product of TF32 splits:
-within 1e-3 of the float32 product, its threshold flips counted.
+and the largest planes the fill takes) and the stats tables.  mxu_conv's
+mean is a tensor-core product of TF32 splits: within 1e-3 of the float32
+product, its threshold flips counted.  The roll stages and the variants
+also on scene.tile_case_frames at sizes where every tile is a border tile
+(the wrap halo wrapping more than once at 6x6), each one launch of the
+tile preprocess (mxu_conv two).
 """
 
 import numpy as np
@@ -103,6 +107,65 @@ def test_mxu_conv_mean_within_tolerance(card, size):
     print(f"mxu_conv {size}: {int(flips.sum())} mean roundings and "
           f"{int(differ.sum())} pre pixels differ from the float32 product")
     assert not bool((differ & ~pv.flip_reach(want, MEAN_TOL)).any())
+
+
+# Frames below one tile and its 11-pixel halo (every tile a border tile; the
+# wrap halo wraps more than once at 6x6), odd sizes, and a frame of
+# interior and border tiles with partial tiles at its right and bottom.
+PROBE_CASE_SIZES = [(6, 6), (7, 13), (13, 17), (70, 131), (200, 397)]
+
+
+def _case_frames(h, w):
+    frames = np.stack(list(scene.tile_case_frames(h, w, seed=2).values()))
+    return torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", PROBE_CASE_SIZES, ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("ct", [CT, -CT])
+def test_probes_on_border_tile_cases(card, size, ct):
+    x = _case_frames(*size).to(card)
+    for stage in pv.ROLL_STAGES:
+        got = pv.roll_stage(x, ct, stage)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pv.roll_stage_reference(x, ct, stage)), stage
+    pre = sk.label_kernel(x, ct, "pre")
+    for name in ("cur", "roll_conv", "pair_sym", "roll_pair"):
+        got = pv.pre_variant(x, ct, name)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pv.pre_variant_reference(x, ct, name)), name
+        assert torch.equal(got, pre), name
+    want = pv.mxu_mean_reference(sk.label_kernel(x, ct, "blur5"))
+    differ = (pv.pre_variant(x, ct, "mxu_conv")
+              != pv.pre_variant_reference(x, ct, "mxu_conv"))
+    assert not bool((differ & ~pv.flip_reach(want, MEAN_TOL)).any())
+
+
+@pytest.mark.cuda
+def test_probe_launches_per_call(card):
+    """One CUDA kernel a roll stage or variant call, two for mxu_conv, as
+    launches_per_call says (a torch.profiler trace of each call, opened
+    with ProfilingSession.trace's lead of fill kernels, which the profiler
+    may drop)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from heimdall_tpu_torch.perf import profiling
+    x = _frames(64, 128).to(card)
+    calls = {s: (lambda s=s: pv.roll_stage(x, CT, s)) for s in pv.ROLL_STAGES}
+    calls.update({v: (lambda v=v: pv.pre_variant(x, CT, v))
+                  for v in pv.VARIANTS})
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiling.lead(card)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and ("k_pre_variant" in e.name or "k_band_table" in e.name)]
+        assert len(names) == pv.launches_per_call(name), (name, names)
+        assert any("k_pre_variant" in n for n in names), (name, names)
 
 
 @pytest.mark.cuda

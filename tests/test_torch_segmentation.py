@@ -2,8 +2,8 @@
 (JAX on the CPU), the flax parameters carried across by models/convert.py:
 probabilities within 1e-5 and masks equal; the model input exact; the
 detector's defects equal to JAX's on the same probabilities (labels, blob
-table and bbox confidences: the port labels through the band route's
-functions, JAX through ops.connected_components + blobs.blob_stats).
+table and bbox confidences: both label with 6 sweeps of
+ops.connected_components, then blobs.blob_stats).
 
 The port runs with device="cpu"; the UNet's width is cut (base 8), frames
 are small and odd-sized.  JAX's flax init and its detector's labeling run
@@ -26,6 +26,7 @@ from heimdall_tpu.models import segmentation as jseg
 from heimdall_tpu_torch import scene
 from heimdall_tpu_torch.models import convert, layers
 from heimdall_tpu_torch.models import segmentation as tseg
+from heimdall_tpu_torch.ops import ccl as tccl
 
 
 def _frames():
@@ -156,17 +157,16 @@ def test_segmentation_detector_equals_jax(config, jitted_labels):
     assert [d.to_dict() for d in single] == [d.to_dict() for d in got[0]]
 
 
-def test_detector_on_the_segmenter(jitted_labels, monkeypatch):
+def test_detector_on_the_segmenter(jitted_labels):
     """The port's whole chain (its UNet, then its detector) against JAX's
     detector given the port's probabilities (pixels within 1e-5 of the
     threshold may fall on either side between the two UNets).
 
     The seeded UNet's map lies in 0.43-0.51 on these frames, so its mask at
-    0.48 is speckled.  JAX's detector labels with 6 unrolled sweeps and no
+    0.48 is speckled.  Both detectors label with 6 unrolled sweeps and no
     fixpoint check (heimdall_tpu/models/segmentation.py:172), which leave
-    some of its components split; the port labels to the fixpoint.  So JAX
-    is held here with its labeling run to the fixpoint (sweeps=0), and the
-    test checks that the 6 sweeps do fall short on this mask."""
+    some components split on this mask: the test checks that they do, and
+    holds the port against JAX's detector as it is, exactly."""
     _, mine = _segmenters()
     frames = _frames()[1]
     cfg = {"threshold": 0.48, "min_contaminant_size": 1}
@@ -175,17 +175,32 @@ def test_detector_on_the_segmenter(jitted_labels, monkeypatch):
     prob = mine.predict(frames)
     ccl = jops.connected_components
     mask = prob >= 0.48
-    assert (np.asarray(ccl(mask, connectivity=8, sweeps=6))
-            != np.asarray(ccl(mask, connectivity=8))).any()
-    monkeypatch.setattr(
-        jops, "connected_components",
-        lambda m, connectivity=8, max_iters=0, sweeps=0: ccl(
-            m, connectivity=connectivity))
+    six = np.asarray(ccl(mask, connectivity=8, sweeps=6))
+    assert (six != np.asarray(ccl(mask, connectivity=8))).any()
+    np.testing.assert_array_equal(
+        tccl.connected_components(torch.from_numpy(mask), 8,
+                                  sweeps=6).numpy(), six)
     want = jseg.SegmentationDetector(_FixedProb(prob),
                                      config=cfg).detect_batch(frames)
     assert sum(map(len, want)) > 4
     assert [[d.to_dict() for d in r] for r in got] == \
         [[d.to_dict() for d in r] for r in want]
+
+
+@pytest.mark.parametrize("sweeps,max_iters", [(1, 0), (2, 0), (0, 2),
+                                              (0, 0)])
+def test_sweep_labels_equal_jax(sweeps, max_iters, jitted_labels):
+    """ops/ccl.py's connected_components with JAX's sweeps and max_iters
+    equals JAX's on speckle masks (a sweep or two leave components split;
+    the fixpoint does not)."""
+    rng = np.random.default_rng(7)
+    mask = rng.random((2, 23, 31)) < 0.55
+    want = np.asarray(jops.connected_components(
+        mask, connectivity=8, max_iters=max_iters, sweeps=sweeps))
+    got = tccl.connected_components(torch.from_numpy(mask), 8,
+                                    max_iters=max_iters, sweeps=sweeps)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_float32_convs_serialises_its_callers():
