@@ -2599,6 +2599,49 @@ def check_split_cases(dev):
     return err
 
 
+STATS_KERNELS = {"k_chunk_roots": 1, "k_slot_sums": 1, "k_window_sums": 1}
+
+
+def check_stats_cases(dev):
+    """Phase 3d's cases that attack the stats kernel's passes (B6a):
+    scene.stats_case_labels (the K-th root mid-row, roots past K, a root
+    in the last row, every pixel a root, labels naming non-roots and roots
+    ranked K or later, empty and full planes) at scene.STATS_CASE_SIZES
+    with K 1, 64 and 1024, against the plain version; then one call's CUDA
+    kernels at 640x480, traced, against hd_stats_from_labels_launches and
+    STATS_KERNELS.  Returns the largest error (0 or the run fails)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import _cuda
+    from heimdall_tpu_torch.ops import split_kernels as sk
+
+    err, first = 0, None
+    for h, w in scene.STATS_CASE_SIZES:
+        for k in (1, K, 1024):
+            labels = torch.from_numpy(np.stack(list(
+                scene.stats_case_labels(h, w, k, seed=1).values()))).to(dev)
+            x = torch.from_numpy(scene.stats_case_frames(
+                len(labels), h, w, seed=2)).to(dev)
+            got = sk.stats_kernel(x, labels, k)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, sk.stats_kernel_reference(x, labels, k))
+            phase(f"check stats cases {h}x{w} K {k}: n_blobs "
+                  f"{got[3].tolist()} max_abs_err {e}")
+            if e:
+                fail(f"the stats kernel differs from its plain version on "
+                     f"the stats cases at {h}x{w}, K {k}")
+            err = max(err, e)
+            first = first or (x, labels)
+    got = cuda_kernels(lambda: sk.stats_kernel(*first, K))
+    told = _cuda.library("stats_labels").hd_stats_from_labels_launches()
+    if got != STATS_KERNELS or sum(got.values()) != told:
+        fail(f"stats_kernel launched {got}: not {told} of {STATS_KERNELS}")
+    phase(f"stats_kernel {tuple(first[1].shape)}: CUDA kernels per call "
+          f"(traced) {got}")
+    return err
+
+
 def split_phases(dev, smi, cases):
     """Phases 3d and 5d: the split kernels (B6b label_kernel at every stage,
     B6a stats_kernel) against their plain versions on phase 3's frames, then
@@ -2617,7 +2660,8 @@ def split_phases(dev, smi, cases):
     from heimdall_tpu_torch.ops import pre_variants as pv
     from heimdall_tpu_torch.ops import split_kernels as sk
     from heimdall_tpu_torch.ops.fused_kernels import contamination_fused
-    from heimdall_tpu_torch.scripts import profile_fused, profile_preprocess
+    from heimdall_tpu_torch.scripts import (profile_fused, profile_preprocess,
+                                            profile_stats_fill)
 
     # -- 3d. split kernels against their plain versions ---------------------
     uniform = torch.full((2, 3, 480, 640), 128, dtype=torch.uint8, device=dev)
@@ -2633,6 +2677,7 @@ def split_phases(dev, smi, cases):
             ("uniform_full_foreground", uniform, K, -CONTRAST)):
         err = max(err, check_split(name, x, k, ct))
     err = max(err, check_split_cases(dev))
+    err = max(err, check_stats_cases(dev))
     full = sk.label_kernel(uniform, -CONTRAST, "fill")
     if not bool(full.all()):
         fail("the full-foreground case is not all foreground")
@@ -2683,11 +2728,25 @@ def split_phases(dev, smi, cases):
              for s in sk.STAGES}
     plain["stats"] = lambda: sk.stats_kernel_reference(x, labels, K)
     moved = {s: px * (3 + (4 if s == "ccl" else 1)) for s in sk.STAGES}
-    moved["stats"] = px * 7 + BATCH * (16 * K + 1) * 4
+    moved["stats"] = profile_stats_fill.label_stats_bytes(
+        labels, sk.stats_kernel_reference(x, labels, K))
     lib = _cuda.library("fused_detect")
     per_call = {s: lib.hd_label_launches(sk.STAGES.index(s), 480, 640)
                 for s in sk.STAGES}
-    per_call["stats"] = lib.hd_stats_from_labels_launches()
+    per_call["stats"] = _cuda.library(
+        "stats_labels").hd_stats_from_labels_launches()
+    # B6a alone, queued behind a spin, and each of its launches (traced)
+    stats_alone = profile_stats_fill.measure(
+        "B6a stats_kernel 640x480", lambda: sk.stats_kernel(x, labels, K),
+        10, moved["stats"], BATCH, "frame")
+    every_byte = px * 7 + BATCH * (16 * K + 1) * 4
+    per_launch = {n: round(t, 3) for n, t in stats_alone["kernels_us"].items()}
+    phase(f"{smi}: split stats (B6a) alone {stats_alone['us_per_frame']:.3f} "
+          f"us/frame against its bound "
+          f"{moved['stats'] / HBM_BYTES_PER_S * 1e6 / BATCH:.3f} (this "
+          f"run's bytes: labels, the windows' frame bytes, the tables) and "
+          f"{every_byte / HBM_BYTES_PER_S * 1e6 / BATCH:.3f} (every frame "
+          f"byte); each launch, us a call: {per_launch}")
     timings = {}
     for name, fn in plain.items():
         fn()
@@ -2728,14 +2787,16 @@ def split_phases(dev, smi, cases):
                 "(4 launches)",
         "ccl": "k_preprocess, the tile fill, then the tile labels of "
                "tile_uf.cuh with one band of H rows (7 launches)",
-        "stats": "k_from_labels, then the fused detect's stats passes "
-                 "(5 launches)"}
+        "stats": "two passes over the label plane, no scratch plane "
+                 "(roots of 8192-pixel chunks; per-slot sums of 128x32 "
+                 "strips), then the bbox windows (3 launches)"}
     entries = []
     for name, (key, replaces) in names.items():
         t = timings[key]
         entries.append({
             "name": name, "route": "cuda",
-            "source": "heimdall_tpu_torch/csrc/fused_detect.cu",
+            "source": "heimdall_tpu_torch/csrc/" + (
+                "stats_labels.cu" if key == "stats" else "fused_detect.cu"),
             "design": design[key],
             "replaces": replaces, "equal": err == 0,
             "launches": launches[key], "max_abs_err": err,
@@ -2746,6 +2807,9 @@ def split_phases(dev, smi, cases):
             "batch": BATCH, "frame": "640x480x3"})
         if name == "label_stage_pre":      # also the profiler's "full" stage
             entries[-1]["also_replaces"] = staged
+        if key == "stats":      # also alone, queued behind a spin
+            entries[-1].update(alone_ms=stats_alone["ms"],
+                               kernels_us=stats_alone["kernels_us"])
     return entries, t_pre, roll_launches
 
 
@@ -3776,7 +3840,8 @@ def check_sp_entries(dev):
     shards, with random reached halos on the cut rows (the fill) and the
     neighbours' mask rows (the stats; K = 64 and 4); the band labels with
     one band a shard and with bands that cut it.  Returns (largest error,
-    the 2 MP bench shards' inputs for the timings)."""
+    the 2 MP bench shards' inputs for the timings and their whole
+    frames' mask)."""
     import numpy as np
     import torch
     from heimdall_tpu_torch import scene
@@ -3854,7 +3919,8 @@ def check_sp_entries(dev):
                 if name == "bench4_2mp" and n == SP_RANKS and i == 1:
                     timing = (masks[i], fills[i], labs[i], fm, grays[i],
                               colors[i], ht, hb, up, dn, hl, H, W,
-                              ct._root_table(labels.reshape(B, H, W), K))
+                              ct._root_table(labels.reshape(B, H, W), K),
+                              mask)
         torch.cuda.synchronize()
         worst = max(errs.values())
         phase(f"check shard entries {name} ({B}x{H}x{W}, shards of 4 and "
@@ -3866,6 +3932,53 @@ def check_sp_entries(dev):
     return err, timing
 
 
+def check_flood_sp_cases(dev):
+    """Phase 4g's cases of B5b-sp's cluster design: the first, a middle and
+    the last of 3 shards of 1, 14 and 270 rows, at 1920 columns (16-byte
+    loads) and 517 (byte loads), with random reached halos, all-reached
+    ones and none on the cut rows, on scene.tile_case_masks and
+    label_case_masks and on scene.cut_maze_mask (a corridor that crosses
+    a cut row twice); and a shard of 4100 columns, past the cluster's
+    width, through the tile union-find.  Returns the largest error (0 or
+    the run fails)."""
+    import numpy as np
+    import torch
+    from heimdall_tpu_torch import scene
+    from heimdall_tpu_torch.ops import ccl_tiled as ct
+
+    rng = np.random.RandomState(12)
+    err, paths = 0, set()
+    for hl, w in ((1, 1920), (14, 1920), (270, 1920), (1, 517), (14, 517),
+                  (270, 517), (14, 4100)):
+        h = 3 * hl
+        masks = [*scene.tile_case_masks(h, w).values(),
+                 *scene.label_case_masks(h, w).values()]
+        if hl > 1:
+            masks += [scene.cut_maze_mask(h, w, hl),
+                      scene.cut_maze_mask(h, w, 2 * hl)]
+        masks = torch.from_numpy(np.stack(masks)).to(dev)
+        B = masks.shape[0]
+        for i, m in enumerate(_shards(masks, 3)):
+            for halo in ("random", "all", None):
+                halos = [(torch.from_numpy(rng.rand(B, w) < 0.5) if halo ==
+                          "random" else torch.ones(B, w, dtype=torch.bool))
+                         .to(torch.uint8).to(dev)
+                         if cut and halo else None for cut in (i > 0, i < 2)]
+                got = ct.flood_fill_sp(m, i * hl, h, *halos)
+                paths.add((w, ct.flood_fill_sp.last_path))
+                err = max(err, max_abs_err(
+                    (got,), (ct.flood_sp_reference(m, i * hl, h, *halos),)))
+    torch.cuda.synchronize()
+    want = {(1920, "cluster"), (517, "cluster"), (4100, "tiles")}
+    phase(f"check flood_fill_sp cases (shards of 1, 14, 270 rows; first, "
+          f"middle, last; halos random / all / none; mazes): max_abs_err "
+          f"{err}; paths {sorted(paths)}")
+    if err or paths != want:
+        fail(f"flood_fill_sp differs from its plain version ({err}) or took "
+             f"paths {paths}, not {want}")
+    return err
+
+
 def time_sp_entries(smi, timing):
     """Each shard entry's time per call on the 2 MP bench frames' second
     shard of four ([SP_BATCH, 270, 1920], both halos), its plain version's
@@ -3875,7 +3988,7 @@ def time_sp_entries(smi, timing):
     from heimdall_tpu_torch.ops import stats_tiled as st
 
     (mask, filled, labs, fm, gray, color, ht, hb, up, dn, hl, H, W,
-     (rl, nb)) = timing
+     (rl, nb), full) = timing
     B = mask.shape[0]
     px = B * hl * W
     calls = {
@@ -3910,6 +4023,25 @@ def time_sp_entries(smi, timing):
               f"{B}x{hl}x{W} ({ms / B * 1e3:.3f} us/frame-shard); plain "
               f"version {plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us "
               f"(bytes)")
+    # B5b-sp's launches, and B5b (the whole-frame fill, the frame's border
+    # rules) at the same batch on the shard's masks and on whole frames
+    from heimdall_tpu_torch.scripts.profile_stats_fill import measure
+    fill = out["flood_fill_sp"]
+    fill["kernels_us"] = measure(
+        f"B5b-sp flood_fill_sp {B}x{hl}x{W}",
+        lambda: ct.flood_fill_sp(mask, hl, H, ht, hb), 20,
+        2 * px + 2 * B * W, 1, "call")["kernels_us"]
+    fill["b5b_same_masks"] = measure(
+        f"B5b flood_fill {B}x{hl}x{W}", lambda: ct.flood_fill(mask), 20,
+        2 * px, 1, "call")
+    fill["b5b_whole_frames"] = measure(
+        f"B5b flood_fill {B}x{H}x{W}", lambda: ct.flood_fill(full), 20,
+        2 * B * H * W, 1, "call")
+    phase(f"{smi}: flood_fill_sp's launches, us a call: "
+          f"{fill['kernels_us']}; B5b at batch {B}: "
+          f"{fill['b5b_same_masks']['ms'] * 1e3:.3f} us a call on the same "
+          f"{B}x{hl}x{W} masks, {fill['b5b_whole_frames']['ms'] * 1e3:.3f} "
+          f"on {B}x{H}x{W}")
     return out
 
 
@@ -3929,6 +4061,7 @@ def parallel_phases(dev, smi):
     from heimdall_tpu_torch.parallel.launch import launch
 
     err, timing = check_sp_entries(dev)
+    err = max(err, check_flood_sp_cases(dev))
     times = time_sp_entries(smi, timing)
 
     det = ContaminationDetector(config={"include_contours": False})
@@ -4672,6 +4805,14 @@ def main(argv):
             "library_note": "no single PyTorch call computes it",
             "batch": SP_BATCH, "frame": "a shard of 270x1920 of 1920x1080",
             "launches_path": "multi-device path (phase 4g, 4 ranks)"})
+        if name == "flood_fill_sp":
+            kernels[-1].update(
+                design="one launch on a cluster of 16 blocks a frame-shard: "
+                       "the shard as bits in shared memory, bit-parallel row "
+                       "and column passes, edge rows traded in the cluster",
+                kernels_us=t["kernels_us"],
+                b5b_same_masks_ms=t["b5b_same_masks"]["ms"],
+                b5b_whole_frames_ms=t["b5b_whole_frames"]["ms"])
     # the system path's launches (phase 4d): wrapper calls, and the CUDA
     # kernels traced in one 2 MP inspect_batch and one bottle_base call
     for k in kernels + path_kernels:

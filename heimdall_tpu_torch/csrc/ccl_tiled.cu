@@ -34,13 +34,17 @@
 // its first root to its cap-th (k_band_roots).  4 launches.
 //
 // hd_flood_fill_sp: hd_flood_fill on a shard of H of a frame's Hg rows from
-// row row_off.  The border is the frame's (tile_uf.cuh, "hole fill"): its
-// first and last rows only where the shard holds them, and a background
-// pixel of a cut row joins it when the halo pixel across the cut is
-// reached.  The halos are the neighbouring shards' edge rows of ~filled
-// from the previous round; the caller repeats rounds until no shard's edge
-// rows change (one word all-reduced on the host a round), as the JAX
-// package repeats its banded rounds.  Within a round the shard is solved
+// row row_off.  The border is the frame's: its first and last rows only
+// where the shard holds them, and a background pixel of a cut row joins it
+// when the halo pixel across the cut is reached.  One launch on a
+// thread-block cluster a frame-shard, the shard held as bits in the
+// blocks' shared memory and flooded by bit-parallel row and column passes
+// ("shard fill" below); shards too large for a cluster take the tile
+// union-find of hd_flood_fill (tile_uf.cuh, "hole fill").  The halos are
+// the neighbouring shards' edge rows of ~filled from the previous round;
+// the caller repeats rounds until no shard's edge rows change (one word
+// all-reduced on the host a round), as the JAX package repeats its banded
+// rounds.  Within a round the shard is solved
 // whole, so the rounds count only the corridors' crossings of cut rows.
 //
 // hd_band_ccl_sp: hd_band_ccl with the frame's indices on a shard: every
@@ -74,6 +78,8 @@
 // components that cross tile edges, and its root scans.  The fill's table
 // and the labels' root pointers stay in the 50 MB L2.  The merge passes
 // through label planes in device memory and does not approach its bound.
+
+#include <cooperative_groups.h>
 
 #include "tile_uf.cuh"
 
@@ -252,6 +258,390 @@ __global__ void k_incidence(Geom g, int K, int cap, const int32_t* labels,
                     slot_count + b * g.R + r);
 }
 
+// ------------------------------------------------------------ shard fill
+//
+// hd_flood_fill_sp's design: one launch, a thread-block cluster of C <= 16
+// blocks a frame-shard.  A shard call holds about one frame's pixels ([4,
+// 270, 1920] on the multi-device path), so the union-find's three
+// dependent launches of 32 x 128 tiles take a tile's latency each, not
+// their pixels' time (its bound: the mask read and the filled plane
+// written, 2 B/px).  Here block c holds rows [c H / C, (c + 1) H / C) of
+// the shard as bits in shared memory (background and reached, a 32-bit
+// word per 32 columns) and floods the background from the border to its
+// fixpoint with bit-parallel passes:
+//   row pass     a warp a row: each background run that holds a reached
+//                bit becomes reached, by carries: ((bg + s) ^ bg) & bg | s
+//                fills from each seed toward higher columns, the same on
+//                the bit-reversed row toward lower ones; the carries
+//                between the lanes' words come from two ballots (a
+//                carry-lookahead add of generate and propagate bits);
+//   column pass  a thread a word column: reached bits move down, then up,
+//                through background bits, 32 columns at a time.
+// The passes alternate until a column pass changes no word (every row is
+// closed after a row pass).  Then each block stores its edge rows into its
+// neighbours' shared memory (remote stores, a word a thread; a load
+// through the cluster's window costs far more) and meets them at a cluster
+// barrier: a background bit of a block's first or last row under a reached
+// bit of its neighbour's becomes reached.  Each block stores its gain into
+// every block's shared memory the same way, behind a second barrier; the
+// rounds end when no block gains a bit.  The seeds are the frame's border
+// (columns 0 and W - 1, and the frame's first and last rows where the
+// shard holds them) and, on a cut row, the background under a reached halo
+// pixel.  The mask is read and the filled plane written once, 16 bytes a
+// load or store.  Shards wider than 4096 columns, or too tall for the
+// cluster's shared memory, take the tile union-find (launch_fill<true>).
+
+namespace cg = cooperative_groups;
+
+constexpr int kShardThreads = 1024;     // a warp a row of up to 32 rows
+constexpr int kShardWarps = kShardThreads / 32;
+constexpr int kShardBlocks = 16;        // a cluster, at most
+constexpr int kShardMaxWords = 128;     // words a row: W <= 4096
+
+struct ShardGeom {
+  int H, W, nw;         // the shard's rows and columns, words a row
+  int C, rows;          // blocks a shard, rows a block at most
+  int row_off, Hg;      // the shard's first row in the frame, frame rows
+  const uint8_t* halo_top;
+  const uint8_t* halo_bot;
+  const int* active;
+};
+
+inline ShardGeom shard_geom(int H, int W, int row_off, int Hg,
+                            const uint8_t* halo_top, const uint8_t* halo_bot,
+                            const int* active) {
+  int C = min(kShardBlocks, H);
+  return ShardGeom{H, W, (W + 31) / 32, C, (H + C - 1) / C, row_off, Hg,
+                   halo_top, halo_bot, active};
+}
+
+inline size_t shard_smem(const ShardGeom& g) {
+  return ((size_t)2 * g.rows * g.nw + 2 * g.nw + 1) * sizeof(unsigned);
+}
+
+__device__ __forceinline__ int shard_row0(const ShardGeom& g, int c) {
+  return (int)((long long)c * g.H / g.C);
+}
+
+// Bits of the 32 bytes of a row at columns x .. x + 31 (bit k: byte x + k
+// nonzero); columns past W read 0.  kVec (W % 32 == 0, 16-byte aligned
+// rows): two uint4 loads.
+template <bool kVec>
+__device__ __forceinline__ unsigned byte_bits(const uint8_t* row, int x,
+                                              int W) {
+  unsigned bits = 0;
+  if (kVec) {
+    const uint4* p = reinterpret_cast<const uint4*>(row + x);
+    uint4 lo = p[0], hi = p[1];
+    unsigned w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      unsigned m = __vcmpne4(w[k], 0u) & 0x01010101u;
+      bits |= (m * 0x10204080u) >> 28 << (4 * k);   // 4 bytes -> 4 bits
+    }
+  } else {
+#pragma unroll 8
+    for (int k = 0; k < 32; ++k) {
+      uint8_t v = row[min(x + k, W - 1)];
+      bits |= (unsigned)(x + k < W && v != 0) << k;
+    }
+  }
+  return bits;
+}
+
+// The bits of f as 32 bytes 0/1 at columns x .. x + 31 of a row (columns
+// past W not written).
+template <bool kVec>
+__device__ __forceinline__ void bits_bytes(unsigned f, uint8_t* row, int x,
+                                           int W) {
+  if (kVec) {
+    unsigned w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)      // 4 bits -> 4 bytes
+      w[k] = (f >> (4 * k) & 15u) * 0x00204081u & 0x01010101u;
+    uint4* p = reinterpret_cast<uint4*>(row + x);
+    p[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    p[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  } else {
+    for (int k = 0; k < 32 && x + k < W; ++k) row[x + k] = f >> k & 1u;
+  }
+}
+
+// t = bg + s + cin over a lane's N words (word 0 lowest); returns the
+// carry out.
+template <int N>
+__device__ __forceinline__ unsigned add_words(const unsigned* bg,
+                                              const unsigned* s,
+                                              unsigned cin, unsigned* t) {
+  unsigned c = cin;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    unsigned long long v = (unsigned long long)bg[i] + s[i] + c;
+    t[i] = (unsigned)v;
+    c = (unsigned)(v >> 32);
+  }
+  return c;
+}
+
+// The run fill toward higher columns over the warp's row: lane l holds
+// words l N .. l N + N - 1.  The carry into each lane: G (a lane's add
+// carries out by itself) and P (it passes a carry on: all background, no
+// seed) as ballots, in the lanes' order of `rev` (false: lane l at bit l;
+// true: at bit 31 - l), then the carries of (G | P) + G.
+template <int N>
+__device__ __forceinline__ void fill_up(const unsigned* bg, unsigned* s,
+                                        bool pass, bool rev) {
+  int lane = threadIdx.x & 31;
+  unsigned t[N];
+  unsigned g = __ballot_sync(kFull, add_words<N>(bg, s, 0u, t));
+  unsigned p = __ballot_sync(kFull, pass);
+  if (rev) {
+    g = __brev(g);
+    p = __brev(p);
+  }
+  unsigned x = g | p, carry = (x + g) ^ x ^ g;
+  add_words<N>(bg, s, carry >> (rev ? 31 - lane : lane) & 1u, t);
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] |= (t[i] ^ bg[i]) & bg[i];
+}
+
+// s := the background runs of the row that hold a bit of s (s within bg).
+template <int N>
+__device__ __forceinline__ void run_fill(const unsigned* bg, unsigned* s) {
+  bool pass = true;
+#pragma unroll
+  for (int i = 0; i < N; ++i) pass &= bg[i] == ~0u && s[i] == 0u;
+  unsigned up[N], rb[N], rs[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    up[i] = s[i];
+    rb[i] = __brev(bg[N - 1 - i]);     // the row reversed: lanes, words, bits
+    rs[i] = __brev(s[N - 1 - i]);
+  }
+  fill_up<N>(bg, up, pass, false);
+  fill_up<N>(rb, rs, pass, true);
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = up[i] | __brev(rs[N - 1 - i]);
+}
+
+// The row pass over the block's rows, a warp a row.
+template <int N>
+__device__ void row_pass(const ShardGeom& g, const unsigned* BG, unsigned* R,
+                         int rows) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int y = warp; y < rows; y += kShardWarps) {
+    unsigned bg[N], s[N], was[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      int j = lane * N + i;
+      bool in = j < g.nw;
+      bg[i] = in ? BG[y * g.nw + j] : 0u;
+      s[i] = was[i] = in ? R[y * g.nw + j] : 0u;
+    }
+    run_fill<N>(bg, s);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      int j = lane * N + i;
+      if (j < g.nw && s[i] != was[i]) R[y * g.nw + j] = s[i];
+    }
+  }
+}
+
+// The column pass, a thread a word column: down the block's rows, then up,
+// kColChunk rows at a time (their words loaded together, then the chain
+// through them in registers); whether a word changed.
+constexpr int kColChunk = 8;
+
+__device__ bool column_pass(const ShardGeom& g, const unsigned* BG,
+                            unsigned* R, int rows) {
+  bool ch = false;
+  for (int j = threadIdx.x; j < g.nw; j += kShardThreads) {
+    unsigned prev = 0u;
+    for (int y0 = 0; y0 < rows; y0 += kColChunk) {
+      unsigned r[kColChunk], bg[kColChunk];
+#pragma unroll
+      for (int k = 0; k < kColChunk; ++k) {
+        int i = min(y0 + k, rows - 1) * g.nw + j;
+        r[k] = R[i];
+        bg[k] = BG[i];
+      }
+#pragma unroll
+      for (int k = 0; k < kColChunk; ++k) {
+        unsigned v = r[k] | (prev & bg[k]);
+        if (y0 + k < rows && v != r[k]) {
+          R[(y0 + k) * g.nw + j] = v;
+          ch = true;
+        }
+        prev = v;
+      }
+    }
+    prev = 0u;
+    for (int y0 = rows - 1; y0 >= 0; y0 -= kColChunk) {
+      unsigned r[kColChunk], bg[kColChunk];
+#pragma unroll
+      for (int k = 0; k < kColChunk; ++k) {
+        int i = max(y0 - k, 0) * g.nw + j;
+        r[k] = R[i];
+        bg[k] = BG[i];
+      }
+#pragma unroll
+      for (int k = 0; k < kColChunk; ++k) {
+        unsigned v = r[k] | (prev & bg[k]);
+        if (y0 - k >= 0 && v != r[k]) {
+          R[(y0 - k) * g.nw + j] = v;
+          ch = true;
+        }
+        prev = v;
+      }
+    }
+  }
+  return ch;
+}
+
+template <int N, bool kVec>
+__global__ void __launch_bounds__(kShardThreads, 1)
+k_fill_shard(ShardGeom g, const uint8_t* mask, uint8_t* filled) {
+  extern __shared__ __align__(16) unsigned s_bits[];
+  __shared__ int s_gain[kShardBlocks];     // each block's gain of a round
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = blockIdx.x, b = blockIdx.y;
+  if (g.active != nullptr && g.active[b] == 0) return;   // the whole cluster
+  const int r0 = shard_row0(g, c), rows = shard_row0(g, c + 1) - r0;
+  const int cells = rows * g.nw;
+  unsigned* BG = s_bits;                     // [rows][nw]: background
+  unsigned* R = BG + g.rows * g.nw;          // [rows][nw]: reached
+  unsigned* top = R + g.rows * g.nw;         // the last row of block c - 1
+  unsigned* bot = top + g.nw;                // the first row of block c + 1
+  const long long plane = (long long)b * g.H * g.W;
+  // every block of the cluster runs before one stores into another's
+  // shared memory: arrive now, wait before the first store
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  bool started = false;
+
+  for (int i = threadIdx.x; i < cells; i += kShardThreads) {
+    int y = i / g.nw, j = i - y * g.nw, x = 32 * j;
+    unsigned valid = g.W - x >= 32 ? ~0u : (1u << (g.W - x)) - 1u;
+    unsigned bg = ~byte_bits<kVec>(mask + plane + (long long)(r0 + y) * g.W,
+                                   x, g.W) & valid;
+    int gy = g.row_off + r0 + y;
+    unsigned s = gy == 0 || gy == g.Hg - 1 ? bg : 0u;   // the frame's edges
+    if (j == 0) s |= bg & 1u;
+    if (j == g.nw - 1) s |= bg & (1u << ((g.W - 1) & 31));
+    if (r0 + y == 0 && g.halo_top != nullptr)           // across the cuts
+      s |= bg & byte_bits<kVec>(g.halo_top + (long long)b * g.W, x, g.W);
+    if (r0 + y == g.H - 1 && g.halo_bot != nullptr)
+      s |= bg & byte_bits<kVec>(g.halo_bot + (long long)b * g.W, x, g.W);
+    BG[i] = bg;
+    R[i] = s;
+  }
+  __syncthreads();
+
+  // The filled plane of the block's rows, from BG and R.
+  auto store = [&]() {
+    for (int i = threadIdx.x; i < cells; i += kShardThreads) {
+      int y = i / g.nw, j = i - y * g.nw;
+      bits_bytes<kVec>(~(BG[i] & R[i]),
+                       filled + plane + (long long)(r0 + y) * g.W, 32 * j,
+                       g.W);
+    }
+  };
+  bool gain = true, stored = false;
+  while (true) {
+    // The block's fixpoint: after a row pass every row is closed, so a
+    // column pass that changes nothing ends it.  A block that gained no
+    // bit from its neighbours is at its fixpoint already.
+    for (bool ch = gain; ch;) {
+      row_pass<N>(g, BG, R, rows);
+      __syncthreads();
+      ch = __syncthreads_or(column_pass(g, BG, R, rows));
+    }
+    // Each block stores its edge rows into its neighbours' shared memory
+    // (remote stores, no remote load), then its gain into every block's.
+    if (!started) {
+      asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+      started = true;
+    }
+    for (int j = threadIdx.x; j < g.nw; j += kShardThreads) {
+      if (c < g.C - 1)
+        cl.map_shared_rank(top, c + 1)[j] = R[(rows - 1) * g.nw + j];
+      if (c > 0) cl.map_shared_rank(bot, c - 1)[j] = R[j];
+    }
+    cl.sync();
+    gain = false;
+    for (int j = threadIdx.x; j < g.nw; j += kShardThreads) {
+      int last = (rows - 1) * g.nw + j;
+      unsigned v = c > 0 ? BG[j] & top[j] & ~R[j] : 0u;
+      R[j] |= v;
+      unsigned w = c < g.C - 1 ? BG[last] & bot[j] & ~R[last] : 0u;
+      R[last] |= w;
+      gain |= (v | w) != 0u;
+    }
+    gain = __syncthreads_or(gain);
+    if (threadIdx.x < g.C)
+      *cl.map_shared_rank(&s_gain[c], threadIdx.x) = gain;
+    // A block that gained nothing stores its rows between its arrival at
+    // the cluster barrier and its wait (after the arrival, so that the
+    // barrier's release does not wait for them); it stores them again
+    // only if a later round changes them.
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    if (!gain && !stored) store();
+    stored = !gain;
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    if (!__syncthreads_or(threadIdx.x < g.C && s_gain[threadIdx.x])) break;
+  }
+  if (!stored) store();
+}
+
+// Whether the shard fill of H x W shards runs on a cluster (k_fill_shard):
+// W <= 4096 and a block's rows fit its shared memory.
+inline int shard_cluster_fits(const ShardGeom& g, bool* fits) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  *fits = g.nw <= kShardMaxWords && shard_smem(g) <= (size_t)optin;
+  return 0;
+}
+
+template <int N, bool kVec>
+int launch_fill_shard(const ShardGeom& g, int B, const uint8_t* mask,
+                      uint8_t* filled, cudaStream_t st) {
+  auto kernel = k_fill_shard<N, kVec>;
+  size_t smem = shard_smem(g);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && g.C > 8)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.C, B);
+  cfg.blockDim = dim3(kShardThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, g, mask, filled);
+  if (e != cudaSuccess) return (int)e;
+  HD_CHECK();
+  return 0;
+}
+
+template <bool kVec>
+int launch_fill_shard(const ShardGeom& g, int B, const uint8_t* mask,
+                      uint8_t* filled, cudaStream_t st) {
+  if (g.nw <= 32) return launch_fill_shard<1, kVec>(g, B, mask, filled, st);
+  if (g.nw <= 64) return launch_fill_shard<2, kVec>(g, B, mask, filled, st);
+  return launch_fill_shard<4, kVec>(g, B, mask, filled, st);
+}
+
 }  // namespace
 
 // Entries of hd_flood_fill's table per frame.
@@ -272,15 +662,41 @@ extern "C" int hd_flood_fill(const uint8_t* mask, int B, int H, int W,
 // hd_flood_fill on a shard: mask u8 [B, H, W] holds rows row_off .. row_off
 // + H - 1 of frames of Hg rows; halo_top / halo_bot u8 [B, W] (nonzero =
 // reached) the rows across the shard's first / last row, null where that
-// row is the frame's.  Scratch and outputs as in hd_flood_fill.
+// row is the frame's.  One launch of k_fill_shard where
+// hd_flood_fill_sp_cluster(H, W) is 1 (table may then be null), else the
+// tile union-find with table int32 [B, hd_flood_entries(H, W)] as
+// hd_flood_fill's.  active as in hd_flood_fill.  Returns the first CUDA
+// error.
 extern "C" int hd_flood_fill_sp(const uint8_t* mask, int B, int H, int W,
                                 int row_off, int Hg, const uint8_t* halo_top,
                                 const uint8_t* halo_bot, const int* active,
                                 int32_t* table, uint8_t* filled,
                                 void* stream) {
-  return launch_flood_fill(mask, B, H, W, active, table, filled,
-                           (cudaStream_t)stream, row_off, Hg, halo_top,
-                           halo_bot);
+  cudaStream_t st = (cudaStream_t)stream;
+  ShardGeom g = shard_geom(H, W, row_off, Hg, halo_top, halo_bot, active);
+  bool fits = false;
+  int err = shard_cluster_fits(g, &fits);
+  if (err) return err;
+  if (!fits)
+    return launch_flood_fill(mask, B, H, W, active, table, filled, st,
+                             row_off, Hg, halo_top, halo_bot);
+  if (B == 0) return 0;
+  auto aligned = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  bool vec = W % 32 == 0 && aligned(mask) && aligned(filled) &&
+             (halo_top == nullptr || aligned(halo_top)) &&
+             (halo_bot == nullptr || aligned(halo_bot));
+  return vec ? launch_fill_shard<true>(g, B, mask, filled, st)
+             : launch_fill_shard<false>(g, B, mask, filled, st);
+}
+
+// 1 where hd_flood_fill_sp runs H x W shards on a cluster (one launch), 0
+// where it takes the tile union-find (3 launches, 2 at one tile), minus a
+// CUDA error.
+extern "C" int hd_flood_fill_sp_cluster(int H, int W) {
+  bool fits = false;
+  int err = shard_cluster_fits(
+      shard_geom(H, W, 0, H, nullptr, nullptr, nullptr), &fits);
+  return err ? -err : (int)fits;
 }
 
 static int band_ccl(const uint8_t* mask, int B, int H, int W, int band,

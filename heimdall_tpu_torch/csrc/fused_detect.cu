@@ -45,12 +45,13 @@
 // for the 2 MP routes, as one launch over shared-memory tiles (the tile
 // preprocess of preprocess_tile.cuh): no plane of scratch, and its bound
 // is the mean's 44 uncontracted float operations a pixel on the SMs' 128
-// FP32 lanes, above its 3 (Mono8) or 5 (BGR) bytes a pixel.  hd_label and
-// hd_stats_from_labels are the two-kernel split of the detect (the
-// profiling path, heimdall_tpu_torch/ops/split_kernels.py): hd_label's
-// stages are the profilers' truncations, each reached by the same kernels
-// as the detect (the one-pass preprocess stopped at the stage, then the
-// tile fill and the tile labels).
+// FP32 lanes, above its 3 (Mono8) or 5 (BGR) bytes a pixel.  hd_label is
+// the first kernel of the two-kernel split of the detect (the profiling
+// path, heimdall_tpu_torch/ops/split_kernels.py; the second,
+// hd_stats_from_labels, is in stats_labels.cu): its stages are the
+// profilers' truncations, each reached by the same kernels as the detect
+// (the one-pass preprocess stopped at the stage, then the tile fill and
+// the tile labels).
 
 #include "preprocess_tile.cuh"
 #include "tile_uf.cuh"
@@ -72,17 +73,6 @@ __global__ void k_gray(Frames f, Geom g, uint8_t* gray) {
 }
 
 // ------------------------------------------------------------ roots, slots
-
-// hd_stats_from_labels' first pass: gray from the frame, and foreground as
-// label != H*W, the planes that the fused detect's stats passes read.
-__global__ void k_from_labels(Frames f, Geom g, const int32_t* labels,
-                              uint8_t* gray, uint8_t* fg) {
-  Pix q = pix(g);
-  if (!q.in) return;
-  long long o = q.b * g.HW + q.p;
-  gray[o] = (uint8_t)gray_at(f, q.b, q.p);
-  fg[o] = labels[o] != (int)g.HW;
-}
 
 // One block per (row, frame): raster rank of each root within its row
 // (written at the root's pixel in `rank`) and the row's root count.
@@ -135,12 +125,8 @@ __global__ void k_frame_roots(Geom g, int K, const int32_t* rowcnt,
 // Per-slot sums and bbox over a 32 x 64 tile per block: each warp reduces
 // when all its lanes share a slot (the common case inside a blob), else its
 // lanes add one by one; the block then adds its shared totals to the
-// outputs with one atomic per touched slot and statistic.  kAnyLabels (the
-// stats kernel from a given label plane) gives a pixel a slot only if its
-// label names a root, a pixel whose label is its own index, as the TPU stats
-// kernel does; rank holds nothing at other pixels.  The fused detect's
-// labels always name a root, so it skips that read.
-template <bool kAnyLabels>
+// outputs with one atomic per touched slot and statistic.  The fused
+// detect's labels always name a root, so a pixel's slot is its root's rank.
 __global__ void k_stats(Frames f, Geom g, int K, const uint8_t* fg,
                         const int32_t* labels, const int32_t* rank,
                         const int32_t* rowoff, const uint8_t* gray,
@@ -172,9 +158,7 @@ __global__ void k_stats(Frames f, Geom g, int K, const uint8_t* fg,
     int v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     if (in && fg[base + p]) {
       int root = labels[base + p];
-      int s = !kAnyLabels || labels[base + root] == root
-                  ? rowoff[(long long)b * g.H + root / g.W] + rank[base + root]
-                  : K;
+      int s = rowoff[(long long)b * g.H + root / g.W] + rank[base + root];
       if (s < K) {
         slot = s;
         bool bnd = x == 0 || y == 0 || x == g.W - 1 || y == g.H - 1 ||
@@ -267,9 +251,8 @@ __global__ void k_bbox_sums(Frames f, Geom g, int K, const int32_t* nblobs,
 // The first-K-root statistics from the foreground plane fg (0/1), the label
 // plane and the gray plane: slot ranking (rank int32 [B, H, W] and rowcnt /
 // rowoff int32 [B, H] are scratch), per-slot sums and bbox, bbox-window sums
-// and the blob count.  sums and bgsum must be zeroed by the caller.  With
-// any_labels, a label that is not a root's index gives no slot (k_stats).
-int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
+// and the blob count.  sums and bgsum must be zeroed by the caller.
+int launch_stats(const Frames& f, const Geom& g, int B, int K,
                  const uint8_t* fg, const int32_t* labels, int32_t* rank,
                  int32_t* rowcnt, int32_t* rowoff, const uint8_t* gray,
                  int32_t* sums, int32_t* bbox, int32_t* bgsum,
@@ -282,12 +265,8 @@ int launch_stats(const Frames& f, const Geom& g, int B, int K, bool any_labels,
   dim3 sgrid((g.W + kTileW - 1) / kTileW, (g.H + kStatsRows - 1) / kStatsRows,
              B);
   size_t smem = (size_t)11 * K * sizeof(int);
-  if (any_labels)
-    k_stats<true><<<sgrid, blk, smem, st>>>(f, g, K, fg, labels, rank, rowoff,
-                                           gray, sums, bbox);
-  else
-    k_stats<false><<<sgrid, blk, smem, st>>>(f, g, K, fg, labels, rank,
-                                            rowoff, gray, sums, bbox);
+  k_stats<<<sgrid, blk, smem, st>>>(f, g, K, fg, labels, rank, rowoff, gray,
+                                    sums, bbox);
   HD_CHECK();
   k_bbox_sums<<<dim3(K, B), 256, 0, st>>>(f, g, K, nblobs, gray, bbox, bgsum);
   HD_CHECK();
@@ -383,8 +362,8 @@ extern "C" int hd_fused_detect(
                                     st);
   Geom g{H, W, (long long)H * W, H, 1};
   Frames f{frames, C, (long long)C * g.HW, cstride, pstride};
-  if (!err) err = launch_stats(f, g, B, K, false, mask, labels, rank, rowcnt,
-                               rowoff, gray, sums, bbox, bgsum, nblobs, st);
+  if (!err) err = launch_stats(f, g, B, K, mask, labels, rank, rowcnt, rowoff,
+                               gray, sums, bbox, bgsum, nblobs, st);
   return err;
 }
 
@@ -403,11 +382,11 @@ extern "C" int hd_fused_detect_launches(int H, int W) {
 
 // ------------------------------------------------- the two-kernel split
 //
-// hd_label and hd_stats_from_labels replace the split of the fused Pallas
+// hd_label replaces the first kernel of the split of the fused Pallas
 // kernel that heimdall_tpu's profiler runs (scripts/profile_fused.py):
-// pallas_kernels.py::_make_label_kernel (frame -> label plane) and
-// ::_make_stats_kernel (frame + label plane -> the fused kernel's tables),
-// and the profilers' truncations of the label kernel
+// pallas_kernels.py::_make_label_kernel (frame -> label plane; the second,
+// ::_make_stats_kernel, is stats_labels.cu's hd_stats_from_labels), and
+// the profilers' truncations of the label kernel
 // (scripts/profile_fused.py, scripts/profile_preprocess.py), which are
 // hd_label's stages.  Both take BGR planes [B, 3, H, W]; B6b(frame) then
 // B6a(frame, labels) gives the fused detect's outputs.  hd_label reaches
@@ -416,13 +395,10 @@ extern "C" int hd_fused_detect_launches(int H, int W) {
 // stage; fill by pre, then the tile fill in place (tile_uf.cuh, 3
 // launches, 2 for a frame of one tile); ccl by fill, then the foreground
 // tile labels with one band of H rows (3 launches, 2 at one tile).  So it
-// launches 1 kernel up to pre, 4 at fill and 7 at ccl.
-// hd_stats_from_labels runs the fused detect's stats passes.  What bounds
-// them on an H100 SXM: hd_label reads the frame (3 B/px) and writes one
-// plane (1 B/px, 4 B/px for the labels), and from mean11 on computes the
-// mean's 44 float operations a pixel, which take longer than those bytes;
-// hd_stats_from_labels reads the frame and the labels (7 B/px) and writes
-// ~4 KB of tables.
+// launches 1 kernel up to pre, 4 at fill and 7 at ccl.  What bounds it on
+// an H100 SXM: it reads the frame (3 B/px) and writes one plane (1 B/px, 4
+// B/px for the labels), and from mean11 on computes the mean's 44 float
+// operations a pixel, which take longer than those bytes.
 
 // Frame -> the plane of `stage`: gray, the Q8 blur5, the INV threshold of
 // the f32 mean11 as 0/255, the opened and closed mask (0/1) or the
@@ -475,28 +451,3 @@ extern "C" int hd_label_launches(int stage, int H, int W) {
   int per = hd_label_tiles(H, W) > 1 ? 3 : 2;
   return 1 + (stage >= kFill ? per : 0) + (stage >= kCcl ? per : 0);
 }
-
-// Frame + label plane -> the fused detect's tables: sums [B,8,K], bbox
-// [B,4,K], bgsum [B,4,K] (sums and bgsum zeroed by the caller) and n [B].
-// Foreground is label != H*W and a root is a pixel whose label is its own
-// linear index; a pixel belongs to the slot of the root its label names, and
-// to none if its label names no root.  labels: int32 in [0, H*W].
-// Scratch: gray/fg u8 and rank int32 [B, H, W], rowcnt/rowoff int32 [B, H].
-extern "C" int hd_stats_from_labels(
-    const uint8_t* frames, int B, int H, int W, int K, const int32_t* labels,
-    uint8_t* gray, uint8_t* fg, int32_t* rank, int32_t* rowcnt,
-    int32_t* rowoff, int32_t* sums, int32_t* bbox, int32_t* bgsum,
-    int32_t* nblobs, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  Geom g{H, W, (long long)H * W, H, 1};
-  Frames f{frames, 3, 3 * g.HW, g.HW, 1};
-  dim3 blk(kTileW, kTileH);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  k_from_labels<<<grid, blk, 0, st>>>(f, g, labels, gray, fg);
-  HD_CHECK();
-  return launch_stats(f, g, B, K, true, fg, labels, rank, rowcnt, rowoff,
-                      gray, sums, bbox, bgsum, nblobs, st);
-}
-
-// Number of kernel launches one hd_stats_from_labels call makes.
-extern "C" int hd_stats_from_labels_launches() { return 5; }

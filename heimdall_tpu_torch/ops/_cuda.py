@@ -39,8 +39,11 @@ SIGNATURES = {
                           _P],
         "hd_label": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
         "hd_label_launches": [_I, _I, _I],
+    },
+    "stats_labels": {
         "hd_stats_from_labels": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _P],
+                                 _P],
+        "hd_stats_scratch": [_I, _I, _I],
         "hd_stats_from_labels_launches": [],
     },
     "ccl_tiled": {
@@ -51,6 +54,7 @@ SIGNATURES = {
                            _P, _P, _P, _P],
         "hd_flood_fill_sp": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                              _P],
+        "hd_flood_fill_sp_cluster": [_I, _I],
         "hd_band_ccl_sp": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P],
     },

@@ -29,11 +29,13 @@ running its plain PyTorch version on a CPU tensor:
   incidence.
 
 On a shard of a frame's rows (one rank's rows on a multi-device mesh,
-parallel/tiled_sp.py), two more wrappers launch the same kernels with the
-frame's geometry:
+parallel/tiled_sp.py), two more wrappers take the frame's geometry:
 
-* ``flood_fill_sp`` (B5b on a shard): one round of the fill, with the
-  frame's border and the neighbouring shards' reached edge rows as halos;
+* ``flood_fill_sp`` (B5b-sp): one round of the fill, with the frame's
+  border and the neighbouring shards' reached edge rows as halos, in one
+  launch on a thread-block cluster a frame-shard (bit-parallel passes over
+  the shard held in shared memory) where it fits, else by flood_fill's
+  tile union-find;
 * ``band_ccl_sp`` (B5a on a shard): the band labels and root tables in the
   frame's linear indices, and each band's first and last label rows.
 
@@ -123,12 +125,20 @@ def flood_fill_sp(mask: torch.Tensor, row_off: int, H: int, halo_top=None,
     """One round of the hole fill on a shard (see flood_sp_reference):
     filled bool [B, Hl, W].  halo_top / halo_bot: u8 [B, W] rows of the
     shards above and below (reached = nonzero), None where the shard's row
-    is the frame's first or last."""
+    is the frame's first or last.
+
+    On the card a call is one launch on a thread-block cluster a
+    frame-shard (the shard as bits in shared memory, flooded by
+    bit-parallel row and column passes) where the shard fits one
+    (``flood_fill_sp.last_path`` "cluster": W <= 4096 and the rows fit 16
+    blocks' shared memory), else the tile union-find of flood_fill
+    ("tiles", 3 launches); "plain" on the CPU."""
     B, Hl, W = check_mask(mask)
     if not (0 <= row_off and row_off + Hl <= H and H * W < 2**31 - 1):
         raise ValueError(f"rows {row_off}..{row_off + Hl} of a frame of "
                          f"{H}x{W}")
     if mask.device.type == "cpu":
+        flood_fill_sp.last_path = "plain"
         return flood_sp_reference(mask, row_off, H, halo_top, halo_bot)
     from heimdall_tpu_torch.ops import _cuda
 
@@ -137,18 +147,23 @@ def flood_fill_sp(mask: torch.Tensor, row_off: int, H: int, halo_top=None,
         if h is not None:
             check_cuda(h, "halo", (torch.uint8,), (B, W))
     lib = _cuda.library("ccl_tiled")
+    cluster = lib.hd_flood_fill_sp_cluster(Hl, W)
+    raise_on(max(-cluster, 0), "flood_fill_sp")
     filled, table = alloc(mask.device, ((B, Hl, W), torch.bool),
-                          ((B, lib.hd_flood_entries(Hl, W)), torch.int32))
+                          ((B, 0 if cluster else lib.hd_flood_entries(Hl, W)),
+                           torch.int32))
     raise_on(lib.hd_flood_fill_sp(
         mask.data_ptr(), B, Hl, W, row_off, H,
         None if halo_top is None else halo_top.data_ptr(),
         None if halo_bot is None else halo_bot.data_ptr(), None,
         table.data_ptr(), filled.data_ptr(), stream(mask)), "flood_fill_sp")
     flood_fill_sp.launches += 1
+    flood_fill_sp.last_path = "cluster" if cluster else "tiles"
     return filled
 
 
 flood_fill_sp.launches = 0
+flood_fill_sp.last_path = None
 
 
 # ------------------------------------------------------- band-local labels

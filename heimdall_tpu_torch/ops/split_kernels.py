@@ -11,8 +11,9 @@ Both take BGR planes [B, 3, H, W] uint8 (the layout of the Pallas kernels'
 blocks).  On a CUDA tensor each wrapper launches its hand-written kernels
 of csrc/fused_detect.cu (hd_label: the fused detect's one-pass preprocess
 stopped at the stage, its tile fill and its tile labels;
-hd_stats_from_labels) and raises if it cannot; on a CPU tensor it runs its
-plain version.  stats_kernel on label_kernel's labels gives
+and csrc/stats_labels.cu's hd_stats_from_labels: two passes over the label
+plane, then the bbox windows) and raises if it cannot; on a CPU tensor it
+runs its plain version.  stats_kernel on label_kernel's labels gives
 contamination_fused's outputs, field for field.
 """
 
@@ -143,9 +144,13 @@ def stats_kernel(frames: torch.Tensor, labels: torch.Tensor,
     n_blobs i32 [B]) over the first K roots in raster order.  Background is
     H*W; a root is a pixel whose label is its own linear index; a pixel
     belongs to the slot of the root its label names, or to none if it names
-    no root; y0 is the root's row (label_kernel's labels name their
-    component's first raster pixel).  Slots past min(n, K) are zero.
-    ``stats_kernel.launches`` counts kernel launches."""
+    no root or a root ranked K or later; y0 is the root's row (label_kernel's
+    labels name their component's first raster pixel).  Slots past min(n, K)
+    are zero.  On the card a call launches
+    ``hd_stats_from_labels_launches()`` CUDA kernels (3): the roots of each
+    8192-pixel chunk, the per-slot sums over 128 x 32 strips (a warp
+    each), the bbox windows; no plane of scratch.  ``stats_kernel.launches``
+    counts wrapper calls that launched."""
     B, H, W = check_frames(frames)
     K = max_blobs
     if not 1 <= K <= 1024:
@@ -161,20 +166,14 @@ def stats_kernel(frames: torch.Tensor, labels: torch.Tensor,
 
     _launch.check_cuda(frames, "frames", (torch.uint8,))
     _launch.check_cuda(labels, "labels", (torch.int32,))
-    dev = frames.device
-    i32 = torch.int32
-    sums = torch.zeros((B, N_SUMS, K), dtype=i32, device=dev)
-    bgsum = torch.zeros((B, 4, K), dtype=i32, device=dev)
-    bbox = torch.empty((B, 4, K), dtype=i32, device=dev)
-    n = torch.empty((B,), dtype=i32, device=dev)
-    gray, fg = (torch.empty((B, H, W), dtype=torch.uint8, device=dev)
-                for _ in range(2))
-    rank = torch.empty((B, H, W), dtype=i32, device=dev)
-    rowcnt, rowoff = (torch.empty((B, H), dtype=i32, device=dev)
-                      for _ in range(2))
-    err = _cuda.library("fused_detect").hd_stats_from_labels(
-        frames.data_ptr(), B, H, W, K, labels.data_ptr(), gray.data_ptr(),
-        fg.data_ptr(), rank.data_ptr(), rowcnt.data_ptr(), rowoff.data_ptr(),
+    lib = _cuda.library("stats_labels")
+    sums, bbox, bgsum, n, scratch = _launch.alloc(
+        frames.device, ((B, N_SUMS, K), torch.int32),
+        ((B, 4, K), torch.int32), ((B, 4, K), torch.int32),
+        ((B,), torch.int32),
+        ((B, lib.hd_stats_scratch(H, W, K)), torch.int32))
+    err = lib.hd_stats_from_labels(
+        frames.data_ptr(), B, H, W, K, labels.data_ptr(), scratch.data_ptr(),
         sums.data_ptr(), bbox.data_ptr(), bgsum.data_ptr(), n.data_ptr(),
         _launch.stream(frames))
     _launch.raise_on(err, "stats")

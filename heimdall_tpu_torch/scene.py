@@ -8,9 +8,11 @@ contaminant discs drawn from a seeded RandomState.  Beside it: the
 adversarial masks, the run-table check's masks, and the masks and frames
 that attack the 2 MP kernels' tiles (tile_case_masks, tile_case_frames),
 the masks that attack the labeling's tiles (label_case_masks), the
-run-table cases (run_case_masks, fix_case_masks) and the masks whose bbox
-windows attack the bbox-window sums (window_case_masks), shared by the tests
-and chip_smoke.py.
+run-table cases (run_case_masks, fix_case_masks), the masks whose bbox
+windows attack the bbox-window sums (window_case_masks), the label planes
+that attack the stats kernel from a label plane (stats_case_labels) and a
+maze whose corridor crosses a shard's cut row twice (cut_maze_mask),
+shared by the tests and chip_smoke.py.
 """
 
 import numpy as np
@@ -118,6 +120,104 @@ def non_root_labels(labels):
         lab[roots[3]] = roots[0]
         lab[lab == roots[4]] = roots[5]
     return out
+
+
+def cut_maze_mask(h, w, cut):
+    """A foreground mask [h, w] with a background corridor from the left
+    border that crosses row ``cut`` down and back up again and ends in a
+    dead end above it, and a one-pixel hole: cut there, the shard above
+    reaches the dead end only through the shard below (3 <= cut <= h - 3,
+    w >= 9)."""
+    m = np.ones((h, w), bool)
+    top, low = max(cut - 4, 1), min(cut + 3, h - 2)
+    m[top, :w // 3 + 1] = False                  # from the border
+    m[top:low + 1, w // 3] = False               # down across the cut
+    m[low, w // 3:2 * w // 3 + 1] = False
+    m[top:low + 1, 2 * w // 3] = False           # back up across it
+    m[top, 2 * w // 3:w - 3] = False             # dead end
+    m[low - 1, 3] = False                        # a hole
+    return m
+
+
+# The sizes at which the stats kernel's cases are checked on the card.
+STATS_CASE_SIZES = ((480, 640), (477, 631), (13, 17), (3, 3))
+
+
+def _labels_from_roots(h, w, roots, rng, p_bg=0.3, p_far=0.15,
+                       p_none=0.1):
+    """An int32 label plane [h, w] whose roots (pixels labelled with their
+    own index) are exactly ``roots``: each other pixel is background (h*w)
+    with probability p_bg, else it names a random root (p_far; maybe one
+    ranked K or later), a random pixel (p_none; mostly no root), or the
+    last root at or before it in raster order (background before the
+    first root)."""
+    hw = h * w
+    roots = np.unique(np.asarray(roots, np.int64))
+    p = np.arange(hw)
+    at = np.searchsorted(roots, p, side="right") - 1
+    lab = np.where(at >= 0, roots[np.maximum(at, 0)], hw)
+    u = rng.rand(hw)
+    if len(roots):
+        lab = np.where(u < p_far, roots[rng.randint(0, len(roots), hw)], lab)
+    lab = np.where((u >= p_far) & (u < p_far + p_none),
+                   rng.randint(0, hw, hw), lab)
+    lab = np.where(u > 1 - p_bg, hw, lab)
+    is_root = np.zeros(hw, bool)
+    is_root[roots] = True
+    lab[(lab == p) & ~is_root] = hw      # only the roots name themselves
+    lab[roots] = roots
+    return lab.reshape(h, w).astype(np.int32)
+
+
+def stats_case_labels(h, w, k, seed=0):
+    """Label planes that attack the stats kernel from a label plane (B6a)
+    at K = k, by name (int32 [h, w], background h*w):
+
+    * background, foreground: no pixel labelled; every pixel labelled 0
+      (one root);
+    * kth_root_mid_row: the k-th root (rank k - 1) in the middle of row h //
+      2 and the (k+1)-th right beside it, with k - 1 roots before and up to
+      k after;
+    * more_roots_than_k: 3 k + 7 roots (or every pixel) anywhere;
+    * last_row_root: a root in the middle of the last row;
+    * every_pixel_a_root: each pixel's label its own index;
+    * non_root_labels: 5 roots, half of the other pixels naming a random
+      pixel.
+
+    Other pixels of the rooted cases are as _labels_from_roots draws them:
+    labels of roots ranked k or later, of non-roots and of roots in rows
+    below."""
+    rng = np.random.RandomState(seed)
+    hw = h * w
+
+    def pick(lo, hi, n):
+        """n distinct pixels of [lo, hi), or all of them."""
+        return lo + rng.choice(hi - lo, size=min(n, hi - lo), replace=False)
+
+    mid = (h // 2) * w + w // 2
+    last = (h - 1) * w + w // 2
+    kth = np.concatenate([pick(0, mid, k - 1), [mid, mid + 1],
+                          pick(mid + 2, hw, k - 1)])
+    return {
+        "background": np.full((h, w), hw, np.int32),
+        "foreground": np.zeros((h, w), np.int32),
+        "kth_root_mid_row": _labels_from_roots(h, w, kth, rng),
+        "more_roots_than_k": _labels_from_roots(h, w,
+                                                pick(0, hw, 3 * k + 7), rng),
+        "last_row_root": _labels_from_roots(
+            h, w, np.concatenate([pick(0, last, k // 2), [last]]), rng,
+            p_bg=0.6),
+        "every_pixel_a_root": np.arange(hw, dtype=np.int32).reshape(h, w),
+        "non_root_labels": _labels_from_roots(h, w, pick(0, hw, 5), rng,
+                                              p_far=0.1, p_none=0.5),
+    }
+
+
+def stats_case_frames(n, h, w, seed=0):
+    """n random BGR frames as planes [n, 3, h, w] uint8 for the stats
+    cases."""
+    return np.random.RandomState(seed).randint(0, 256, (n, 3, h, w),
+                                               dtype=np.uint8)
 
 
 def check_runtable_masks(h=96, w=128):

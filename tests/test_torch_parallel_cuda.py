@@ -1,7 +1,10 @@
 """The multi-device path on the card (marked ``cuda``; each test skips
 where torch.cuda.is_available() is false): the three shard entries
 (flood_fill_sp, band_ccl_sp, banded_stats_sp) against their plain versions
-on scene.tile_case_masks and label_case_masks cut into shards, the
+on scene.tile_case_masks and label_case_masks cut into shards (the fill
+also on the first, a middle and the last of 3 shards of 1, 14 and 270
+rows, with and without halos, on a maze whose corridor crosses a cut row
+twice, and past its cluster's width), the
 spatially-sharded step over a 4-rank world on one card (gloo, collectives
 staged through pinned host buffers) and a 1-rank NCCL world through the
 data-parallel and line steps, each held equal to the single-card
@@ -84,6 +87,47 @@ def test_shard_entries_equal_plain_versions(card, h, w, n):
         for a, b in zip(st.banded_stats_sp(*args, h * w, K, *rows),
                         st.banded_stats_sp_reference(*args, K, *rows)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hl", [1, 14, 270])
+@pytest.mark.parametrize("w", [1920, 517])
+def test_flood_fill_sp_on_its_cluster(card, hl, w):
+    """B5b-sp on its cluster path against its plain version: the first,
+    a middle and the last shard of frames of 3 hl rows, with random reached
+    halos, with all-reached ones and with none on the cut rows; on the tile
+    and label cases and a maze whose corridor crosses a cut row twice."""
+    h = 3 * hl
+    rng = np.random.RandomState(hl + w)
+    masks = _cases(h, w)
+    if hl > 1:
+        masks = np.concatenate([masks, scene.cut_maze_mask(h, w, hl)[None],
+                                scene.cut_maze_mask(h, w, 2 * hl)[None]])
+    masks = torch.from_numpy(masks).to(card)
+    B = masks.shape[0]
+    for i, m in enumerate(_shards(masks, 3)):
+        for halo in ("random", "all", None):
+            halos = [(torch.from_numpy(rng.rand(B, w) < 0.5) if halo ==
+                      "random" else torch.ones(B, w, dtype=torch.bool))
+                     .to(torch.uint8).to(card)
+                     if cut and halo else None for cut in (i > 0, i < 2)]
+            got = ct.flood_fill_sp(m, i * hl, h, *halos)
+            torch.cuda.synchronize()
+            assert ct.flood_fill_sp.last_path == "cluster"
+            assert torch.equal(got, ct.flood_sp_reference(m, i * hl, h,
+                                                          *halos)), (i, halo)
+
+
+@pytest.mark.cuda
+def test_flood_fill_sp_past_a_cluster(card):
+    """A shard wider than 4096 columns takes the tile union-find."""
+    masks = torch.from_numpy(_cases(42, 4100)).to(card)
+    m = _shards(masks, 3)[1]
+    halos = [torch.ones(m.shape[0], 4100, dtype=torch.uint8, device=card),
+             None]
+    got = ct.flood_fill_sp(m, 14, 42, *halos)
+    assert ct.flood_fill_sp.last_path == "tiles"
+    assert torch.equal(got, ct.flood_sp_reference(m, 14, 42, *halos))
 
 
 def _same(got, want):

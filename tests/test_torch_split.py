@@ -13,7 +13,9 @@
    and with joint=True: the port takes none of these TPU settings and gives
    the same labels for all of them.  B6a also on label planes whose
    labels need not name a root (scene.non_root_labels): a pixel takes the
-   slot of the root its label names, or none.
+   slot of the root its label names, or none; and on
+   scene.stats_case_labels at 24x32, 13x17 and 3x3 with K 1 and 5 (the
+   K-th root mid-row, roots past K, every pixel a root, ...).
 2. The label kernel's stages against the profilers' truncated kernels,
    built as scripts/profile_fused.py (pre / fill / ccl) and
    scripts/profile_preprocess.py (gray / blur5 / mean11 / full) build them.
@@ -271,6 +273,75 @@ def test_stats_kernel_on_non_root_labels_matches_pallas(k):
     for name, a, b in zip(("sums", "bbox", "bgsum", "n"), want, got):
         np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
     assert not np.array_equal(want[0], _jax_stats(k)[0])
+
+
+def _pallas_stats_small(frames, labels, k):
+    """The Pallas stats kernel (B6a) in interpret mode on BGR planes
+    [n, 3, h, w] and label planes [n, h, w] of any small size."""
+    n, _, h, w = frames.shape
+    in_specs = [pl.BlockSpec((1, 3, h, w), lambda i, c: (i, 0, 0, 0),
+                             memory_space=pltpu.VMEM),
+                pl.BlockSpec((1, h, w), lambda i, c: (i, 0, 0),
+                             memory_space=pltpu.VMEM)]
+    outs = [(pk.N_SUMS, k), (4, k), (4, k), (1, 1)]
+    out_specs = [pl.BlockSpec((1,) + s, lambda i, c, d=len(s): (i,) +
+                              (0,) * d, memory_space=pltpu.VMEM)
+                 for s in outs]
+    gs = pltpu.PrefetchScalarGridSpec(num_scalar_prefetch=1, grid=(n,),
+                                      in_specs=in_specs, out_specs=out_specs)
+    call = pl.pallas_call(
+        pk._make_stats_kernel(h, w, k), grid_spec=gs,
+        out_shape=tuple(jax.ShapeDtypeStruct((n,) + s, jnp.int32)
+                        for s in outs),
+        interpret=True)
+    sums, bbox, bgsum, meta = (np.asarray(o) for o in call(
+        _ct(), jnp.asarray(frames), jnp.asarray(labels)))
+    return sums, bbox, bgsum, meta[:, 0, 0]
+
+
+@pytest.mark.parametrize("size", [(24, 32), (13, 17), (3, 3)],
+                         ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("k", [1, 5])
+def test_stats_kernel_on_stats_cases_matches_pallas(size, k):
+    """B6a on scene.stats_case_labels: the K-th root in the middle of a
+    row with the (K+1)-th beside it, more roots than K, a root in the last
+    row, every pixel a root, labels naming non-roots and roots ranked K or
+    later, empty and full planes; against the Pallas stats kernel."""
+    labels = np.stack(list(scene.stats_case_labels(*size, k, seed=1)
+                           .values()))
+    frames = scene.stats_case_frames(len(labels), *size, seed=2)
+    want = _pallas_stats_small(frames, labels, k)
+    got = sk.stats_kernel(torch.from_numpy(frames), torch.from_numpy(labels),
+                          k)
+    for name, a, b in zip(("sums", "bbox", "bgsum", "n"), want, got):
+        np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
+    assert (want[3] > k).any()            # slots past K dropped
+
+
+def test_label_stats_bytes_counts_the_windows():
+    """B6a's byte bound (scripts/profile_stats_fill.py, also chip_smoke.py's
+    phase 5d): the label plane, 3 frame bytes of each pixel in the union of
+    the used slots' bbox windows (an overlap once, no slot past min(n, K))
+    and the tables."""
+    from heimdall_tpu_torch.scripts.profile_stats_fill import (
+        label_stats_bytes)
+    labels = torch.zeros((2, 6, 8), dtype=torch.int32)
+    bbox = torch.zeros((2, 4, 3), dtype=torch.int32)
+    # frame 0, x0 y0 x1 y1: 3x3 and 4x4 sharing 2x2, then one pixel
+    bbox[0] = torch.tensor([[1, 2, 7], [0, 1, 5], [3, 5, 7], [2, 4, 5]])
+    bbox[1] = 1                          # frame 1 has no blob
+    n = torch.tensor([4, 0], dtype=torch.int32)
+    assert label_stats_bytes(labels, (None, bbox, None, n)) == (
+        2 * 6 * 8 * 4 + (9 + 16 - 4 + 1) * 3 + 2 * (16 * 3 + 1) * 4)
+
+
+def test_profile_stats_fill_needs_a_card(monkeypatch):
+    from heimdall_tpu_torch.scripts import profile_stats_fill
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        profile_stats_fill.main([])
+    with pytest.raises(SystemExit, match="usage"):
+        profile_stats_fill.main(["x"])
 
 
 @pytest.mark.parametrize("k", [64, 4])

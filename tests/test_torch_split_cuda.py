@@ -12,7 +12,12 @@ uniform frames, every stage runs on the cases that attack the kernels it
 is made of (heimdall_tpu_torch/scene.py): the preprocess's tiles
 (tile_case_frames), the labels' tiles (label_case_masks drawn as frames),
 the union-finds' row blocks (fix_case_masks drawn) and the bit cases
-(bit_case_frames), at contrast 15 and -15.
+(bit_case_frames), at contrast 15 and -15.  The stats kernel also runs on
+label planes that attack its two passes over the labels
+(scene.stats_case_labels at scene.STATS_CASE_SIZES, K 1, 64 and 1024: the
+K-th root mid-row, roots past K, every pixel a root, labels naming
+non-roots and roots ranked K or later, a root in the last row, empty and
+full planes), into memory that held other values.
 """
 
 import numpy as np
@@ -118,3 +123,23 @@ def test_label_kernel_on_case_frames(card, case, ct):
     for a, b in zip(sk.stats_kernel(x, labels, 64),
                     contamination_fused(x, ct, 64, channel_major=True)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", scene.STATS_CASE_SIZES,
+                         ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("k", [1, 64, 1024])
+def test_stats_kernel_on_stats_cases(card, size, k):
+    labels = torch.from_numpy(np.stack(list(
+        scene.stats_case_labels(*size, k, seed=1).values()))).to(card)
+    x = torch.from_numpy(scene.stats_case_frames(len(labels), *size,
+                                                 seed=2)).to(card)
+    junk = torch.full((1 << 22,), -7, dtype=torch.int32, device=card)
+    del junk                    # the outputs' memory held other values
+    got = sk.stats_kernel(x, labels, k)
+    torch.cuda.synchronize()
+    want = sk.stats_kernel_reference(x, labels, k)
+    for name, a, b in zip(("sums", "bbox", "bgsum", "n"), got, want):
+        assert torch.equal(a, b), name
+    # more roots than K, or every pixel a root
+    assert int(want[3].max()) > min(k, size[0] * size[1] - 1)
