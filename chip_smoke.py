@@ -124,6 +124,9 @@ Phases (each prints a line; any failure exits non-zero without a result):
         steps, 480x640 planes, 960x640 for seg_min_step) against their
         plain versions, whole plane, at N = 1, 4 and 36, on the script's
         planes (batch 256) and on 16 planes of a second seed in [-60, 60);
+        then at the edges of the kernels' layouts (PRIM_EDGE_SHAPES; the
+        cross-row steps also at PRIM_CROSS_SHAPES), 4 planes of seed 3 in
+        [-60, 60), at N = 0, 1 and 37, row 0 and the whole plane;
         each plain version and the cumsum variants' torch.cumsum step are
         timed there (N = 36 against N = 4);
   4. drive the detector's main paths, each with every kernel's launch count
@@ -306,8 +309,8 @@ Phases (each prints a line; any failure exits non-zero without a result):
         before and read just after: the port's microbench_vpu (every
         variant at N = 4 and 36, one warm-up and 6 timed calls each: 378
         launches); then each variant's us/op/frame beside its plain
-        version's, its bound (operations) and, for the cumsum variants,
-        the torch.cumsum step's;
+        version's, its bound (operations), twice its bound and, for the
+        cumsum variants, the torch.cumsum step's;
   6. JSON lines: each route's end-to-end and host ms per call, the system
      path's times and traced launches, the line path's figures, the
      serving path's figures (times, launches, the card), the
@@ -447,6 +450,37 @@ PRIM_OPS = {
     "mxu_cumsum": 4, "cumsum_ladder": 21, "masked_min_step": 2,
     "masked_ladder5": 10, "nbmin_guard": 6, "nbmin_masked_sub": 10,
     "or_and_mask": 2, "max_ladder_full": 20, "sublane_mask_add": 2}
+# 3g's shapes at the edges of the primitive kernels' layouts ((rows,
+# columns); seg_min_step twice the rows): columns not a multiple of 32 or of
+# a lane's 20 values, narrower than the ladders' shifts, 639 (the rolls'
+# line buffer); and the cross-row steps' bands of 4 rows a warp, partly
+# empty clusters, a cluster of 16 blocks (700 rows) and a frame of more
+# than 1024 rows (k_cross_rows)
+PRIM_EDGE_SHAPES = ((5, 20), (5, 21), (4, 31), (4, 32), (7, 63), (17, 639))
+PRIM_CROSS_SHAPES = ((1, 640), (2, 640), (8, 640), (17, 640), (479, 640),
+                     (479, 639), (700, 640), (1100, 64))
+PRIM_EDGE_ITERS = (0, 1, 37)
+# The primitive kernels' designs (csrc/primitives.cu), by variant family
+PRIM_DESIGN = {
+    "rows": "a warp per row, 20 values a lane in registers; shifted reads "
+            "are register moves and warp shuffles (blocked layout x = 20 "
+            "lane + j; the 10-rung ladders, add and select strided, x = 32 "
+            "j + lane, rungs of 32 q register renames), no shared memory "
+            "at W = 640",
+    "transpose_pair": "a warp per 32x32 tile in registers as 8x8 blocks of "
+                      "16-bit pairs (int32: low and high planes); each "
+                      "transpose a movmatrix a block and a rename of the "
+                      "blocks, no shared tile",
+    "mxu_cumsum": "16 rows a block; the bf16 operand double-buffered in "
+                  "shared memory, written by the products' epilogue, read "
+                  "as ldmatrix.x4 fragments reused by a warp's 10 column "
+                  "tiles; mma.sync m16n8k16 against the triangle; one "
+                  "block barrier a step, no repack pass",
+    "cross": "a frame per cluster (8 blocks at 480 rows), a band of 4 rows "
+             "a warp in registers; edge rows into the neighbours' halo "
+             "slots (distributed shared memory, double-buffered), one "
+             "split cluster barrier a step with the interior rows between "
+             "its arrival and wait; frames over 1024 rows in shared memory"}
 H100_SMS = 132
 # torch.profiler traces taken before a traced count or listing fails: the
 # card has returned two incomplete traces in a row (cuda_kernels).
@@ -3596,8 +3630,10 @@ def label_kernels_alone(smi, x):
 def primitive_phases(dev, smi):
     """Phases 3g and 5g: the primitive microbench's variants against their
     plain versions (whole plane, N = 1, 4 and 36) on the script's planes and
-    a second seed, timing the plain versions and the cumsum variants'
-    torch.cumsum step on the script's planes by the same differencing; then
+    a second seed, then at the edges of the kernels' layouts
+    (PRIM_EDGE_SHAPES, PRIM_CROSS_SHAPES; N = 0, 1, 37), timing the plain
+    versions and the cumsum variants' torch.cumsum step on the script's
+    planes by the same differencing; then
     the microbench path (the port's microbench_vpu) with its launch count
     set to 0 just before and read just after; returns its entries of the
     kernels line."""
@@ -3651,8 +3687,25 @@ def primitive_phases(dev, smi):
         elif name in library:
             lib_ms[key] = step_ms(repeat(library[name]), x)
         del x
+    rng = np.random.RandomState(3)
+    for name, dtype, _, _ in pr.VARIANTS:
+        key = f"{name}/{dtype}"
+        shapes = PRIM_EDGE_SHAPES + (
+            PRIM_CROSS_SHAPES if name in pr.CROSS_ROW else ())
+        for rows, w in shapes:
+            sub = 2 * rows if name == "seg_min_step" else rows
+            x = torch.from_numpy(rng.randint(-60, 60, (4, sub, w))
+                                 .astype(dtype)).to(dev)
+            for iters in PRIM_EDGE_ITERS:
+                want = pr.primitive_steps_reference(x, name, iters, sub)
+                for out_rows in (1, sub):
+                    got = pr.primitive_steps(x, name, iters, out_rows)
+                    torch.cuda.synchronize()
+                    errs[key] = max(errs[key], max_abs_err(
+                        (got,), (want[:, :out_rows],)))
     phase(f"check primitives (27 variants, whole plane, N = 1, 4, 36, the "
-          f"script's planes and seed 1): max_abs_err {errs}")
+          f"script's planes and seed 1; at the layouts' edges, N = 0, 1, "
+          f"37, row 0 and the whole plane): max_abs_err {errs}")
     if any(errs.values()):
         fail("a primitive microbench kernel differs from its plain version")
 
@@ -3699,6 +3752,9 @@ def primitive_phases(dev, smi):
             "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms[key],
             "bound_ms": bound_ms, "bound_by": "operations",
             "library_ms": lib_ms.get(key),
+            "design": PRIM_DESIGN[
+                name if name in ("transpose_pair", "mxu_cumsum") else
+                "cross" if name in pr.CROSS_ROW else "rows"],
             "library_note": {
                 "mxu_cumsum": "torch.cumsum(v & 1) & 63 step",
                 "cumsum_ladder": "torch.cumsum(v & 1) step",
@@ -3712,9 +3768,11 @@ def primitive_phases(dev, smi):
             "clocks_max_sm_mhz": mhz})
         lib = f"; library call {lib_ms[key] / mb.B * 1e3:.4f}" \
             if key in lib_ms else ""
+        bound_us = bound_ms / mb.B * 1e3
         phase(f"{smi}: primitive {name} {dtype} {r['us_per_op']:.4f} "
-              f"us/op/frame; plain version {plain_ms[key] / mb.B * 1e3:.4f}; "
-              f"bound {bound_ms / mb.B * 1e3:.4f} (operations){lib}")
+              f"us/op/frame; bound {bound_us:.4f} (operations), twice the "
+              f"bound {2 * bound_us:.4f}; plain version "
+              f"{plain_ms[key] / mb.B * 1e3:.4f}{lib}")
     return entries
 
 

@@ -65,7 +65,10 @@ DTYPES = ("int32", "int16", "int8")
 # steps whose rows depend on other rows: one frame per thread block cluster
 CROSS_ROW = ("nbmin8", "nbmin_guard", "nbmin_masked_sub", "sublane_mask_add")
 MAX_W = 640              # one warp's line: 20 values a lane
-CLUSTER = 8              # CTAs of a cross-row frame
+# A cross-row plane is taken where it fits the shared memory of 8 blocks
+# (csrc/primitives.cu: k_cross_rows, which holds frames of more than 1024
+# rows; shorter ones run as bands of rows in registers)
+CLUSTER = 8
 _PEN = 1 << 30           # masked_min_step's and masked_ladder5's edge mask
 _GUARD = 1 << 24         # nbmin_guard's, nbmin_masked_sub's, sublane_mask_add's
 _FLOOR = -(1 << 22)      # max_ladder_full's

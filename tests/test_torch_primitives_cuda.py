@@ -8,9 +8,14 @@ machine with a card:
 Equality is exact (every output is an integer plane).  The planes are the
 script's own (RandomState(0), values in [0, 60)) at a batch of 4, and a
 second seed with values in [-60, 60), at the script's shape and at shapes
-whose rows and columns are not multiples of 32 or of the cluster (9 rows
-leave three blocks of a cluster empty, 3 rows five; 33 columns are
-narrower than the ladders' longest shifts).
+at the edges of the kernels' layouts: rows and columns that are not
+multiples of 32, of 20 (a lane's values in the blocked layout) or of a
+warp's band of 4 rows (9 rows leave bands and blocks of a cluster empty;
+33 columns are narrower than the ladders' longest shifts; 639 columns
+take the rolls' line buffer), and the cross-row steps at 1, 2, 8, 17 and
+479 rows, at 700 (a cluster of 16 blocks) and on frames of more than 1024
+rows (a block's rows in shared memory).  N is 0, 1, 4, 36 and 37.  The narrow types' add, select and
+scans also run on planes at their types' extremes.
 """
 
 import numpy as np
@@ -33,28 +38,66 @@ def card():
 
 def _planes(name, dtype, sub, w):
     """The script's planes of this variant at a batch of 4 (cut to [sub,
-    w]), then 4 planes of a second seed in [-60, 60)."""
+    w], repeated down the rows where sub is taller), then 4 planes of a
+    second seed in [-60, 60)."""
     first = next(x for n, d, x in pr.inputs(only={name}, batch=4)
                  if d == dtype)
+    first = np.tile(first, (1, -(-sub // first.shape[1]), 1))
     second = np.random.RandomState(1).randint(-60, 60, (4, sub, w))
     return torch.from_numpy(np.concatenate(
         [first[:, :sub, :w], second.astype(dtype)]))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("variant", pr.VARIANTS, ids=IDS)
-@pytest.mark.parametrize("shape", [(480, 640), (77, 600), (9, 33), (3, 1)])
-def test_kernel_equals_plain(card, variant, shape):
-    name, dtype, _, _ = variant
-    rows, w = shape
-    x = _planes(name, dtype, 2 * rows if name == "seg_min_step" else rows,
-                w).to(card)
-    for iters in (1, 4, 36):
+def _check_equal(x, name):
+    for iters in ITERS:
         for out_rows in (1, x.shape[1]):
             got = pr.primitive_steps(x, name, iters, out_rows)
             want = pr.primitive_steps_reference(x, name, iters, out_rows)
             torch.cuda.synchronize()
-            assert torch.equal(got, want), (name, dtype, iters, out_rows)
+            assert torch.equal(got, want), (name, x.dtype, tuple(x.shape),
+                                            iters, out_rows)
+
+
+ITERS = (0, 1, 4, 36, 37)
+CROSS = [v for v in pr.VARIANTS if v[0] in pr.CROSS_ROW]
+NARROW = [v for v in pr.VARIANTS if v[1] != "int32" and v[0] in (
+    "add", "select", "min_scan_step", "max_scan_step")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", pr.VARIANTS, ids=IDS)
+@pytest.mark.parametrize("shape", [(480, 640), (77, 600), (9, 33), (3, 1),
+                                   (5, 20), (5, 21), (4, 31), (4, 32),
+                                   (7, 63), (17, 639)])
+def test_kernel_equals_plain(card, variant, shape):
+    name, dtype, _, _ = variant
+    rows, w = shape
+    _check_equal(_planes(name, dtype,
+                         2 * rows if name == "seg_min_step" else rows,
+                         w).to(card), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", CROSS,
+                         ids=[f"{n}-{d}" for n, d, _, _ in CROSS])
+@pytest.mark.parametrize("shape", [(1, 640), (2, 640), (8, 640), (17, 640),
+                                   (479, 640), (479, 639), (700, 640),
+                                   (1100, 64)])
+def test_cross_rows_equal_plain(card, variant, shape):
+    name, dtype, _, _ = variant
+    _check_equal(_planes(name, dtype, *shape).to(card), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", NARROW,
+                         ids=[f"{n}-{d}" for n, d, _, _ in NARROW])
+def test_narrow_types_at_their_extremes(card, variant):
+    name, dtype, _, _ = variant
+    info = np.iinfo(dtype)
+    edges = np.array([info.min, info.min + 1, -1, 0, 1, info.max - 1,
+                      info.max], dtype)
+    x = np.random.RandomState(2).choice(edges, (4, 33, 640))
+    _check_equal(torch.from_numpy(x).to(card), name)
 
 
 @pytest.mark.cuda
